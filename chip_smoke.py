@@ -1,0 +1,491 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch port (veneur_tpu_torch) on one NVIDIA card.
+
+    python3 chip_smoke.py [--json PATH]
+
+Phases, each printed on its own lines; any mismatch raises and the
+script exits non-zero:
+
+1. setup: card name and power limit (nvidia-smi), nvcc build of every
+   kernel of the path from the sources in this checkout.
+2. kernel vs plain on the card: the flush extract kernel against its
+   plain PyTorch version at S = 1,048,576 and S = 1,000,003 rows and at
+   the main path's shapes (131,072 and 1,024 rows), C = 128,
+   qs = [0.5, 0.9, 0.99], seeded numpy pools with empty, single-centroid
+   and full rows. All P+10 columns bitwise equal (NaN positions equal);
+   median times of both at S = 1,048,576.
+3. one worker interval at the mixed configuration of BASELINE.md
+   (100k series): 80,000 histogram/timer series made through
+   process_metric, 40 samples each staged through _device_histo_step,
+   1,000 hot series with 200 samples each (past stage depth 64, so the
+   spill fold runs), 10,000 counters, 9,000 gauges, sampled timers; then
+   flush. The same interval on a second worker on the CPU must give
+   bitwise the same snapshot.
+4. server: the port's Server built by its factory with a UDP listener on
+   port 0 and a channel sink answers a few hundred real datagrams; one
+   flush; its InterMetrics equal a CPU server's over the same datagrams.
+5. a ``kernels`` JSON line: every kernel with its launches on the main
+   path (phases 3 and 4, counts reset just before, read just after), its
+   agreement with the plain version, its time, the plain time and its
+   bound.
+6. the last line: {"ok": true, "device": {...}}.
+
+Without CUDA, or without the veneur_tpu_torch package beside it, the
+script prints no result and exits 2. It imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import contextlib
+import json
+import struct
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+
+S_FULL = 1_048_576
+S_RAGGED = 1_000_003
+QS = [0.5, 0.9, 0.99]
+# the worker interval (BASELINE.md mixed configuration, 100k series)
+N_HIST, N_HOT, N_COUNTERS, N_GAUGES = 80_000, 1_000, 10_000, 9_000
+DEVICE = "cuda"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
+F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def bitwise_equal(a, b) -> tuple[bool, float]:
+    """(bits equal with NaN positions equal, max |a - b| over non-NaN)."""
+    import torch
+
+    na, nb = torch.isnan(a), torch.isnan(b)
+    if not torch.equal(na, nb):
+        return False, float("inf")
+    ok = ~na
+    va, vb = a[ok], b[ok]
+    fin = torch.isfinite(va) & torch.isfinite(vb)
+    err = float((va[fin] - vb[fin]).abs().max()) if fin.any() else 0.0
+    return torch.equal(va.view(torch.int32), vb.view(torch.int32)), err
+
+
+def sync() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.synchronize()
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Median milliseconds of fn() on the card (CUDA events per call)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = torch.cuda.Event(enable_timing=True)
+        t1 = torch.cuda.Event(enable_timing=True)
+        t0.record()
+        fn()
+        t1.record()
+        t1.synchronize()
+        times.append(t0.elapsed_time(t1))
+    times.sort()
+    return times[len(times) // 2]
+
+
+# -- phase 2 ------------------------------------------------------------------
+
+
+def make_pool(s: int, seed: int):
+    """Seeded numpy pool state (14 f32 fields): row occupancy 0 (5%),
+    1 (5%), full 128 (10%), else uniform; means ascending per row, +inf
+    and weight 0 past the occupancy."""
+    import numpy as np
+
+    c = 128
+    rng = np.random.default_rng(seed)
+    kind = rng.random(s)
+    occ = rng.integers(2, c, s)
+    occ[kind < 0.05] = 0
+    occ[(kind >= 0.05) & (kind < 0.10)] = 1
+    occ[(kind >= 0.10) & (kind < 0.20)] = c
+    steps = rng.random((s, c), dtype=np.float32) * np.float32(3.0)
+    means = np.cumsum(steps, axis=1, dtype=np.float32)
+    means += rng.normal(100.0, 40.0, (s, 1)).astype(np.float32)
+    weights = rng.integers(1, 50, (s, c)).astype(np.float32)
+    empty = np.arange(c)[None, :] >= occ[:, None]
+    means[empty] = np.inf
+    weights[empty] = 0.0
+    has = occ > 0
+    dmin = np.where(has, means[:, 0], np.inf).astype(np.float32)
+    dmax = np.where(has, means[np.arange(s), np.maximum(occ - 1, 0)],
+                    -np.inf).astype(np.float32)
+    extra = [rng.normal(0.0, 5.0, s).astype(np.float32) for _ in range(10)]
+    return [means, weights, dmin, dmax] + extra
+
+
+def bound(s: int, p: int) -> tuple[float, str]:
+    """Least time for the flush extract at S rows and P quantiles: the
+    larger of bytes (each input read once, the output written once) over
+    HBM rate and f32 operations over the f32 peak."""
+    c = 128
+    nbytes = 4 * (2 * s * c + 12 * s + p + s * (p + 10))
+    # per row: scan 7*C adds, two trees 2*(C-1), C products, C midpoint
+    # adds + divides, 6 ops per quantile, 5 compensated-column adds
+    ops = s * (7 * c + 2 * (c - 1) + c + 2 * c + 6 * p + 5)
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / F32_FLOPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def phase_kernel_vs_plain(ek):
+    import torch
+
+    fields_np = make_pool(S_FULL, seed=11)
+    dev = torch.device(DEVICE)
+    fields = [torch.from_numpy(a).to(dev) for a in fields_np]
+    qs = torch.tensor(QS, dtype=torch.float32, device=dev)
+    # the main path's shapes too: the worker interval's and the server's
+    # effective pool rows (the pow2 bucket extract_snapshot slices to)
+    s_main = [max(1024, 1 << (N_HIST + N_HOT - 1).bit_length()), 1024]
+    out = {}
+    for s in [S_FULL, S_RAGGED] + s_main:
+        sub = [f[:s] for f in fields]
+        got = ek.flush_extract(*sub, qs)
+        sync()
+        ref = ek.flush_extract_plain(*sub, qs)
+        sync()
+        same, err = bitwise_equal(got, ref)
+        n_nan = int(torch.isnan(got[:, 0]).sum())
+        log(f"[kernel] S={s}: bitwise_equal={same} max_abs_err={err} "
+            f"empty_rows={n_nan} shape={tuple(got.shape)}")
+        if not same:
+            bad = (got != ref) & ~(torch.isnan(got) & torch.isnan(ref))
+            rows = torch.nonzero(bad.any(1)).flatten()[:5].tolist()
+            raise AssertionError(f"kernel != plain at S={s}, rows {rows}")
+        out[s] = err
+    sub = fields
+    k_ms = cuda_ms(lambda: ek.flush_extract(*sub, qs), reps=21)
+    p_ms = cuda_ms(lambda: ek.flush_extract_plain(*sub, qs), reps=5)
+    b_ms, b_by = bound(S_FULL, len(QS))
+    log(f"[kernel] S={S_FULL} P={len(QS)}: kernel {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
+        f"{b_ms / k_ms * 100:.1f}% of bound")
+    del fields, sub
+    return {"max_abs_err": max(out.values()), "ms": k_ms, "plain_ms": p_ms,
+            "bound_ms": b_ms, "bound_by": b_by}
+
+
+# -- phase 3 ------------------------------------------------------------------
+
+
+def interval_plan(seed: int):
+    """The 100k-series interval: series lines (one sample each, made
+    through process_metric), bulk staged samples in 16,384-sample
+    batches, scalars and sampled timers."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    n_hist, n_hot = N_HIST, N_HOT
+    series = []
+    for i in range(n_hist):
+        kind = "ms" if i % 2 else "h"
+        rate = "|@0.5" if i % 10 == 0 else ""
+        series.append(f"svc.lat.{i}:{rng.gamma(2.0, 20.0):.4f}|{kind}"
+                      f"{rate}|#shard:{i % 16}".encode())
+    for i in range(n_hot):
+        series.append(f"hot.{i}:{rng.exponential(50.0):.4f}|ms".encode())
+    scalars = [f"req.{i}:{1 + i % 5}|c|#code:{i % 7}".encode()
+               for i in range(N_COUNTERS)]
+    scalars += [f"queue.{i}:{rng.normal(10.0, 3.0):.5f}|g".encode()
+                for i in range(N_GAUGES)]
+    # bulk samples: 39 more per regular series (40 with the first), 199
+    # more per hot series; shuffled so hot rows spill across batches
+    rows = np.concatenate([np.repeat(np.arange(n_hist), 39),
+                           np.repeat(np.arange(n_hist, n_hist + n_hot),
+                                     199)]).astype(np.int32)
+    perm = rng.permutation(len(rows))
+    rows = rows[perm]
+    vals = rng.gamma(2.0, 20.0, len(rows)).astype(np.float32)
+    wts = np.where(rows % 10 == 0, np.float32(2.0),
+                   np.float32(1.0)).astype(np.float32)
+    return series, scalars, rows, vals, wts
+
+
+def run_interval(worker, plan, parse, qs, step=contextlib.nullcontext):
+    """Drive one interval through a worker; returns (snapshot, seconds
+    by step: lines through process_metric, bulk staging with its spill
+    folds, and the flush with its staged fold and extract). ``step(name)``
+    wraps each step (a profiler range in tools/port_profile_interval.py)."""
+    series, scalars, rows, vals, wts = plan
+    t0 = time.perf_counter()
+    with step("process_metric"):
+        for line in series:
+            worker.process_metric(parse(line))
+        for line in scalars:
+            worker.process_metric(parse(line))
+        worker._flush_pending_histos()
+        worker._sync()
+    t1 = time.perf_counter()
+    with step("staging"):
+        # series lines registered rows 0..N-1 in order (one per line)
+        b = worker.batch_size
+        for i in range(0, len(rows), b):
+            worker._device_histo_step(rows[i:i + b], vals[i:i + b],
+                                      wts[i:i + b])
+        worker._sync()
+    t2 = time.perf_counter()
+    with step("flush"):
+        snap = worker.flush(qs)
+    t3 = time.perf_counter()
+    return snap, {"process_metric_s": t1 - t0, "staging_s": t2 - t1,
+                  "flush_s": t3 - t2, **worker.last_extract_phases}
+
+
+def compare_snapshots(a, b) -> None:
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    for f in dataclasses.fields(a):
+        va, vb = getattr(a, f.name), getattr(b, f.name)
+        if isinstance(va, np.ndarray) or isinstance(vb, np.ndarray):
+            if va is None or vb is None or va.shape != vb.shape \
+                    or va.dtype != vb.dtype:
+                raise AssertionError(f"snapshot field {f.name} differs in "
+                                     "shape/type")
+            ta, tb = torch.from_numpy(np.ascontiguousarray(va)), \
+                torch.from_numpy(np.ascontiguousarray(vb))
+            if ta.dtype == torch.float32:
+                same, err = bitwise_equal(ta, tb)
+            else:
+                same, err = va.tobytes() == vb.tobytes(), 0.0
+            if not same:
+                raise AssertionError(f"snapshot field {f.name}: CUDA != CPU"
+                                     f" (max abs err {err})")
+    for pool in ("counters", "gauges"):
+        pa, pb = getattr(a.scalars, pool), getattr(b.scalars, pool)
+        if pa.values[:pa.used].tobytes() != pb.values[:pb.used].tobytes():
+            raise AssertionError(f"{pool} differ")
+
+
+def phase_worker(tw, generate, parse, qs):
+    import numpy as np
+
+    plan = interval_plan(seed=5)
+    kw = dict(compression=100.0, stage_depth=64, batch_size=16384,
+              initial_histo_rows=4096)
+    per_row = np.bincount(plan[2]) + 1  # + the series line's sample
+    spilled = int(np.maximum(per_row - kw["stage_depth"], 0).sum())
+    gpu = tw.DeviceWorker(**kw, device=DEVICE)
+    snap_g, t_g = run_interval(gpu, plan, parse, qs)
+    cpu = tw.DeviceWorker(**kw, device="cpu")
+    snap_c, t_c = run_interval(cpu, plan, parse, qs)
+    n = snap_g.directory.num_histo_rows
+    compare_snapshots(snap_g, snap_c)
+    qv = snap_g.quantile_values
+    if qv.shape != (n, len(qs)) or not (qv == qv).all():
+        raise AssertionError("quantiles not finite for every series")
+    t0 = time.perf_counter()
+    metrics = generate(snap_g)
+    t_g["generate_s"] = time.perf_counter() - t0
+    samples = len(plan[0]) + len(plan[2])
+    log(f"[worker] {n} histogram series ({samples} samples, {spilled} "
+        f"past stage depth {kw['stage_depth']} through the spill fold), "
+        f"{len(snap_g.scalars.counter_meta)} counters, "
+        f"{len(snap_g.scalars.gauge_meta)} gauges -> {len(metrics)} "
+        f"InterMetrics; CUDA snapshot bitwise equal to CPU snapshot")
+    for where, t in (("card", t_g), ("cpu", t_c)):
+        log(f"[worker] {where}: " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()))
+    return {"card": t_g, "cpu": t_c, "series": n, "samples": samples,
+            "spilled": spilled}
+
+
+# -- phase 4 ------------------------------------------------------------------
+
+
+def server_datagrams(seed: int, n: int = 300) -> list[bytes]:
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        k = i % 37
+        lines = [
+            f"api.requests:{1 + k % 3}|c|#route:r{k % 5}",
+            f"api.sampled:{1 + k % 2}|c|@0.5",
+            f"api.inflight:{rng.normal(20.0, 4.0):.4f}|g|#pod:p{k % 4}",
+            f"api.latency:{rng.gamma(2.0, 12.0):.4f}|ms|#route:r{k % 5}",
+            f"api.payload:{rng.lognormal(6.0, 1.0):.3f}|h",
+            f"api.slow:{rng.exponential(200.0):.3f}|ms|@0.25",
+        ]
+        out.append("\n".join(lines).encode())
+    out.append(b"_sc|api.health|0|#pod:p1|m:serving")
+    out.append(b"_e{7,13}:deploy!|api v2 rolled|#team:core")
+    return out
+
+
+def canonical(metrics) -> list[tuple]:
+    return sorted(
+        (m.name, m.timestamp, struct.pack("<d", float(m.value)),
+         tuple(m.tags), m.type.name, m.message, m.hostname,
+         None if m.sinks is None else tuple(sorted(m.sinks)))
+        for m in metrics)
+
+
+def phase_server(ek):
+    import socket
+
+    from veneur_tpu_torch.core.config import load_config
+    from veneur_tpu_torch.core.factory import build_server
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+
+    data = {"statsd_listen_addresses": ["udp://127.0.0.1:0"],
+            "interval": "1h", "percentiles": [0.5, 0.9, 0.99],
+            "aggregates": ["min", "max", "count", "sum", "avg", "median"],
+            "hostname": "chip-smoke", "tpu_native_ingest": False,
+            "tpu_native_readers": False, "flush_emit_native": False,
+            "device_guard": False}
+    sink = ChannelMetricSink()
+    server = build_server(load_config(data=data), extra_metric_sinks=[sink],
+                          device=DEVICE)
+    grams = server_datagrams(seed=9)
+    before = ek.flush_extract.launches
+    ports = server.start()
+    try:
+        port = ports["udp://127.0.0.1:0"]
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            for d in grams:
+                s.sendto(d, ("127.0.0.1", port))
+                time.sleep(0.0005)
+        deadline = time.time() + 60
+        while server.packets_received < len(grams) \
+                and time.time() < deadline:
+            time.sleep(0.05)
+        if server.packets_received != len(grams):
+            raise AssertionError(f"received {server.packets_received} of "
+                                 f"{len(grams)} datagrams")
+        now = 1_700_000_000
+        got = server.flush(now=now)
+    finally:
+        server.shutdown()
+    launched = ek.flush_extract.launches - before
+    delivered = []
+    while not sink.queue.empty():
+        delivered.extend(sink.queue.get_nowait())
+    ref_server = build_server(load_config(data={
+        **data, "statsd_listen_addresses": []}), device="cpu")
+    for d in grams:
+        ref_server.process_metric_packet(d)
+    ref = ref_server.flush(now=now)
+    if canonical(got) != canonical(ref) or \
+            canonical(delivered) != canonical(got):
+        raise AssertionError("CUDA server InterMetrics != CPU server's")
+    if launched < 1:
+        raise AssertionError("the server flush launched no kernel")
+    vals = [m.value for m in got]
+    if not vals or any(v != v for v in vals):
+        raise AssertionError("server emitted no or non-finite values")
+    log(f"[server] {len(grams)} UDP datagrams -> {len(got)} InterMetrics "
+        f"on {server.device}, equal to the CPU server's; flush_extract "
+        f"launches during the flush: {launched}")
+
+
+# -- main ---------------------------------------------------------------------
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--json", help="also write the results to this file")
+    args = ap.parse_args()
+    try:
+        import torch
+    except ImportError:
+        print("torch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("CUDA is not available: the port's smoke test needs a card",
+              file=sys.stderr)
+        return 2
+    if not (ROOT / "veneur_tpu_torch" / "csrc").is_dir():
+        print("veneur_tpu_torch is not beside chip_smoke.py",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+
+    # 1. setup
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True)
+    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
+        else f"nvidia-smi failed ({smi.returncode})"
+    log(f"[setup] card: {card}")
+    log(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}"
+        f", cuda {torch.version.cuda}, device "
+        f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}")
+    from veneur_tpu_torch.core import worker as tw
+    from veneur_tpu_torch.core.flusher import (device_quantiles,
+                                               generate_inter_metrics)
+    from veneur_tpu_torch.core.metrics import HistogramAggregates
+    from veneur_tpu_torch.ops import extract_kernel as ek
+    from veneur_tpu_torch.protocol.dogstatsd import parse_metric
+
+    t0 = time.perf_counter()
+    lib_path = ek.build()
+    ek.load()
+    log(f"[setup] built and loaded {lib_path.relative_to(ROOT)} in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # 2. kernel vs plain
+    kres = phase_kernel_vs_plain(ek)
+
+    # 3 + 4: the main path, launch counts reset just before
+    aggs = HistogramAggregates.from_names(["min", "max", "count"])
+    qs = device_quantiles(QS, aggs)
+
+    def generate(snap):
+        """A standalone server's InterMetrics for the snapshot."""
+        return generate_inter_metrics(snap, False, QS, aggs, now=0)
+
+    ek.flush_extract.launches = 0
+    phases = phase_worker(tw, generate, parse_metric, qs)
+    phase_server(ek)
+    launches = ek.flush_extract.launches
+    if launches < 1:
+        raise AssertionError("flush_extract was not launched on the main "
+                             "path")
+
+    kernels = {"kernels": [{
+        "name": "flush_extract", "route": "cuda",
+        "source": "veneur_tpu_torch/csrc/flush_extract.cu",
+        "replaces": "veneur_tpu/ops/pallas_kernels.py:36",
+        "launches": launches, "max_abs_err": kres["max_abs_err"],
+        "ms": kres["ms"], "plain_ms": kres["plain_ms"],
+        "bound_ms": kres["bound_ms"], "bound_by": kres["bound_by"],
+        "library_ms": None}]}
+    result = {"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(
+            {"card": card, **kernels, "worker": phases, **result},
+            indent=1))
+    print(card, flush=True)
+    print(json.dumps(kernels), flush=True)
+    print(json.dumps(result), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

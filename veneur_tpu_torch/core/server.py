@@ -1,0 +1,304 @@
+"""Server: one DogStatsD aggregation instance, PyTorch port.
+
+A slim counterpart of veneur_tpu/core/server.py: DogStatsD lines arrive
+on UDP listeners (``start_statsd_udp``) or through
+``handle_metric_packet``; metrics route to the device workers by digest,
+service checks to their host status state, events to the event worker.
+Every interval the flush loop runs ``flush``: swap each worker's epoch,
+fold and extract it on the device (the flush extract kernel on the card),
+generate InterMetrics and hand them to the metric sinks.
+
+Not in this slice (the factory refuses their config keys): SSF/TCP/TLS/
+unixgram listeners, the native C++ ingest and readers, forwarding,
+imports, proxies, query listeners, tenancy, the flush pipeline, plugins,
+self-telemetry. Set samples are counted in ``unported_samples_total``
+and logged, never merged.
+"""
+
+from __future__ import annotations
+
+import logging
+import socket
+import threading
+import time
+from typing import Optional
+
+from veneur_tpu_torch import __version__
+from veneur_tpu_torch.core.config import Config
+from veneur_tpu_torch.core.flusher import (device_quantiles,
+                                           generate_inter_metrics)
+from veneur_tpu_torch.core.metrics import HistogramAggregates, InterMetric
+from veneur_tpu_torch.core.worker import DeviceWorker, FlushSnapshot
+from veneur_tpu_torch.device import resolve
+from veneur_tpu_torch.protocol import dogstatsd
+from veneur_tpu_torch.sinks import (MetricSink, filter_routed,
+                                    strip_excluded_tags)
+from veneur_tpu_torch.ssf import SSFSample
+
+log = logging.getLogger("veneur_tpu_torch.server")
+
+
+class EventWorker:
+    """Accumulates DogStatsD events (as SSF samples) until flush
+    (reference EventWorker, worker.go:527-572)."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._samples: list[SSFSample] = []
+
+    def ingest(self, sample: SSFSample) -> None:
+        with self._lock:
+            self._samples.append(sample)
+
+    def flush(self) -> list[SSFSample]:
+        with self._lock:
+            out = self._samples
+            self._samples = []
+        return out
+
+
+class Server:
+    """One veneur_tpu_torch aggregation server."""
+
+    def __init__(self, cfg: Config,
+                 metric_sinks: Optional[list[MetricSink]] = None,
+                 device=None) -> None:
+        self.config = cfg
+        self.device = resolve(device)
+        self.interval = cfg.interval_seconds()
+        self.percentiles = list(cfg.percentiles)
+        self.aggregates = HistogramAggregates.from_names(cfg.aggregates)
+        self.workers = [
+            DeviceWorker(
+                batch_size=cfg.tpu_batch_size,
+                stage_depth=cfg.tpu_stage_depth,
+                compression=cfg.tpu_compression,
+                initial_histo_rows=cfg.tpu_initial_histo_rows,
+                is_local=self.is_local,
+                device=self.device,
+            )
+            for _ in range(cfg.num_workers)
+        ]
+        self._worker_locks = [threading.Lock() for _ in self.workers]
+        self.event_worker = EventWorker()
+        self.metric_sinks: list[MetricSink] = list(metric_sinks or [])
+        self.sink_excluded_tags: dict[str, set[str]] = {}
+        self._threads: list[threading.Thread] = []
+        self._sockets: list[socket.socket] = []
+        self._shutdown = threading.Event()
+        self._flush_lock = threading.Lock()
+        self._counter_lock = threading.Lock()
+        self.packets_received = 0
+        self.parse_errors = 0
+        self._unported_logged = 0
+        self.last_flush_phases: dict[str, float] = {}
+
+    @property
+    def is_local(self) -> bool:
+        return self.config.is_local()
+
+    @property
+    def unported_samples_total(self) -> int:
+        """Set samples received and dropped (no HLL pools in this slice)."""
+        return sum(w.unported_samples_total for w in self.workers)
+
+    # -- packet handling ----------------------------------------------------
+
+    def handle_metric_packet(self, packet: bytes) -> None:
+        """Dispatch one line: event / service check / metric
+        (reference HandleMetricPacket, server.go:994-1046)."""
+        if not packet:
+            return
+        try:
+            if packet.startswith(b"_e{"):
+                self.event_worker.ingest(dogstatsd.parse_event(packet))
+            elif packet.startswith(b"_sc"):
+                self._route(dogstatsd.parse_service_check(packet))
+            else:
+                self._route(dogstatsd.parse_metric(packet))
+        except dogstatsd.ParseError as e:
+            with self._counter_lock:
+                self.parse_errors += 1
+            log.debug("bad metric packet %r: %s", packet[:128], e)
+
+    def _route(self, metric) -> None:
+        i = metric.digest % len(self.workers)
+        with self._worker_locks[i]:
+            self.workers[i].process_metric(metric)
+
+    def process_metric_packet(self, datagram: bytes) -> None:
+        """Split a datagram on newlines and handle each line
+        (reference processMetricPacket, server.go:1136)."""
+        with self._counter_lock:
+            self.packets_received += 1
+        if len(datagram) > self.config.metric_max_length:
+            with self._counter_lock:
+                self.parse_errors += 1
+            return
+        for line in datagram.split(b"\n"):
+            if line:
+                self.handle_metric_packet(line)
+
+    # -- listeners ----------------------------------------------------------
+
+    def _spawn(self, target, name: str) -> threading.Thread:
+        t = threading.Thread(target=target, name=name, daemon=True)
+        t.start()
+        self._threads.append(t)
+        return t
+
+    def start_statsd_udp(self, addr: str, port: int) -> int:
+        """num_readers reader threads sharing the port via SO_REUSEPORT
+        (reference networking.go:41-91). Returns the bound port."""
+        bound_port = port
+        for i in range(self.config.num_readers):
+            sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+            sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+            if self.config.num_readers > 1:
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+            if self.config.read_buffer_size_bytes:
+                sock.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF,
+                                self.config.read_buffer_size_bytes)
+            sock.bind((addr, bound_port))
+            bound_port = sock.getsockname()[1]  # resolve port 0 once
+            self._sockets.append(sock)
+            self._spawn(lambda s=sock: self._read_metric_socket(s),
+                        f"statsd-udp-{i}")
+        return bound_port
+
+    def _read_metric_socket(self, sock: socket.socket) -> None:
+        """Tight recv loop (reference ReadMetricSocket, server.go:1123);
+        reads max_length+1 so overlong datagrams are detectable."""
+        bufsize = self.config.metric_max_length + 1
+        sock.settimeout(0.5)
+        while not self._shutdown.is_set():
+            try:
+                data = sock.recv(bufsize)
+            except socket.timeout:
+                continue
+            except OSError:
+                return  # socket closed during shutdown
+            self.process_metric_packet(data)
+
+    def start_listeners(self) -> dict[str, int]:
+        """Start every configured statsd listener; returns the resolved
+        ports keyed by address. UDP only in this slice."""
+        ports = {}
+        for spec in self.config.statsd_listen_addresses:
+            proto, _, rest = spec.partition("://")
+            if proto != "udp":
+                raise ValueError(f"statsd listener {spec!r}: only udp:// "
+                                 "listeners are ported")
+            host, _, port = rest.rpartition(":")
+            ports[spec] = self.start_statsd_udp(host or "127.0.0.1",
+                                                int(port))
+        return ports
+
+    def start(self) -> dict[str, int]:
+        """Start sinks, listeners and the flush ticker
+        (reference Server.Start, server.go:826)."""
+        for sink in self.metric_sinks:
+            sink.start()
+        ports = self.start_listeners()
+        self._spawn(self._flush_loop, "flush-ticker")
+        return ports
+
+    # -- flush --------------------------------------------------------------
+
+    def _flush_loop(self) -> None:
+        next_tick = time.time()
+        while not self._shutdown.is_set():
+            next_tick += self.interval
+            delay = next_tick - time.time()
+            if delay > 0 and self._shutdown.wait(delay):
+                return
+            try:
+                self.flush()
+            except Exception:
+                log.exception("flush failed")
+
+    def flush(self, now: Optional[float] = None) -> list[InterMetric]:
+        """One flush pass (reference Server.Flush, flusher.go:28-134):
+        swap every worker under its lock, extract the swapped epochs,
+        generate InterMetrics, emit to the sinks. Returns the metrics.
+        `now` pins the interval's timestamp."""
+        with self._flush_lock:
+            return self._flush(now)
+
+    def _flush(self, now: Optional[float]) -> list[InterMetric]:
+        flush_start = time.time() if now is None else float(now)
+        phases: dict[str, float] = {}
+        other_samples = self.event_worker.flush()
+        for sink in self.metric_sinks:
+            try:
+                sink.flush_other_samples(other_samples)
+            except Exception:
+                log.exception("sink %s FlushOtherSamples failed",
+                              sink.name())
+        qs = device_quantiles(self.percentiles, self.aggregates)
+        _t = time.perf_counter()
+        swapped = []
+        for worker, lock in zip(self.workers, self._worker_locks):
+            with lock:
+                swapped.append(worker.swap(qs))
+        phases["swap_s"] = time.perf_counter() - _t
+        _t = time.perf_counter()
+        snaps: list[FlushSnapshot] = []
+        for i, (worker, sw) in enumerate(zip(self.workers, swapped)):
+            try:
+                snaps.append(worker.extract_snapshot(sw, qs, self.interval))
+            except Exception:
+                log.exception("flush extraction failed for worker %d", i)
+        phases["extract_s"] = time.perf_counter() - _t
+        _t = time.perf_counter()
+        final: list[InterMetric] = []
+        for snap in snaps:
+            final.extend(generate_inter_metrics(
+                snap, self.is_local, self.percentiles, self.aggregates,
+                now=int(flush_start)))
+        phases["generate_s"] = time.perf_counter() - _t
+        _t = time.perf_counter()
+        for sink in self.metric_sinks:
+            routed = strip_excluded_tags(
+                filter_routed(final, sink.name()),
+                self.sink_excluded_tags.get(sink.name()))
+            try:
+                sink.flush(routed)
+            except Exception:
+                log.exception("sink %s flush failed", sink.name())
+        phases["sink_flush_s"] = time.perf_counter() - _t
+        unported = self.unported_samples_total
+        if unported > self._unported_logged:
+            log.warning("dropped %d set samples this interval: sets are "
+                        "not ported yet (unported_samples_total=%d)",
+                        unported - self._unported_logged, unported)
+            self._unported_logged = unported
+        self.last_flush_phases = phases
+        return final
+
+    # -- lifecycle ----------------------------------------------------------
+
+    def shutdown(self) -> bool:
+        """Stop the listeners and the ticker, then the sinks. Idempotent."""
+        if self._shutdown.is_set():
+            return True
+        self._shutdown.set()
+        for sock in self._sockets:
+            try:
+                sock.close()
+            except OSError:
+                pass
+        me = threading.current_thread()
+        for t in self._threads:
+            if t is not me:
+                t.join(timeout=5.0)
+        for sink in self.metric_sinks:
+            try:
+                sink.stop()
+            except Exception:
+                log.exception("sink %s failed to stop", sink.name())
+        return all(not t.is_alive() for t in self._threads if t is not me)
+
+    @property
+    def version(self) -> str:
+        return __version__

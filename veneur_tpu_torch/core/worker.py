@@ -1,0 +1,741 @@
+"""DeviceWorker: the batched aggregation engine, PyTorch port.
+
+The counterpart of veneur_tpu/core/worker.py, limited to the Python
+staging path. One worker owns a dense t-digest pool on its device,
+
+  t-digest rows   f32[S_h, C]×2 + scalars   (histogram & timer series)
+  local stats     f32[S_h] × 5 (+ compensation halves)
+
+and ingests samples in batches: histogram/timer samples stage host-side
+in a [S, B] plane (``_device_histo_step``), rows whose plane is full
+spill through a gather → add_batch → scatter fold (``_fold_batch_direct``),
+and one staged fold per interval folds the plane into the pool at
+extraction (``_histo_fold_staged``). Counters, gauges and status checks
+stay host-side in exact float64. The flush extract runs the hand-written
+CUDA kernel on the card (ops/extract_kernel.py).
+
+The device steps keep the reference's names and argument order. Where
+the reference donates its pool buffers, the port may update the pool
+tensors in place; a swapped epoch owns its tensors outright (the live
+epoch starts a fresh pool), so no swapped epoch aliases the live pool.
+
+Not in this slice (config refuses them, see core/factory.py): set/HLL
+pools, the native C++ ingest, micro-folds, series sharding, reader
+shards, the device guard, tenancy, the query view, imports, the mesh.
+Set samples that reach the worker are counted in
+``unported_samples_total`` and dropped.
+"""
+
+from __future__ import annotations
+
+import time
+from array import array
+from dataclasses import dataclass, field
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from veneur_tpu_torch.core.columnar import unpack_extract_columns
+from veneur_tpu_torch.core.directory import (ScopeClass, SeriesDirectory,
+                                             classify)
+from veneur_tpu_torch.core.metrics import MetricKey, UDPMetric, route_info
+from veneur_tpu_torch.device import resolve
+from veneur_tpu_torch.ops import exactnum as exn
+from veneur_tpu_torch.ops import extract_kernel as ek
+from veneur_tpu_torch.ops import tdigest as td
+
+_INF = float("inf")
+
+
+def _next_pow2(n: int, floor: int = 1) -> int:
+    v = floor
+    while v < n:
+        v *= 2
+    return v
+
+
+def counter_contribution(value: float, sample_rate: float) -> int:
+    """One counter sample's contribution, with the reference's double
+    truncation (samplers/samplers.go:142-144)."""
+    return int(value) * int(1.0 / sample_rate)
+
+
+def _to_device(a: np.ndarray, device) -> torch.Tensor:
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+# ---------------------------------------------------------------------------
+# Device steps
+
+
+def _comp_add(s, c, x):
+    """Neumaier compensated add: (sum, compensation) += x, in f32. The
+    true value is s + c, resolved at flush extraction."""
+    t = s + x
+    # larger-magnitude operand is the residual's base; an overflow (t
+    # infinite) drops the residual so the sum saturates like a bare add
+    resid = torch.where(torch.abs(s) >= torch.abs(x), (s - t) + x,
+                        (x - t) + s)
+    resid = torch.where(torch.isfinite(t), resid, 0.0)
+    return t, c + resid
+
+
+def _histo_ingest_step(
+    means, weights, dmin, dmax, drecip, drecip_c,
+    lmin, lmax, lsum, lsum_c, lweight, lweight_c, lrecip, lrecip_c,
+    active, lids, values, wts,
+    compression: float = td.DEFAULT_COMPRESSION,
+):
+    """Gather the active digest rows, fold one sample batch in, scatter
+    back; also updates the sampler-local scalars of those rows.
+
+    Updates the 14 pool tensors IN PLACE and returns them. `active`
+    (int64[K]) is padded with the scratch row; every duplicate writes an
+    identical value, as in the reference's scatter."""
+    g_means = means[active]
+    g_w = weights[active]
+    g_min = dmin[active]
+    g_max = dmax[active]
+    g_recip = drecip[active]
+
+    n_means, n_w, n_min, n_max, _, stats = td.add_batch(
+        g_means, g_w, g_min, g_max, g_recip, lids, values, wts,
+        compression=compression)
+
+    means[active] = n_means
+    weights[active] = n_w
+    dmin[active] = n_min
+    dmax[active] = n_max
+    n_recip, n_recip_c = _comp_add(g_recip, drecip_c[active], stats.recip)
+    drecip[active] = n_recip
+    drecip_c[active] = n_recip_c
+
+    lmin.scatter_reduce_(0, active, stats.min, reduce="amin")
+    lmax.scatter_reduce_(0, active, stats.max, reduce="amax")
+    n_lsum, n_lsum_c = _comp_add(lsum[active], lsum_c[active], stats.sum)
+    lsum[active] = n_lsum
+    lsum_c[active] = n_lsum_c
+    n_lw, n_lw_c = _comp_add(lweight[active], lweight_c[active],
+                             stats.weight)
+    lweight[active] = n_lw
+    lweight_c[active] = n_lw_c
+    n_lr, n_lr_c = _comp_add(lrecip[active], lrecip_c[active], stats.recip)
+    lrecip[active] = n_lr
+    lrecip_c[active] = n_lr_c
+    return (means, weights, dmin, dmax, drecip, drecip_c,
+            lmin, lmax, lsum, lsum_c, lweight, lweight_c, lrecip, lrecip_c)
+
+
+class StagedPlane(NamedTuple):
+    """One dense raw-sample staging plane handed to the flush: host
+    arrays vals/wts [S, B] (empty slots weigh 0)."""
+
+    vals: np.ndarray
+    wts: np.ndarray
+
+
+def _expand_flat_planes(flat_v, flat_w, counts, depth: int, unit: bool):
+    """Rebuild the dense [S, depth] value+weight staging planes on the
+    device from their row-major compaction (filled slots only) and
+    per-row counts. unit=True ignores flat_w and uses the validity mask
+    as the weights plane."""
+    dev = flat_v.device
+    b = torch.arange(depth, dtype=torch.int64, device=dev)[None, :]
+    counts = counts.to(torch.int64)
+    offsets = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
+                         torch.cumsum(counts, 0)[:-1]])
+    idx = torch.clamp(offsets[:, None] + b, 0, flat_v.shape[0] - 1)
+    valid = b < counts[:, None]
+    sv = torch.where(valid, flat_v[idx], 0.0)
+    if unit:
+        sw = valid.to(torch.float32)
+    else:
+        sw = torch.where(valid, flat_w[idx], 0.0)
+    return sv, sw
+
+
+def _histo_fold_staged(
+    means, weights, dmin, dmax, drecip, drecip_c,
+    lmin, lmax, lsum, lsum_c, lweight, lweight_c, lrecip, lrecip_c,
+    svals, swts,
+    compression: float = td.DEFAULT_COMPRESSION,
+):
+    """Fold the staged raw-sample plane [S, B] into the digest pool: one
+    compress over [S, C+B] per interval plus masked [S, B] tree sums for
+    the scalar stats. Empty slots carry weight 0. Returns the 14 updated
+    tensors (new tensors; the inputs may be dropped)."""
+    c = means.shape[1]
+    live = swts > 0
+    s_w = exn.tsum(swts)
+    s_sum = exn.tsum(torch.where(live, svals * swts, 0.0))
+    s_recip = exn.tsum(torch.where(live, swts / svals, 0.0))
+    s_min = torch.amin(torch.where(live, svals, _INF), dim=-1)
+    s_max = torch.amax(torch.where(live, svals, -_INF), dim=-1)
+
+    cat_means = torch.cat([means, svals], dim=-1)
+    cat_w = torch.cat([weights, swts], dim=-1)
+    means, weights = td._compress_rows(cat_means, cat_w, compression, c)
+
+    dmin = torch.minimum(dmin, s_min)
+    dmax = torch.maximum(dmax, s_max)
+    drecip, drecip_c = _comp_add(drecip, drecip_c, s_recip)
+    lmin = torch.minimum(lmin, s_min)
+    lmax = torch.maximum(lmax, s_max)
+    lsum, lsum_c = _comp_add(lsum, lsum_c, s_sum)
+    lweight, lweight_c = _comp_add(lweight, lweight_c, s_w)
+    lrecip, lrecip_c = _comp_add(lrecip, lrecip_c, s_recip)
+    return (means, weights, dmin, dmax, drecip, drecip_c,
+            lmin, lmax, lsum, lsum_c, lweight, lweight_c, lrecip, lrecip_c)
+
+
+# the reference's XLA extract and pack, as plain tensor ops; the worker
+# runs the fused kernel instead (``_extract``), and these stay the
+# readable statement of what that kernel computes
+_histo_flush_extract = ek.histo_flush_extract
+_pack_extract_columns = ek.pack_extract_columns
+
+
+def _grow_2d(old, new_rows: int):
+    s, c = old.shape
+    out = torch.zeros((new_rows, c), dtype=old.dtype, device=old.device)
+    out[:s] = old
+    return out
+
+
+def _grow_1d(old, new_rows: int, fill: float):
+    out = torch.full((new_rows,), fill, dtype=old.dtype, device=old.device)
+    out[:old.shape[0]] = old
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Host-side state containers
+
+
+class ScalarPool:
+    """Growable f64 value array + per-row metadata, rows in append order."""
+
+    def __init__(self, initial: int = 256) -> None:
+        self.index: dict = {}  # (key, class) → row
+        self.meta: list = []  # (key, tags, scope_class, sinks)
+        # packed per-row scope and admission codes, the flusher's masks
+        self.scope_codes = array("b")
+        self.routed_rows = 0
+        self.admit_codes = array("b")
+        self.rejected_rows = 0
+        self.values = np.zeros(initial, np.float64)
+        self.present = np.zeros(initial, bool)
+        self.used = 0
+
+    def ensure(self, rows: int) -> None:
+        if rows > len(self.values):
+            cap = len(self.values)
+            while cap < rows:
+                cap *= 2
+            self.values = np.resize(self.values, cap)
+            self.values[self.used:] = 0.0
+            newp = np.zeros(cap, bool)
+            newp[: self.used] = self.present[: self.used]
+            self.present = newp
+
+    def upsert(self, key, scope_class, tags, sinks) -> int:
+        k = (key, scope_class)
+        row = self.index.get(k)
+        if row is None:
+            row = self.used
+            self.index[k] = row
+            self.adopt_row(row, key, tags, scope_class, sinks)
+        return row
+
+    def adopt_row(self, row: int, key, tags, scope_class, sinks,
+                  admitted=True) -> None:
+        assert row == len(self.meta), "rows must be adopted in order"
+        self.meta.append((key, tags, scope_class, sinks))
+        self.scope_codes.append(int(scope_class))
+        self.admit_codes.append(1 if admitted else 0)
+        if not admitted:
+            self.rejected_rows += 1
+        if sinks is not None:
+            self.routed_rows += 1
+        # grow BEFORE bumping used: ensure() copies relative to used
+        self.ensure(row + 1)
+        self.used = row + 1
+
+
+@dataclass
+class HostScalars:
+    """Exact host-side counter/gauge/status state for one interval."""
+
+    counters: ScalarPool = field(default_factory=ScalarPool)
+    gauges: ScalarPool = field(default_factory=ScalarPool)
+
+    status_index: dict = field(default_factory=dict)
+    status_meta: list = field(default_factory=list)
+    status_values: list = field(default_factory=list)  # (value, msg, host)
+
+    @property
+    def counter_meta(self):
+        return self.counters.meta
+
+    @property
+    def counter_values(self):
+        return self.counters.values[: self.counters.used]
+
+    @property
+    def gauge_meta(self):
+        return self.gauges.meta
+
+    @property
+    def gauge_values(self):
+        return self.gauges.values[: self.gauges.used]
+
+
+@dataclass
+class HistoDeviceState:
+    means: torch.Tensor
+    weights: torch.Tensor
+    dmin: torch.Tensor
+    dmax: torch.Tensor
+    drecip: torch.Tensor
+    # compensation halves of the compensated-f32 accumulators (see
+    # _comp_add); true value = base + _c, resolved at flush extract
+    drecip_c: torch.Tensor
+    lmin: torch.Tensor
+    lmax: torch.Tensor
+    lsum: torch.Tensor
+    lsum_c: torch.Tensor
+    lweight: torch.Tensor
+    lweight_c: torch.Tensor
+    lrecip: torch.Tensor
+    lrecip_c: torch.Tensor
+
+    @classmethod
+    def create(cls, rows: int, capacity: int,
+               device="cpu") -> "HistoDeviceState":
+        # every field its own tensor: the ingest step updates in place
+        pool = td.init_pool(rows, capacity, device=device)
+
+        def _full(v):
+            return torch.full((rows,), v, dtype=torch.float32,
+                              device=device)
+
+        return cls(
+            means=pool.means, weights=pool.weights, dmin=pool.min,
+            dmax=pool.max, drecip=pool.recip, drecip_c=_full(0.0),
+            lmin=_full(_INF), lmax=_full(-_INF), lsum=_full(0.0),
+            lsum_c=_full(0.0), lweight=_full(0.0), lweight_c=_full(0.0),
+            lrecip=_full(0.0), lrecip_c=_full(0.0),
+        )
+
+    @classmethod
+    def from_numpy(cls, fields, device) -> "HistoDeviceState":
+        """The state from the JAX package's 14 arrays in
+        ``HistoDeviceState.fields()`` order (copied, f32, on device)."""
+        fields = list(fields)
+        if len(fields) != 14:
+            raise ValueError(f"expected 14 fields, got {len(fields)}")
+        return cls(*(torch.from_numpy(np.array(a, np.float32, copy=True))
+                     .to(device) for a in fields))
+
+    @property
+    def num_rows(self) -> int:
+        return self.means.shape[0]
+
+    def fields(self) -> tuple:
+        """The 14 tensors in the kernel argument order."""
+        return (self.means, self.weights, self.dmin, self.dmax,
+                self.drecip, self.drecip_c, self.lmin, self.lmax,
+                self.lsum, self.lsum_c, self.lweight, self.lweight_c,
+                self.lrecip, self.lrecip_c)
+
+    def set_fields(self, fields) -> None:
+        (self.means, self.weights, self.dmin, self.dmax, self.drecip,
+         self.drecip_c, self.lmin, self.lmax, self.lsum, self.lsum_c,
+         self.lweight, self.lweight_c, self.lrecip, self.lrecip_c) = fields
+
+    def grow(self, new_rows: int) -> "HistoDeviceState":
+        # zero-filled new mean rows are safe: every kernel keys empty
+        # slots off weight == 0, never the stored mean
+        g2, g1 = _grow_2d, _grow_1d
+        return HistoDeviceState(
+            means=g2(self.means, new_rows),
+            weights=g2(self.weights, new_rows),
+            dmin=g1(self.dmin, new_rows, _INF),
+            dmax=g1(self.dmax, new_rows, -_INF),
+            drecip=g1(self.drecip, new_rows, 0.0),
+            drecip_c=g1(self.drecip_c, new_rows, 0.0),
+            lmin=g1(self.lmin, new_rows, _INF),
+            lmax=g1(self.lmax, new_rows, -_INF),
+            lsum=g1(self.lsum, new_rows, 0.0),
+            lsum_c=g1(self.lsum_c, new_rows, 0.0),
+            lweight=g1(self.lweight, new_rows, 0.0),
+            lweight_c=g1(self.lweight_c, new_rows, 0.0),
+            lrecip=g1(self.lrecip, new_rows, 0.0),
+            lrecip_c=g1(self.lrecip_c, new_rows, 0.0),
+        )
+
+
+@dataclass
+class FlushSnapshot:
+    """Everything one interval produced, in host memory: the input to
+    InterMetric generation (core/flusher.py). Field for field the
+    reference's; the set, unique-timeseries and degraded fields stay at
+    their defaults in this slice."""
+
+    directory: SeriesDirectory
+    scalars: HostScalars
+    interval_s: float
+    # histogram/timer extraction [rows in directory.histo order]:
+    quantile_values: Optional[np.ndarray] = None  # [S, P]
+    quantile_qs: Optional[np.ndarray] = None  # [P]
+    dmin: Optional[np.ndarray] = None
+    dmax: Optional[np.ndarray] = None
+    dsum: Optional[np.ndarray] = None
+    dcount: Optional[np.ndarray] = None
+    drecip: Optional[np.ndarray] = None
+    lmin: Optional[np.ndarray] = None
+    lmax: Optional[np.ndarray] = None
+    lsum: Optional[np.ndarray] = None
+    lweight: Optional[np.ndarray] = None
+    lrecip: Optional[np.ndarray] = None
+    # raw digest rows (for forwarding):
+    digest_means: Optional[np.ndarray] = None
+    digest_weights: Optional[np.ndarray] = None
+    # sets:
+    set_estimates: Optional[np.ndarray] = None
+    set_registers: Optional[np.ndarray] = None
+    unique_timeseries_registers: Optional[np.ndarray] = None
+    degraded: bool = False
+
+
+@dataclass
+class SwappedEpoch:
+    """A closed interval's state, detached from the live worker by
+    DeviceWorker.swap(); extract_snapshot() turns it into a
+    FlushSnapshot. Field for field the reference's; the fields of
+    features outside this slice stay None."""
+
+    directory: SeriesDirectory
+    scalars: HostScalars
+    histo: Optional[HistoDeviceState]
+    sets: Optional[torch.Tensor]
+    staged_sets: object
+    umts: Optional[np.ndarray]
+    mesh_out: Optional[dict]
+    # raw-sample staging planes still unfolded at swap
+    staged_histo: Optional[list] = None
+    spill_histo: Optional[tuple] = None
+    device_stage: Optional[object] = None
+    micro_residual: Optional[tuple] = None
+    reader_planes: Optional[list] = None
+    micro_replay: Optional[object] = None
+
+
+class DeviceWorker:
+    """Batched aggregation engine for one shard of the metric space,
+    running its device programs on ``device`` (CUDA unless asked)."""
+
+    def __init__(
+        self,
+        batch_size: int = 16384,
+        compression: float = td.DEFAULT_COMPRESSION,
+        capacity: int = td.DEFAULT_CAPACITY,
+        initial_histo_rows: int = 1024,
+        is_local: bool = True,
+        stage_depth: int = 64,
+        device=None,
+    ) -> None:
+        self.device = resolve(device)
+        self.batch_size = batch_size
+        # raw-sample staging slots per digest row (B in the staged fold);
+        # rows whose staged count reaches B spill through the direct fold
+        self.stage_depth = stage_depth
+        self.compression = compression
+        self.capacity = capacity
+        self._initial_histo_rows = initial_histo_rows
+        self.is_local = is_local
+        self.processed = 0
+        self.processed_total = 0
+        # wall seconds of the last extract_snapshot's staged fold and
+        # packed extract (+ readback), each ended by a device sync
+        self.last_extract_phases: dict[str, float] = {}
+        # set samples (HLL pools are not in this slice): counted, dropped
+        self.unported_samples_total = 0
+        self._reset_epoch()
+
+    def _reset_epoch(self) -> None:
+        self.directory = SeriesDirectory()
+        self.scalars = HostScalars()
+        self._histo: Optional[HistoDeviceState] = None
+        # host raw-sample staging planes (see _device_histo_step)
+        self._stage_vals: Optional[np.ndarray] = None
+        self._stage_wts: Optional[np.ndarray] = None
+        self._stage_count: Optional[np.ndarray] = None
+        # pending SoA buffers (host)
+        self._ph_rows: list[int] = []
+        self._ph_vals: list[float] = []
+        self._ph_wts: list[float] = []
+
+    def _ensure_histo(self, needed_rows: int) -> None:
+        # keep one scratch row free at the top for gather/scatter padding
+        if self._histo is None:
+            rows = _next_pow2(needed_rows + 1, self._initial_histo_rows)
+            self._histo = HistoDeviceState.create(rows, self.capacity,
+                                                  self.device)
+        elif needed_rows + 1 > self._histo.num_rows:
+            self._flush_pending_histos()  # pending lids reference old layout
+            self._histo = self._histo.grow(
+                _next_pow2(needed_rows + 1, self._histo.num_rows * 2))
+
+    # -- ingest -------------------------------------------------------------
+
+    def process_metric(self, m: UDPMetric) -> None:
+        """Route one parsed sample into the right pool
+        (reference Worker.ProcessMetric, worker.go:344-394)."""
+        self.processed += 1
+        mtype = m.key.type
+        scope_class = classify(mtype, m.scope)
+        if mtype == "counter":
+            self._host_counter(m.key, scope_class, m.tags,
+                               counter_contribution(m.value, m.sample_rate))
+        elif mtype == "gauge":
+            self._host_gauge(m.key, scope_class, m.tags, float(m.value))
+        elif mtype in ("histogram", "timer"):
+            row, _ = self.directory.upsert_histo(m.key, scope_class, m.tags)
+            self._ensure_histo(max(self.directory.num_histo_rows, row + 1))
+            self._ph_rows.append(row)
+            self._ph_vals.append(float(m.value))
+            self._ph_wts.append(1.0 / m.sample_rate)
+            if len(self._ph_rows) >= self.batch_size:
+                self._flush_pending_histos()
+        elif mtype == "set":
+            self.unported_samples_total += 1
+        elif mtype == "status":
+            self._host_status(m)
+
+    def _host_counter(self, key: MetricKey, scope_class: ScopeClass,
+                      tags: list[str], contribution: int) -> None:
+        pool = self.scalars.counters
+        row = pool.upsert(key, scope_class, tags, route_info(tags))
+        pool.values[row] += contribution
+        pool.present[row] = True
+
+    def _host_gauge(self, key: MetricKey, scope_class: ScopeClass,
+                    tags: list[str], value: float) -> None:
+        pool = self.scalars.gauges
+        row = pool.upsert(key, scope_class, tags, route_info(tags))
+        pool.values[row] = value
+        pool.present[row] = True
+
+    def _host_status(self, m: UDPMetric) -> None:
+        sc = self.scalars
+        k = (m.key, ScopeClass.LOCAL)
+        row = sc.status_index.get(k)
+        if row is None:
+            row = len(sc.status_values)
+            sc.status_index[k] = row
+            sc.status_meta.append(
+                (m.key, m.tags, ScopeClass.LOCAL, route_info(m.tags)))
+            sc.status_values.append(None)
+        sc.status_values[row] = (float(m.value), m.message, m.hostname)
+
+    # -- pending-batch device steps ----------------------------------------
+
+    def _flush_pending_histos(self) -> None:
+        if not self._ph_rows:
+            return
+        rows = np.asarray(self._ph_rows, dtype=np.int32)
+        vals = np.asarray(self._ph_vals, dtype=np.float32)
+        wts = np.asarray(self._ph_wts, dtype=np.float32)
+        self._ph_rows, self._ph_vals, self._ph_wts = [], [], []
+        self._device_histo_step(rows, vals, wts)
+
+    def _ensure_stage(self) -> None:
+        """Size the host staging planes to the digest pool's row count."""
+        rows = self._histo.num_rows
+        if self._stage_count is None:
+            self._stage_vals = np.zeros((rows, self.stage_depth), np.float32)
+            self._stage_wts = np.zeros((rows, self.stage_depth), np.float32)
+            self._stage_count = np.zeros(rows, np.int32)
+        elif len(self._stage_count) < rows:
+            old = len(self._stage_count)
+            nv = np.zeros((rows, self.stage_depth), np.float32)
+            nw = np.zeros((rows, self.stage_depth), np.float32)
+            nc = np.zeros(rows, np.int32)
+            nv[:old] = self._stage_vals
+            nw[:old] = self._stage_wts
+            nc[:old] = self._stage_count
+            self._stage_vals, self._stage_wts, self._stage_count = nv, nw, nc
+
+    def _device_histo_step(self, rows: np.ndarray, vals: np.ndarray,
+                           wts: np.ndarray) -> None:
+        """Stage a raw-sample batch host-side (vectorized numpy, no device
+        work); the digest compress is paid once per interval in
+        _histo_fold_staged. Samples past a row's staging depth spill
+        through the direct device fold."""
+        n = len(rows)
+        if n == 0:
+            return
+        B = self.stage_depth
+        self._ensure_stage()
+        order = np.argsort(rows, kind="stable")
+        srows = rows[order]
+        svals = vals[order]
+        swts = wts[order]
+        newrun = np.empty(n, bool)
+        newrun[0] = True
+        np.not_equal(srows[1:], srows[:-1], out=newrun[1:])
+        starts = np.flatnonzero(newrun)
+        runid = np.cumsum(newrun) - 1
+        # rank of each sample within its row's run → its staging slot
+        slots = self._stage_count[srows] + (np.arange(n) - starts[runid])
+        run_rows = srows[starts]
+        run_len = np.diff(np.append(starts, n))
+        fit = slots < B
+        if fit.all():
+            self._stage_vals[srows, slots] = svals
+            self._stage_wts[srows, slots] = swts
+            self._stage_count[run_rows] += run_len.astype(np.int32)
+            return
+        keep = fit
+        self._stage_vals[srows[keep], slots[keep]] = svals[keep]
+        self._stage_wts[srows[keep], slots[keep]] = swts[keep]
+        self._stage_count[run_rows] = np.minimum(
+            self._stage_count[run_rows] + run_len, B).astype(np.int32)
+        spill = ~keep
+        self._fold_batch_direct(srows[spill], svals[spill], swts[spill])
+
+    @staticmethod
+    def _pad_spill_batch(rows: np.ndarray, vals: np.ndarray,
+                         wts: np.ndarray, scratch: int):
+        """Pow2-pad one spill batch for the ingest step: padding sample
+        slots point at `scratch` with weight 0, which the step treats
+        as absent."""
+        uniq, inverse = np.unique(rows, return_inverse=True)
+        k = _next_pow2(len(uniq), 64)
+        n = _next_pow2(len(vals), 256)
+        active = np.full(k, scratch, dtype=np.int64)
+        active[: len(uniq)] = uniq
+        lids = np.full(n, k - 1, dtype=np.int64)
+        lids[: len(vals)] = inverse
+        v = np.zeros(n, dtype=np.float32)
+        v[: len(vals)] = vals
+        w = np.zeros(n, dtype=np.float32)
+        w[: len(vals)] = wts
+        return active, lids, v, w
+
+    def _fold_batch_direct(self, rows: np.ndarray, vals: np.ndarray,
+                           wts: np.ndarray) -> None:
+        """Gather→add_batch→scatter device fold of one sample batch — the
+        spill path for rows whose staging plane is full (in place)."""
+        h = self._histo
+        assert h is not None
+        active, lids, v, w = self._pad_spill_batch(
+            rows, vals, wts, h.num_rows - 1)
+        dev = self.device
+        h.set_fields(_histo_ingest_step(
+            *h.fields(), _to_device(active, dev), _to_device(lids, dev),
+            _to_device(v, dev), _to_device(w, dev),
+            compression=self.compression))
+
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _extract(self, fields: tuple, qs: torch.Tensor) -> torch.Tensor:
+        """Flush extraction, packed [S, P+10]: the hand-written kernel on
+        the card, its plain version on the CPU (ops/extract_kernel.py)."""
+        return ek.flush_extract(*fields, qs)
+
+    # -- flush --------------------------------------------------------------
+
+    def swap(self, quantiles: np.ndarray) -> SwappedEpoch:
+        """Close the current epoch and return the old-interval state (the
+        map-swap analog of worker.go:498-517). The new epoch starts with
+        no pool, so nothing of the swapped epoch is shared with it."""
+        self.processed_total += self.processed
+        self._flush_pending_histos()
+        staged_histo = None
+        if self._stage_count is not None and self._stage_count.any():
+            # hand the host staging plane to the closed epoch; the fold
+            # runs in extract_snapshot
+            self._ensure_stage()  # pool may have grown since staging
+            staged_histo = [StagedPlane(self._stage_vals, self._stage_wts)]
+        swapped = SwappedEpoch(
+            directory=self.directory, scalars=self.scalars,
+            histo=self._histo, sets=None, staged_sets=None, umts=None,
+            mesh_out=None, staged_histo=staged_histo)
+        self.processed = 0
+        self._reset_epoch()
+        return swapped
+
+    def _fold_one_plane(self, fields: tuple, pending: list, s_eff: int
+                        ) -> tuple:
+        """Upload pending[0] (a dense host plane), fold it into the digest
+        fields, and pop it."""
+        plane: StagedPlane = pending[0]
+        dev = self.device
+        svj = _to_device(plane.vals[:s_eff], dev)
+        swj = _to_device(plane.wts[:s_eff], dev)
+        if svj.shape[0] < s_eff:
+            pad = torch.zeros((s_eff - svj.shape[0], svj.shape[1]),
+                              dtype=torch.float32, device=dev)
+            svj = torch.cat([svj, pad])
+            swj = torch.cat([swj, pad])
+        fields = _histo_fold_staged(*fields, svj, swj,
+                                    compression=self.compression)
+        pending.pop(0)
+        return fields
+
+    def extract_snapshot(self, swapped: SwappedEpoch,
+                         quantiles: np.ndarray,
+                         interval_s: float = 10.0) -> FlushSnapshot:
+        """Fold and read back a swapped epoch. Touches only the swapped
+        objects, never the live epoch."""
+        directory = swapped.directory
+        histo = swapped.histo
+        snap = FlushSnapshot(directory=directory, scalars=swapped.scalars,
+                             interval_s=interval_s)
+        pending = list(swapped.staged_histo or ())
+        swapped.staged_histo = None
+        if histo is None or not directory.num_histo_rows:
+            return snap
+        n = directory.num_histo_rows
+        # fold + extract over the used rows only (pow2-bucketed, as the
+        # reference does): the pool is up to 2x oversized from growth
+        s_eff = min(histo.num_rows, _next_pow2(n, 1024))
+        fields = tuple(a if a.shape[0] == s_eff else a[:s_eff]
+                       for a in histo.fields())
+        t0 = time.perf_counter()
+        while pending:
+            fields = self._fold_one_plane(fields, pending, s_eff)
+        self._sync()
+        t1 = time.perf_counter()
+        # quantiles travel as f64 on the host; f32 at the device boundary
+        qnp = np.asarray(quantiles, dtype=np.float32)
+        qs = _to_device(qnp, self.device)
+        packed = self._extract(fields, qs).cpu().numpy()
+        self.last_extract_phases = {"fold_s": t1 - t0,
+                                    "extract_s": time.perf_counter() - t1}
+        p = qnp.shape[0]
+        qv, (dmin, dmax, dsum, dcount, drecip, lmin, lmax, lsum, lweight,
+             lrecip) = unpack_extract_columns(packed, p)
+        snap.quantile_values = qv[:n]
+        snap.quantile_qs = np.asarray(quantiles, dtype=np.float64)
+        snap.dmin, snap.dmax = dmin[:n], dmax[:n]
+        snap.dsum, snap.dcount, snap.drecip = dsum[:n], dcount[:n], drecip[:n]
+        snap.lmin, snap.lmax = lmin[:n], lmax[:n]
+        snap.lsum, snap.lweight, snap.lrecip = lsum[:n], lweight[:n], lrecip[:n]
+        # the centroid rows are read back only where forwarding could
+        # consume them (a local tier), as in the reference
+        if self.is_local:
+            snap.digest_means = fields[0].cpu().numpy()[:n]
+            snap.digest_weights = fields[1].cpu().numpy()[:n]
+        return snap
+
+    def flush(self, quantiles: np.ndarray, interval_s: float = 10.0
+              ) -> FlushSnapshot:
+        """Swap state and extract the finished interval in one call."""
+        return self.extract_snapshot(self.swap(quantiles), quantiles,
+                                     interval_s)
