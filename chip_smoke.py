@@ -7,28 +7,39 @@ Phases, each printed on its own lines; any mismatch raises and the
 script exits non-zero:
 
 1. setup: card name and power limit (nvidia-smi), nvcc build of every
-   kernel of the path from the sources in this checkout.
+   kernel of the path from the sources in this checkout, ptxas's report.
 2. kernel vs plain on the card: the flush extract kernel against its
    plain PyTorch version at S = 1,048,576 and S = 1,000,003 rows and at
    the main path's shapes (131,072 and 1,024 rows), C = 128,
-   qs = [0.5, 0.9, 0.99], seeded numpy pools with empty, single-centroid
-   and full rows. All P+10 columns bitwise equal (NaN positions equal);
-   median times of both at S = 1,048,576.
-3. one worker interval at the mixed configuration of BASELINE.md
+   qs = [0.5, 0.9, 0.99], a seeded numpy pool with empty, single-centroid
+   and full rows. Then every built variant R (rows per warp) over S
+   around each chunk and block round, 4,099, 131,072 and 1,000,003 rows,
+   P = 1, 3 and 16 (qs [1.0], the above, 16 from 0 to 1), a 4,099-row
+   pool of edge rows (tools/port_probe_extract.edge_pool) and row-offset
+   views [1:] of every field. All P+10 columns bitwise equal (NaN
+   positions equal); median times of kernel and plain at S = 1,048,576,
+   and of the kernel at the main path's shapes.
+3. the variant probe (tools/port_probe_extract.py): per variant its
+   ptxas report, bitwise equality at S = 1,000,003 and its time at
+   S = 1,048,576; a torch.sum read-rate yardstick.
+4. one worker interval at the mixed configuration of BASELINE.md
    (100k series): 80,000 histogram/timer series made through
    process_metric, 40 samples each staged through _device_histo_step,
    1,000 hot series with 200 samples each (past stage depth 64, so the
    spill fold runs), 10,000 counters, 9,000 gauges, sampled timers; then
    flush. The same interval on a second worker on the CPU must give
    bitwise the same snapshot.
-4. server: the port's Server built by its factory with a UDP listener on
+5. server: the port's Server built by its factory with a UDP listener on
    port 0 and a channel sink answers a few hundred real datagrams; one
    flush; its InterMetrics equal a CPU server's over the same datagrams.
-5. a ``kernels`` JSON line: every kernel with its launches on the main
-   path (phases 3 and 4, counts reset just before, read just after), its
-   agreement with the plain version, its time, the plain time and its
-   bound.
-6. the last line: {"ok": true, "device": {...}}.
+6. on the line before the last two, the card's name and power limit;
+   then a ``kernels`` JSON line: every kernel with its launches on the
+   main path (phases 4 and 5, counts reset just before, read just
+   after), its agreement with the plain version, its time, the plain
+   time and its bound; the probe's variants beside it, with their build
+   report and launches on the main path (only the variant flush_extract
+   launches has any).
+7. the last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the veneur_tpu_torch package beside it, the
 script prints no result and exits 2. It imports nothing of JAX.
@@ -40,7 +51,6 @@ import argparse
 import contextlib
 import json
 import struct
-import subprocess
 import sys
 import time
 from pathlib import Path
@@ -52,27 +62,13 @@ S_RAGGED = 1_000_003
 QS = [0.5, 0.9, 0.99]
 # the worker interval (BASELINE.md mixed configuration, 100k series)
 N_HIST, N_HOT, N_COUNTERS, N_GAUGES = 80_000, 1_000, 10_000, 9_000
+EDGE_ROWS = 4099
 DEVICE = "cuda"
-HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
-F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
+probe = None  # tools/port_probe_extract.py, imported by main()
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def bitwise_equal(a, b) -> tuple[bool, float]:
-    """(bits equal with NaN positions equal, max |a - b| over non-NaN)."""
-    import torch
-
-    na, nb = torch.isnan(a), torch.isnan(b)
-    if not torch.equal(na, nb):
-        return False, float("inf")
-    ok = ~na
-    va, vb = a[ok], b[ok]
-    fin = torch.isfinite(va) & torch.isfinite(vb)
-    err = float((va[fin] - vb[fin]).abs().max()) if fin.any() else 0.0
-    return torch.equal(va.view(torch.int32), vb.view(torch.int32)), err
 
 
 def sync() -> None:
@@ -82,109 +78,103 @@ def sync() -> None:
         torch.cuda.synchronize()
 
 
-def cuda_ms(fn, reps: int) -> float:
-    """Median milliseconds of fn() on the card (CUDA events per call)."""
-    import torch
-
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    times.sort()
-    return times[len(times) // 2]
-
-
 # -- phase 2 ------------------------------------------------------------------
 
 
-def make_pool(s: int, seed: int):
-    """Seeded numpy pool state (14 f32 fields): row occupancy 0 (5%),
-    1 (5%), full 128 (10%), else uniform; means ascending per row, +inf
-    and weight 0 past the occupancy."""
-    import numpy as np
-
-    c = 128
-    rng = np.random.default_rng(seed)
-    kind = rng.random(s)
-    occ = rng.integers(2, c, s)
-    occ[kind < 0.05] = 0
-    occ[(kind >= 0.05) & (kind < 0.10)] = 1
-    occ[(kind >= 0.10) & (kind < 0.20)] = c
-    steps = rng.random((s, c), dtype=np.float32) * np.float32(3.0)
-    means = np.cumsum(steps, axis=1, dtype=np.float32)
-    means += rng.normal(100.0, 40.0, (s, 1)).astype(np.float32)
-    weights = rng.integers(1, 50, (s, c)).astype(np.float32)
-    empty = np.arange(c)[None, :] >= occ[:, None]
-    means[empty] = np.inf
-    weights[empty] = 0.0
-    has = occ > 0
-    dmin = np.where(has, means[:, 0], np.inf).astype(np.float32)
-    dmax = np.where(has, means[np.arange(s), np.maximum(occ - 1, 0)],
-                    -np.inf).astype(np.float32)
-    extra = [rng.normal(0.0, 5.0, s).astype(np.float32) for _ in range(10)]
-    return [means, weights, dmin, dmax] + extra
+def sweep_sizes(variants) -> list[int]:
+    """Row counts around each variant's chunk (R rows) and block round
+    (4 warps x R rows), plus larger ragged and main-path sizes."""
+    small = {1}
+    for r in variants:
+        for t in (r, 4 * r):
+            small.update({t - 1, t, t + 1})
+    return sorted(n for n in small if n > 0) + [4099, 131_072, S_RAGGED]
 
 
-def bound(s: int, p: int) -> tuple[float, str]:
-    """Least time for the flush extract at S rows and P quantiles: the
-    larger of bytes (each input read once, the output written once) over
-    HBM rate and f32 operations over the f32 peak."""
-    c = 128
-    nbytes = 4 * (2 * s * c + 12 * s + p + s * (p + 10))
-    # per row: scan 7*C adds, two trees 2*(C-1), C products, C midpoint
-    # adds + divides, 6 ops per quantile, 5 compensated-column adds
-    ops = s * (7 * c + 2 * (c - 1) + c + 2 * c + 6 * p + 5)
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = ops / F32_FLOPS_PER_S * 1e3
-    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+def _compare(got, ref, what: str) -> float:
+    same, err = probe.bitwise_equal(got, ref)
+    if not same:
+        import torch
+
+        bad = (got != ref) & ~(torch.isnan(got) & torch.isnan(ref))
+        rows = torch.nonzero(bad.any(1)).flatten()[:5].tolist()
+        raise AssertionError(f"kernel != plain at {what}, rows {rows}")
+    return err
 
 
 def phase_kernel_vs_plain(ek):
+    """The production kernel at the main path's shapes, every variant
+    over the sweep of sizes, quantile counts, a row-offset view and the
+    edge-row pool; all bitwise against the plain version. Returns the
+    pool (kept for the probe) and the numbers for the kernels line."""
+    import numpy as np
     import torch
 
-    fields_np = make_pool(S_FULL, seed=11)
     dev = torch.device(DEVICE)
-    fields = [torch.from_numpy(a).to(dev) for a in fields_np]
+    fields = [torch.from_numpy(a).to(dev)
+              for a in probe.make_pool(S_FULL, seed=11)]
     qs = torch.tensor(QS, dtype=torch.float32, device=dev)
     # the main path's shapes too: the worker interval's and the server's
     # effective pool rows (the pow2 bucket extract_snapshot slices to)
     s_main = [max(1024, 1 << (N_HIST + N_HOT - 1).bit_length()), 1024]
-    out = {}
+    errs = []
     for s in [S_FULL, S_RAGGED] + s_main:
         sub = [f[:s] for f in fields]
         got = ek.flush_extract(*sub, qs)
         sync()
         ref = ek.flush_extract_plain(*sub, qs)
         sync()
-        same, err = bitwise_equal(got, ref)
+        errs.append(_compare(got, ref, f"S={s}"))
         n_nan = int(torch.isnan(got[:, 0]).sum())
-        log(f"[kernel] S={s}: bitwise_equal={same} max_abs_err={err} "
+        log(f"[kernel] S={s}: bitwise_equal=True max_abs_err={errs[-1]} "
             f"empty_rows={n_nan} shape={tuple(got.shape)}")
-        if not same:
-            bad = (got != ref) & ~(torch.isnan(got) & torch.isnan(ref))
-            rows = torch.nonzero(bad.any(1)).flatten()[:5].tolist()
-            raise AssertionError(f"kernel != plain at S={s}, rows {rows}")
-        out[s] = err
+        if s == S_RAGGED:
+            plain_check = ref
+    qs_by_p = {1: [1.0], 3: QS, 16: list(np.linspace(0.0, 1.0, 16))}
+    edge = [torch.from_numpy(a).to(dev)
+            for a in probe.edge_pool(EDGE_ROWS, seed=13)]
+    cases = []  # (label, fields, qs)
+    for p, qv in qs_by_p.items():
+        q = torch.tensor(qv, dtype=torch.float32, device=dev)
+        cases += [(f"S={s} P={p}", [f[:s] for f in fields], q)
+                  for s in sweep_sizes(ek.VARIANTS)]
+        cases.append((f"edge rows S={EDGE_ROWS} P={p}", edge, q))
+        cases.append((f"edge rows [1:] P={p}", [f[1:] for f in edge], q))
+    cases.append((f"[1:] S={S_FULL - 1} P=3", [f[1:] for f in fields], qs))
+    for label, sub, q in cases:
+        ref = ek.flush_extract_plain(*sub, q)
+        for r in ek.VARIANTS:
+            got = ek._flush_extract_variant(r, *sub, q)
+            sync()
+            errs.append(_compare(got, ref, f"r{r} {label}"))
+        del ref, got
+    log(f"[kernel] variants r{', r'.join(map(str, ek.VARIANTS))}: each "
+        f"bitwise equal to the plain version in {len(cases)} cases (S in "
+        f"{sweep_sizes(ek.VARIANTS)} x P in 1, 3, 16; the {EDGE_ROWS}-row "
+        f"edge pool ({', '.join(probe.EDGE_KINDS)}) and row-offset views "
+        f"[1:] of it and of the {S_FULL}-row pool)")
     sub = fields
-    k_ms = cuda_ms(lambda: ek.flush_extract(*sub, qs), reps=21)
-    p_ms = cuda_ms(lambda: ek.flush_extract_plain(*sub, qs), reps=5)
-    b_ms, b_by = bound(S_FULL, len(QS))
-    log(f"[kernel] S={S_FULL} P={len(QS)}: kernel {k_ms:.4f} ms, plain "
-        f"{p_ms:.4f} ms, bound {b_ms:.4f} ms ({b_by}), "
-        f"{b_ms / k_ms * 100:.1f}% of bound")
-    del fields, sub
-    return {"max_abs_err": max(out.values()), "ms": k_ms, "plain_ms": p_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
+    k_ms = probe.cuda_ms(lambda: ek.flush_extract(*sub, qs), reps=21,
+                         spin_cycles=2_000_000)
+    p_ms = probe.cuda_ms(lambda: ek.flush_extract_plain(*sub, qs), reps=5)
+    b_ms, b_by = probe.bound(S_FULL, len(QS))
+    log(f"[kernel] S={S_FULL} P={len(QS)}: kernel r{ek.ROWS_PER_WARP} "
+        f"{k_ms:.4f} ms, plain {p_ms:.4f} ms, bound {b_ms:.4f} ms "
+        f"({b_by}), {b_ms / k_ms * 100:.1f}% of bound")
+    at_main = {}
+    for s in s_main:
+        sub = [f[:s] for f in fields]
+        t = probe.cuda_ms(lambda: ek.flush_extract(*sub, qs), reps=21,
+                          spin_cycles=2_000_000)
+        at_main[s] = {"ms": t, "bound_ms": probe.bound(s, len(QS))[0]}
+        log(f"[kernel] S={s} P={len(QS)} (main path): kernel {t:.4f} ms, "
+            f"bound {at_main[s]['bound_ms']:.4f} ms")
+    return fields, qs, plain_check, {
+        "max_abs_err": max(errs), "ms": k_ms, "plain_ms": p_ms,
+        "bound_ms": b_ms, "bound_by": b_by, "at_main_path": at_main}
 
 
-# -- phase 3 ------------------------------------------------------------------
+# -- phase 4 ------------------------------------------------------------------
 
 
 def interval_plan(seed: int):
@@ -266,7 +256,7 @@ def compare_snapshots(a, b) -> None:
             ta, tb = torch.from_numpy(np.ascontiguousarray(va)), \
                 torch.from_numpy(np.ascontiguousarray(vb))
             if ta.dtype == torch.float32:
-                same, err = bitwise_equal(ta, tb)
+                same, err = probe.bitwise_equal(ta, tb)
             else:
                 same, err = va.tobytes() == vb.tobytes(), 0.0
             if not same:
@@ -311,7 +301,7 @@ def phase_worker(tw, generate, parse, qs):
             "spilled": spilled}
 
 
-# -- phase 4 ------------------------------------------------------------------
+# -- phase 5 ------------------------------------------------------------------
 
 
 def server_datagrams(seed: int, n: int = 300) -> list[bytes]:
@@ -422,13 +412,12 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(ROOT / "tools"))
+    global probe
+    import port_probe_extract as probe
 
     # 1. setup
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True)
-    card = smi.stdout.strip().splitlines()[0] if smi.returncode == 0 \
-        else f"nvidia-smi failed ({smi.returncode})"
+    card = probe.card_line()
     log(f"[setup] card: {card}")
     log(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}"
         f", cuda {torch.version.cuda}, device "
@@ -445,11 +434,20 @@ def main() -> int:
     ek.load()
     log(f"[setup] built and loaded {lib_path.relative_to(ROOT)} in "
         f"{time.perf_counter() - t0:.2f} s")
+    for r, rep in sorted(ek.build_report().items()):
+        log(f"[setup] ptxas r{r}: " + ", ".join(
+            f"{k} {v}" for k, v in rep.items()))
 
-    # 2. kernel vs plain
-    kres = phase_kernel_vs_plain(ek)
+    # 2. kernel vs plain, 3. the variant probe
+    fields, qs3, plain_check, kres = phase_kernel_vs_plain(ek)
+    variants = probe.probe_variants(fields, qs3, plain_check)
+    if not all(v["bitwise"] for v in variants):
+        raise AssertionError("a variant is not bitwise equal to the plain "
+                             "version")
+    yardstick = probe.read_yardstick(fields)
+    del fields, plain_check
 
-    # 3 + 4: the main path, launch counts reset just before
+    # 4 + 5: the main path, launch counts reset just before
     aggs = HistogramAggregates.from_names(["min", "max", "count"])
     qs = device_quantiles(QS, aggs)
 
@@ -458,28 +456,48 @@ def main() -> int:
         return generate_inter_metrics(snap, False, QS, aggs, now=0)
 
     ek.flush_extract.launches = 0
+    for r in ek.variant_launches:
+        ek.variant_launches[r] = 0
     phases = phase_worker(tw, generate, parse_metric, qs)
     phase_server(ek)
     launches = ek.flush_extract.launches
+    by_variant = dict(ek.variant_launches)
     if launches < 1:
         raise AssertionError("flush_extract was not launched on the main "
                              "path")
 
+    source = "veneur_tpu_torch/csrc/flush_extract.cu"
     kernels = {"kernels": [{
-        "name": "flush_extract", "route": "cuda",
-        "source": "veneur_tpu_torch/csrc/flush_extract.cu",
+        "name": "flush_extract", "route": "cuda", "source": source,
         "replaces": "veneur_tpu/ops/pallas_kernels.py:36",
         "launches": launches, "max_abs_err": kres["max_abs_err"],
         "ms": kres["ms"], "plain_ms": kres["plain_ms"],
         "bound_ms": kres["bound_ms"], "bound_by": kres["bound_by"],
-        "library_ms": None}]}
+        "library_ms": None, "rows_per_warp": ek.ROWS_PER_WARP,
+        "at_main_path": kres["at_main_path"]}]}
+    for v in variants:
+        r = v["rows_per_warp"]
+        kernels["kernels"].append({
+            "name": f"flush_extract_r{r}", "route": "cuda",
+            "source": source,
+            "replaces": "tools/probe_pallas_variants.py:130",
+            "launches": by_variant[r], "max_abs_err": v["max_abs_err"],
+            "ms": v["ms"], "plain_ms": kres["plain_ms"],
+            "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
+            "library_ms": None, "rows_per_warp": r,
+            "bitwise": v["bitwise"], "build": v["build"],
+            **{k: v.get(k) for k in (
+                "registers", "spill_stores", "spill_loads", "local_bytes",
+                "static_smem_bytes", "dynamic_smem_bytes",
+                "blocks_per_sm")}})
     result = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
-            {"card": card, **kernels, "worker": phases, **result},
+            {"card": card, **kernels, "worker": phases,
+             "yardstick": yardstick, **result},
             indent=1))
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

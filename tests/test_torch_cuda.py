@@ -1,5 +1,9 @@
-"""The PyTorch port on the card: the flush extract kernel against its
-plain version, and the CUDA worker and server against their CPU twins.
+"""The PyTorch port on the card: the flush extract kernel (the variant
+flush_extract launches, and every built variant) against its plain
+version, bitwise, at row counts around the kernel's chunk and block
+round, up to 1,000,003 rows, P = 1, 3 and 16, a row-offset view and the
+edge rows of tools/port_probe_extract.edge_pool; and the CUDA worker
+against its CPU twin.
 
 Every test here is marked ``cuda`` and skips without a card. On a card
 machine (no JAX needed) run them with
@@ -11,6 +15,9 @@ machine (no JAX needed) run them with
 
 from __future__ import annotations
 
+import sys
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -19,12 +26,15 @@ from veneur_tpu_torch.core import worker as tw
 from veneur_tpu_torch.ops import extract_kernel as ek
 from veneur_tpu_torch.protocol.dogstatsd import parse_metric
 
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+import port_probe_extract as probe  # noqa: E402
+
 pytestmark = pytest.mark.cuda
 
 C = 128
 
 
-@pytest.fixture
+@pytest.fixture(scope="module")
 def card():
     if not torch.cuda.is_available():
         pytest.skip("needs an NVIDIA card: the flush extract kernel is "
@@ -57,17 +67,82 @@ def _pool(s: int, seed: int) -> list[torch.Tensor]:
     return [torch.from_numpy(a) for a in [means, weights, dmin, dmax] + extra]
 
 
-@pytest.mark.parametrize("s", [1, 7, 4099, 65536])
+BIG = 1_000_003
+_QS = {1: [1.0], 3: [0.5, 0.9, 0.99], 16: list(np.linspace(0.0, 1.0, 16))}
+
+
+def _qs(p: int, dev) -> torch.Tensor:
+    return torch.tensor(_QS[p], dtype=torch.float32, device=dev)
+
+
+@pytest.fixture(scope="module")
+def big(card):
+    """A BIG-row pool on the card, and the plain version's output on its
+    leading rows, cached by (rows, P)."""
+    return [f.to(card) for f in _pool(BIG, 5)], {}
+
+
+def _plain(big, s: int, p: int) -> torch.Tensor:
+    fields, cache = big
+    if (s, p) not in cache:
+        cache[(s, p)] = ek.flush_extract_plain(
+            *(f[:s] for f in fields), _qs(p, fields[0].device))
+    return cache[(s, p)]
+
+
+def _edges(r: int) -> list[int]:
+    """Row counts around variant r's chunk (r rows) and block round."""
+    return sorted({n for t in (r, 4 * r) for n in (t - 1, t, t + 1)
+                   if n > 0} | {1})
+
+
+@pytest.mark.parametrize("s", _edges(ek.ROWS_PER_WARP)
+                         + [4099, 65536, 131_072, BIG])
 @pytest.mark.parametrize("p", [1, 3, 16])
-def test_kernel_bitwise_equals_plain(card, s, p):
-    fields = _pool(s, s * 31 + p)
-    qs = torch.from_numpy(np.linspace(0.01, 0.99, p).astype(np.float32))
-    plain = ek.flush_extract_plain(*fields, qs)
+def test_kernel_bitwise_equals_plain(big, s, p):
+    fields = [f[:s] for f in big[0]]
     before = ek.flush_extract.launches
-    got = ek.flush_extract(*(f.to(card) for f in fields), qs.to(card))
+    got = ek.flush_extract(*fields, _qs(p, fields[0].device))
     torch.cuda.synchronize()
     assert ek.flush_extract.launches == before + 1
-    assert _bitwise(got, plain)
+    assert _bitwise(got, _plain(big, s, p))
+
+
+@pytest.mark.parametrize("r", ek.VARIANTS)
+@pytest.mark.parametrize("p", [1, 3, 16])
+def test_every_variant_bitwise_equals_plain(big, r, p):
+    for s in _edges(r) + [4099, BIG]:
+        fields = [f[:s] for f in big[0]]
+        got = ek._flush_extract_variant(r, *fields,
+                                        _qs(p, fields[0].device))
+        torch.cuda.synchronize()
+        assert _bitwise(got, _plain(big, s, p)), (r, s, p)
+
+
+@pytest.mark.parametrize("r", ek.VARIANTS)
+def test_row_offset_view(card, r):
+    fields = [f.to(card) for f in _pool(4099, 17)]
+    view = [f[1:] for f in fields]
+    assert view[2].data_ptr() % 16  # the scalars start off the 16 B grid
+    qs = _qs(3, card)
+    got = ek._flush_extract_variant(r, *view, qs)
+    torch.cuda.synchronize()
+    assert _bitwise(got, ek.flush_extract_plain(*view, qs))
+    assert _bitwise(got, ek.flush_extract_plain(*fields, qs)[1:])
+
+
+@pytest.mark.parametrize("r", ek.VARIANTS)
+@pytest.mark.parametrize("p", [1, 3, 16])
+def test_edge_rows(card, r, p):
+    """Occupancy 0, 1, 127 and 128, equal means, denormal and huge
+    weights, scans that are not monotone (tools/port_probe_extract)."""
+    fields = [torch.from_numpy(a).to(card)
+              for a in probe.edge_pool(4099, seed=13)]
+    qs = _qs(p, card)
+    for sub in (fields, [f[1:] for f in fields]):
+        got = ek._flush_extract_variant(r, *sub, qs)
+        torch.cuda.synchronize()
+        assert _bitwise(got, ek.flush_extract_plain(*sub, qs)), (r, p)
 
 
 def test_kernel_refuses_what_it_cannot_take(card):

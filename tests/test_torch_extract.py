@@ -5,14 +5,24 @@
 * against ``pallas_kernels.flush_extract(interpret=True)`` at the JAX
   test's own rtol 1e-5 / atol 1e-3: the Pallas kernel takes its cumsum
   as a triangular matmul and has no bit contract with the XLA path.
+* on the edge rows of tools/port_probe_extract.edge_pool (occupancy 0,
+  1, 127, 128, equal means, weights near the f32 maximum, real-valued
+  and widely spread weights whose Hillis-Steele prefixes are not
+  monotone): bitwise, q = 0 and q = 1 included. Denormal weights are the
+  exception: XLA on the CPU reads them as zero, PyTorch and the kernel
+  do not (ROADMAP.md section 3).
 * the wrapper's routing and checks: a CPU tensor takes the plain version
-  and launches nothing; bad inputs raise.
+  and launches nothing; bad inputs raise; the variant entry takes CUDA
+  tensors only. ptxas's build report parses per variant.
 
 The CUDA kernel itself is held against the plain version on the card by
 tests/test_torch_cuda.py and chip_smoke.py.
 """
 
 from __future__ import annotations
+
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,8 +32,12 @@ import torch
 from veneur_tpu.core import worker as jworker
 from veneur_tpu.ops import pallas_kernels as pk
 from veneur_tpu.ops import tdigest as jtd
+from veneur_tpu_torch.ops import exactnum as texn
 from veneur_tpu_torch.ops import extract_kernel as ek
 from veneur_tpu_torch.ops import tdigest as ttd
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+import port_probe_extract as probe  # noqa: E402
 
 C = 128
 
@@ -130,7 +144,7 @@ def test_mixed_occupancy_rows():
 
 
 def test_empty_pool_rows_nan():
-    pool = ttd.init_pool(32, C)
+    pool = ttd.init_pool(32, C, device="cpu")
     zeros = [torch.zeros(32) for _ in range(10)]
     out = ek.flush_extract(pool.means, pool.weights, pool.min, pool.max,
                            *zeros, torch.tensor([0.5]))
@@ -152,3 +166,69 @@ def test_wrapper_refuses_bad_inputs():
         ek.flush_extract(*fields, qs[None, :])
     with pytest.raises(ValueError):
         ek.flush_extract(*fields[:-1], fields[-1].to("meta"), qs)
+
+
+def _edge_fields(s=400):
+    return probe.edge_pool(s, seed=13)
+
+
+@pytest.mark.parametrize("qs", [[1.0], [0.0, 0.5, 0.99],
+                                list(np.linspace(0.0, 1.0, 16))])
+def test_plain_matches_xla_on_edge_rows(qs):
+    fields = _edge_fields()
+    kind = np.arange(len(fields[2])) % len(probe.EDGE_KINDS)
+    keep = kind != probe.EDGE_KINDS.index("denormal")
+    fields = [np.ascontiguousarray(f[keep]) for f in fields]
+    # the real-valued rows do give scans that are not monotone
+    w_cum = texn.cumsum(torch.from_numpy(fields[1])).numpy()
+    finite = np.isfinite(w_cum).all(axis=1)
+    assert (np.diff(w_cum[finite], axis=1) < 0).any()
+    q = np.asarray(qs, np.float32)
+    _assert_bitwise(_jax_packed(fields, q), _torch_packed(fields, q),
+                    f"edge rows, qs={qs}")
+
+
+def test_denormal_weights_read_as_zero_by_xla_on_cpu():
+    fields = _edge_fields(20)
+    row = probe.EDGE_KINDS.index("denormal")
+    q = np.array([0.5], np.float32)
+    jax_row = _jax_packed(fields, q)[row]
+    torch_row = _torch_packed(fields, q)[row]
+    assert 0 < fields[1][row].max() < np.finfo(np.float32).tiny
+    assert np.isnan(jax_row[0]) and jax_row[1 + 3] == 0  # no weight left
+    assert np.isfinite(torch_row[0]) and torch_row[1 + 3] > 0
+
+
+_PTXAS = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flush_extract_kernelILi8EEEvNS_6FieldsEii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flush_extract_kernelILi8EEEvNS_6FieldsEii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 102 registers, used 0 barriers
+ptxas info    : Compile time = 177.108 ms
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flush_extract_kernelILi1EEEvNS_6FieldsEii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flush_extract_kernelILi1EEEvNS_6FieldsEii
+    24 bytes stack frame, 8 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 40 registers, 16 bytes smem, 400 bytes cmem[0]
+"""
+
+
+def test_ptxas_report_parses_per_variant():
+    rep = ek.parse_ptxas(_PTXAS)
+    assert rep == {
+        8: {"registers": 102, "spill_stores": 0, "spill_loads": 0,
+            "local_bytes": 0, "static_smem_bytes": 0},
+        1: {"registers": 40, "spill_stores": 8, "spill_loads": 4,
+            "local_bytes": 24, "static_smem_bytes": 16}}
+
+
+def test_variant_entry_takes_cuda_tensors_only():
+    fields = [torch.from_numpy(f) for f in _fields(8, 1)]
+    qs = torch.tensor([0.5])
+    before = dict(ek.variant_launches)
+    with pytest.raises(ValueError, match="cuda"):
+        ek._flush_extract_variant(ek.ROWS_PER_WARP, *fields, qs)
+    with pytest.raises(ValueError, match="rows per warp"):
+        ek._flush_extract_variant(3, *fields, qs)
+    assert ek.variant_launches == before
+    assert ek.ROWS_PER_WARP in ek.VARIANTS

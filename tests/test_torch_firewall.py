@@ -4,9 +4,10 @@
   import system refuses ``jax``/``jaxlib`` and ``veneur_tpu``/
   ``veneur_tpu.*`` (``veneur_tpu_torch`` is allowed).
 * Imports inside functions never run at import time, so each module's
-  source (and chip_smoke.py's) is also walked as an AST for any import
-  naming those packages.
-* ``device.resolve()`` asks for CUDA and raises where there is none.
+  source (and chip_smoke.py's, and the port's tools, tools/port_*.py) is
+  also walked as an AST for any import naming those packages.
+* ``device.resolve()`` asks for CUDA and raises where there is none, and
+  so do the constructors that take a device and are given none.
 """
 
 from __future__ import annotations
@@ -81,7 +82,8 @@ def _imports(path: Path) -> list[str]:
 
 
 @pytest.mark.parametrize(
-    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"],
+    "path", sorted(PKG.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+    + sorted((ROOT / "tools").glob("port_*.py")),
     ids=lambda p: str(p.relative_to(ROOT)))
 def test_no_import_of_jax_anywhere_in_source(path):
     bad = [n for n in _imports(path) if _forbidden(n)]
@@ -101,3 +103,18 @@ def test_resolve_raises_without_cuda():
         device.resolve("cuda:0")
     assert torch.backends.cuda.matmul.allow_tf32 is False
     assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_no_device_means_the_card():
+    from veneur_tpu_torch.core.worker import HistoDeviceState
+    from veneur_tpu_torch.ops import tdigest as ttd
+
+    if torch.cuda.is_available():
+        assert ttd.init_pool(4).means.device.type == "cuda"
+        assert HistoDeviceState.create(4, 128).means.device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ttd.init_pool(4)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        HistoDeviceState.create(4, 128)
+    assert ttd.init_pool(4, device="cpu").means.device.type == "cpu"

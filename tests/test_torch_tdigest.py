@@ -96,7 +96,7 @@ def test_add_batch_bitwise(ties, weighted, n):
     rows, vals, wts = _batch(k, n, n + 10 * ties + weighted, ties=ties,
                              weighted=weighted, pad=37)
     jpool = tuple(jtd.init_pool(k, C))
-    tpool = tuple(ttd.init_pool(k, C))
+    tpool = tuple(ttd.init_pool(k, C, device="cpu"))
     for rnd in range(2):  # a second batch merges into non-empty rows
         (jm, jw, jmin, jmax, jr, jst), (tm, tw, tmin, tmax, tr, tst) = \
             _both_add(jpool, tpool, rows, vals + rnd, wts)
@@ -176,7 +176,7 @@ def test_pool_carried_across_and_continued():
 
 def test_init_pool_matches():
     j = jtd.pool_to_numpy(jtd.init_pool(5, C))
-    t = ttd.init_pool(5, C)
+    t = ttd.init_pool(5, C, device="cpu")
     for key, b in zip(("means", "weights", "min", "max", "recip"), t):
         _assert_bitwise(j[key], b, key)
     assert ttd.capacity_for(100.0) == jtd.capacity_for(100.0)

@@ -312,7 +312,9 @@ class HistoDeviceState:
 
     @classmethod
     def create(cls, rows: int, capacity: int,
-               device="cpu") -> "HistoDeviceState":
+               device=None) -> "HistoDeviceState":
+        """An empty state on ``device`` (none asked for: the card)."""
+        device = resolve(device)
         # every field its own tensor: the ingest step updates in place
         pool = td.init_pool(rows, capacity, device=device)
 

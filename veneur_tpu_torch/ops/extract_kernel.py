@@ -6,16 +6,23 @@ one f32[S, P+10] array (the JAX package's ``_histo_flush_extract``
 followed by ``_pack_extract_columns``, core/worker.py). It replaces the
 TPU kernel ``_extract_kernel`` of veneur_tpu/ops/pallas_kernels.py.
 
-* On a CUDA tensor it launches ``csrc/flush_extract.cu`` (one warp per
-  row, see the source for the design and its memory bound) or raises.
-  The library is built with nvcc for sm_90a at first use, into
-  ``build/kernels/`` at the repository root, and loaded with ctypes.
+* On a CUDA tensor it launches ``csrc/flush_extract.cu`` (R rows per
+  warp fed by a ring of bulk copies; see the source for the design and
+  its memory bound) or raises. The library is built with nvcc for sm_90a
+  at first use, into ``build/kernels/`` at the repository root, and
+  loaded with ctypes; ptxas's report of the build is kept beside it.
 * On a CPU tensor it runs ``flush_extract_plain``: the same function as
   PyTorch ops (ops/tdigest.quantile, row_sum, row_count and the pack).
 
 Both follow the XLA path's bit contract, so the kernel's output is
 bitwise the plain version's on the same inputs (NaN where a row is empty).
 ``flush_extract.launches`` counts kernel launches, nothing else.
+
+The library holds one kernel per R in ``VARIANTS``; ``flush_extract``
+launches ``ROWS_PER_WARP``, the fastest variant that builds without
+spills and is bitwise equal to the plain version on the card
+(tools/port_probe_extract.py measures them; PERF.md has the numbers).
+``_flush_extract_variant`` reaches the others for that probe.
 """
 
 from __future__ import annotations
@@ -23,6 +30,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -35,14 +43,20 @@ from veneur_tpu_torch.ops import tdigest as td
 CAPACITY = 128  # centroids per row the kernel takes
 MAX_QUANTILES = 16  # quantiles per call the kernel takes
 AGG_COLUMNS = 10
+VARIANTS = (1, 2, 4, 8)  # rows per warp, one kernel each in the library
+ROWS_PER_WARP = 8  # the variant flush_extract launches
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "flush_extract.cu"
 _BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
+              "-Xcompiler", "-fPIC")
 
 _lib = None
 _lib_lock = threading.Lock()
+_blocks_per_sm: dict[tuple[int, int], int] = {}
+# launches of each variant's kernel, whoever asked for them
+variant_launches = {r: 0 for r in VARIANTS}
 
 
 def _nvcc() -> str:
@@ -63,7 +77,8 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/flush_extract.cu with nvcc unless this exact build
-    exists; returns the library path."""
+    exists; returns the library path. ptxas's report (``-Xptxas -v``)
+    goes to the same name with ``.ptxas.txt``."""
     out = library_path()
     if out.exists():
         return out
@@ -75,8 +90,42 @@ def build() -> Path:
     if proc.returncode != 0:
         raise RuntimeError(
             f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
+    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
     os.replace(tmp, out)
     return out
+
+
+def parse_ptxas(text: str) -> dict[int, dict[str, int]]:
+    """Per variant R, what ptxas reported for its kernel: registers per
+    thread, spill store and load bytes, local memory (stack frame or
+    lmem) bytes and static shared memory bytes."""
+    out: dict[int, dict[str, int]] = {}
+    cur = None
+    for line in text.splitlines():
+        m = re.search(r"flush_extract_kernelILi(\d+)E", line)
+        if m and ("Compiling entry function" in line
+                  or "Function properties for" in line):
+            cur = out.setdefault(int(m.group(1)), {
+                "registers": 0, "spill_stores": 0, "spill_loads": 0,
+                "local_bytes": 0, "static_smem_bytes": 0})
+            continue
+        if cur is None:
+            continue
+        for key, pat in (("registers", r"Used (\d+) registers"),
+                         ("spill_stores", r"(\d+) bytes spill stores"),
+                         ("spill_loads", r"(\d+) bytes spill loads"),
+                         ("local_bytes", r"(\d+) bytes stack frame"),
+                         ("local_bytes", r"(\d+) bytes lmem"),
+                         ("static_smem_bytes", r"(\d+) bytes smem")):
+            m = re.search(pat, line)
+            if m:
+                cur[key] = max(cur[key], int(m.group(1)))
+    return out
+
+
+def build_report() -> dict[int, dict[str, int]]:
+    """ptxas's report of the current build, per variant R."""
+    return parse_ptxas(build().with_suffix(".ptxas.txt").read_text())
 
 
 def load():
@@ -86,11 +135,31 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
-            lib.flush_extract_launch.argtypes = [vp] * 16 + [ci, ci, ci, vp]
-            lib.flush_extract_launch.restype = ci
+            for r in VARIANTS:
+                fn = getattr(lib, f"flush_extract_launch_r{r}")
+                fn.argtypes = [ctypes.POINTER(vp), vp, vp, ci, ci, ci, vp]
+                fn.restype = ci
+                getattr(lib, f"flush_extract_occupancy_r{r}").restype = ci
+                getattr(lib, f"flush_extract_smem_bytes_r{r}").restype = ci
             lib.flush_extract_threads_per_block.restype = ci
             _lib = lib
         return _lib
+
+
+def blocks_per_sm(r: int, device: torch.device) -> int:
+    """Resident blocks of variant r on one SM of ``device``, as the
+    occupancy calculator reports it (cached per device)."""
+    key = (r, device.index if device.index is not None
+           else torch.cuda.current_device())
+    if key not in _blocks_per_sm:
+        lib = load()
+        with torch.cuda.device(device):
+            n = getattr(lib, f"flush_extract_occupancy_r{r}")()
+        if n < 1:
+            raise RuntimeError(f"flush_extract r{r}: the occupancy query "
+                               f"gave {n} (below 0: a CUDA error)")
+        _blocks_per_sm[key] = n
+    return _blocks_per_sm[key]
 
 
 def histo_flush_extract(means, weights, dmin, dmax, drecip, drecip_c,
@@ -142,20 +211,13 @@ def _check(fields, qs) -> tuple[int, int]:
     return s, c
 
 
-def flush_extract(means, weights, dmin, dmax, drecip, drecip_c,
-                  lmin, lmax, lsum, lsum_c, lweight, lweight_c,
-                  lrecip, lrecip_c, qs) -> torch.Tensor:
-    """Packed flush extract f32[S, P+10] (column layout in the CUDA
-    source). CPU tensors take the plain version; CUDA tensors launch the
-    kernel, which takes C = 128 and 1 <= P <= 16, or raise."""
-    fields = (means, weights, dmin, dmax, drecip, drecip_c, lmin, lmax,
-              lsum, lsum_c, lweight, lweight_c, lrecip, lrecip_c)
+def _launch(r: int, fields, qs) -> torch.Tensor:
+    """Check what the kernel takes and launch variant r on CUDA tensors."""
+    means, weights = fields[0], fields[1]
     s, c = _check(fields, qs)
     p = qs.shape[0]
-    if means.device.type == "cpu":
-        return flush_extract_plain(*fields, qs)
     if means.device.type != "cuda":
-        raise ValueError(f"flush_extract runs on cpu or cuda, not "
+        raise ValueError(f"the flush extract kernel runs on cuda, not "
                          f"{means.device.type}")
     if c != CAPACITY:
         raise ValueError(f"the kernel takes {CAPACITY} centroids per row,"
@@ -174,15 +236,46 @@ def flush_extract(means, weights, dmin, dmax, drecip, drecip_c,
         sms = torch.cuda.get_device_properties(
             means.device).multi_processor_count
         warps = lib.flush_extract_threads_per_block() // 32
-        grid = max(1, min(-(-s // warps), sms * 8))
+        chunks = -(-s // r)
+        grid = max(1, min(-(-chunks // warps),
+                          sms * blocks_per_sm(r, means.device)))
         stream = torch.cuda.current_stream(means.device).cuda_stream
-        rc = lib.flush_extract_launch(
-            *(t.data_ptr() for t in fields), qs.data_ptr(), out.data_ptr(),
-            s, p, grid, stream)
+        ptrs = (ctypes.c_void_p * len(fields))(
+            *(t.data_ptr() for t in fields))
+        rc = getattr(lib, f"flush_extract_launch_r{r}")(
+            ptrs, qs.data_ptr(), out.data_ptr(), s, p, grid, stream)
     if rc != 0:
-        raise RuntimeError(f"flush_extract launch failed: CUDA error {rc}")
+        raise RuntimeError(f"flush_extract r{r} launch failed: CUDA error "
+                           f"{rc}")
+    variant_launches[r] += 1
+    return out
+
+
+def flush_extract(means, weights, dmin, dmax, drecip, drecip_c,
+                  lmin, lmax, lsum, lsum_c, lweight, lweight_c,
+                  lrecip, lrecip_c, qs) -> torch.Tensor:
+    """Packed flush extract f32[S, P+10] (column layout in the CUDA
+    source). CPU tensors take the plain version; CUDA tensors launch the
+    kernel, which takes C = 128 and 1 <= P <= 16, or raise."""
+    fields = (means, weights, dmin, dmax, drecip, drecip_c, lmin, lmax,
+              lsum, lsum_c, lweight, lweight_c, lrecip, lrecip_c)
+    if means.device.type == "cpu":
+        _check(fields, qs)
+        return flush_extract_plain(*fields, qs)
+    out = _launch(ROWS_PER_WARP, fields, qs)
     flush_extract.launches += 1
     return out
 
 
 flush_extract.launches = 0
+
+
+def _flush_extract_variant(r: int, *fields_and_qs) -> torch.Tensor:
+    """``flush_extract`` through variant r of the kernel (CUDA tensors
+    only): for the variant probe, not for the flush path."""
+    if r not in VARIANTS:
+        raise ValueError(f"no variant with {r} rows per warp; built: "
+                         f"{VARIANTS}")
+    if len(fields_and_qs) != 15:
+        raise TypeError("expected the 14 pool fields and qs")
+    return _launch(r, tuple(fields_and_qs[:14]), fields_and_qs[14])

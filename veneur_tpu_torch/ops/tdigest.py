@@ -22,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from veneur_tpu_torch.device import resolve
 from veneur_tpu_torch.ops import exactnum as exn
 from veneur_tpu_torch.ops import segments
 
@@ -49,7 +50,9 @@ def capacity_for(compression: float) -> int:
 
 
 def init_pool(num_rows: int, capacity: int = DEFAULT_CAPACITY,
-              device="cpu") -> TDigestPool:
+              device=None) -> TDigestPool:
+    """An empty pool on ``device`` (none asked for: the card)."""
+    device = resolve(device)
     f32 = torch.float32
     return TDigestPool(
         means=torch.full((num_rows, capacity), _INF, dtype=f32,
