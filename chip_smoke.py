@@ -7,7 +7,9 @@ Phases, each printed on its own lines; any mismatch raises and the
 script exits non-zero:
 
 1. setup: card name and power limit (nvidia-smi), nvcc build of every
-   kernel of the path from the sources in this checkout, ptxas's report.
+   kernel of the path from the sources in this checkout (the flush
+   extract and the HLL library, one nvcc each, started together),
+   ptxas's report of each.
 2. kernel vs plain on the card: the flush extract kernel against its
    plain PyTorch version at S = 1,048,576 and S = 1,000,003 rows and at
    the main path's shapes (131,072 and 1,024 rows), C = 128,
@@ -22,19 +24,34 @@ script exits non-zero:
 3. the variant probe (tools/port_probe_extract.py): per variant its
    ptxas report, bitwise equality at S = 1,000,003 and its time at
    S = 1,048,576; a torch.sum read-rate yardstick.
+3b. the HLL kernels (tools/port_probe_hll.py): hll_insert bytewise and
+   hll_estimate in f32 bits equal to their plain versions over pools of
+   1 to 32,768 rows at p = 4, 8, 14 and 18 in every estimator regime;
+   their times at the main path's shapes, the plain versions', the
+   bounds, and scatter_reduce_ beside the insert.
 4. one worker interval at the mixed configuration of BASELINE.md
-   (100k series): 80,000 histogram/timer series made through
-   process_metric, 40 samples each staged through _device_histo_step,
-   1,000 hot series with 200 samples each (past stage depth 64, so the
-   spill fold runs), 10,000 counters, 9,000 gauges, sampled timers; then
-   flush. The same interval on a second worker on the CPU must give
-   bitwise the same snapshot.
+   (100k series, bench.py's "mixed" mix): 80,000 histogram/timer series
+   made through process_metric, 40 samples each staged through
+   _device_histo_step, 1,000 hot series with 200 samples each (past stage
+   depth 64, so the spill fold runs), 10,000 counters, 9,000 gauges,
+   sampled timers, and 25,000 set series: one line each through
+   process_metric, then about 1.02 M set inserts through _device_set_step
+   in 16,384-sample batches (64 series of 8,192 members, past the staged
+   store's promotion to its dense tier; the rest of 20 members, sparse);
+   count_unique_timeseries on; then flush. The same interval on a second
+   worker on the CPU must give bitwise the same snapshot (set estimates
+   and registers and the unique-timeseries registers included).
+4b. the same set traffic through set_store="dense" workers, card against
+   CPU: a 32,768 x 16,384 int8 pool (512 MiB) on the card; every batch
+   launches hll_insert and the flush hll_estimate over the whole pool.
 5. server: the port's Server built by its factory with a UDP listener on
-   port 0 and a channel sink answers a few hundred real datagrams; one
-   flush; its InterMetrics equal a CPU server's over the same datagrams.
+   port 0, a channel sink and count_unique_timeseries answers a few
+   hundred real datagrams (set lines among them); one flush; its
+   InterMetrics and its unique-timeseries tally equal a CPU server's over
+   the same datagrams.
 6. on the line before the last two, the card's name and power limit;
    then a ``kernels`` JSON line: every kernel with its launches on the
-   main path (phases 4 and 5, counts reset just before, read just
+   main path (phases 4, 4b and 5, counts reset just before, read just
    after), its agreement with the plain version, its time, the plain
    time and its bound; the probe's variants beside it, with their build
    report and launches on the main path (only the variant flush_extract
@@ -53,6 +70,7 @@ import json
 import struct
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -62,9 +80,14 @@ S_RAGGED = 1_000_003
 QS = [0.5, 0.9, 0.99]
 # the worker interval (BASELINE.md mixed configuration, 100k series)
 N_HIST, N_HOT, N_COUNTERS, N_GAUGES = 80_000, 1_000, 10_000, 9_000
+# its sets: a quarter of bench.py's mixed series; the big ones promote to
+# the staged store's dense tier (8,192 members give ~6,300 registers of
+# 16,384, past promote_entries = 2,048)
+N_SETS, N_SETS_BIG, BIG_MEMBERS, SMALL_MEMBERS = 25_000, 64, 8_192, 20
 EDGE_ROWS = 4099
 DEVICE = "cuda"
 probe = None  # tools/port_probe_extract.py, imported by main()
+probe_hll = None  # tools/port_probe_hll.py, imported by main()
 
 
 def log(msg: str) -> None:
@@ -207,7 +230,28 @@ def interval_plan(seed: int):
     vals = rng.gamma(2.0, 20.0, len(rows)).astype(np.float32)
     wts = np.where(rows % 10 == 0, np.float32(2.0),
                    np.float32(1.0)).astype(np.float32)
-    return series, scalars, rows, vals, wts
+    return series, scalars, rows, vals, wts, set_plan(rng)
+
+
+def set_plan(rng):
+    """The sets of the interval: one line per set series (registers set
+    rows 0..N_SETS-1 in order), then the bulk members as (set row,
+    register, rank) at p = 14 from seeded uint64 hashes, shuffled."""
+    import numpy as np
+
+    from veneur_tpu_torch.ops.hll import split_hashes
+
+    lines = [f"users.{i}:u{int(rng.integers(0, 1 << 30))}|s|#shard:{i % 16}"
+             .encode() for i in range(N_SETS)]
+    rows = np.concatenate([
+        np.repeat(np.arange(N_SETS_BIG), BIG_MEMBERS),
+        np.repeat(np.arange(N_SETS_BIG, N_SETS), SMALL_MEMBERS),
+    ]).astype(np.int32)
+    perm = rng.permutation(len(rows))
+    rows = rows[perm]
+    hashes = rng.integers(0, 2**64, len(rows), dtype=np.uint64)
+    idx, rank = split_hashes(hashes, 14)
+    return lines, rows, idx, rank
 
 
 def run_interval(worker, plan, parse, qs, step=contextlib.nullcontext):
@@ -215,14 +259,17 @@ def run_interval(worker, plan, parse, qs, step=contextlib.nullcontext):
     by step: lines through process_metric, bulk staging with its spill
     folds, and the flush with its staged fold and extract). ``step(name)``
     wraps each step (a profiler range in tools/port_profile_interval.py)."""
-    series, scalars, rows, vals, wts = plan
+    series, scalars, rows, vals, wts, (set_lines, srows, sidx, srank) = plan
     t0 = time.perf_counter()
     with step("process_metric"):
         for line in series:
             worker.process_metric(parse(line))
         for line in scalars:
             worker.process_metric(parse(line))
+        for line in set_lines:
+            worker.process_metric(parse(line))
         worker._flush_pending_histos()
+        worker._flush_pending_sets()
         worker._sync()
     t1 = time.perf_counter()
     with step("staging"):
@@ -233,11 +280,28 @@ def run_interval(worker, plan, parse, qs, step=contextlib.nullcontext):
                                       wts[i:i + b])
         worker._sync()
     t2 = time.perf_counter()
+    set_insert_s = insert_sets(worker, srows, sidx, srank, step)
+    t3 = time.perf_counter()
     with step("flush"):
         snap = worker.flush(qs)
-    t3 = time.perf_counter()
+    t4 = time.perf_counter()
     return snap, {"process_metric_s": t1 - t0, "staging_s": t2 - t1,
-                  "flush_s": t3 - t2, **worker.last_extract_phases}
+                  "set_insert_s": set_insert_s, "flush_s": t4 - t3,
+                  **worker.last_extract_phases}
+
+
+def insert_sets(worker, rows, idx, rank, step=contextlib.nullcontext
+                ) -> float:
+    """The bulk set members through _device_set_step in batch_size
+    batches; seconds, ended by a device sync."""
+    t0 = time.perf_counter()
+    with step("sets"):
+        b = worker.batch_size
+        for i in range(0, len(rows), b):
+            worker._device_set_step(rows[i:i + b], idx[i:i + b],
+                                    rank[i:i + b])
+        worker._sync()
+    return time.perf_counter() - t0
 
 
 def compare_snapshots(a, b) -> None:
@@ -268,12 +332,30 @@ def compare_snapshots(a, b) -> None:
             raise AssertionError(f"{pool} differ")
 
 
+def check_set_estimates(est) -> None:
+    """The repo's own check of an HLL: each estimate within its error
+    envelope of the true count, the bulk members plus the series line's
+    one (1.04/sqrt(m) = 0.8% at p = 14; at 21 of 16,384 registers linear
+    counting is off only by the values that share a register, about one
+    set in 75 losing one)."""
+    import numpy as np
+
+    if est is None or est.shape != (N_SETS,) or not np.isfinite(est).all():
+        raise AssertionError("set estimates missing or not finite")
+    big, small = est[:N_SETS_BIG], est[N_SETS_BIG:]
+    if np.abs(big / (BIG_MEMBERS + 1) - 1).max() > 0.05 \
+            or np.abs(small - (SMALL_MEMBERS + 1)).max() > 3.0:
+        raise AssertionError(f"set estimates off: big {big.min()}..."
+                             f"{big.max()}, small {small.min()}..."
+                             f"{small.max()}")
+
+
 def phase_worker(tw, generate, parse, qs):
     import numpy as np
 
     plan = interval_plan(seed=5)
     kw = dict(compression=100.0, stage_depth=64, batch_size=16384,
-              initial_histo_rows=4096)
+              initial_histo_rows=4096, count_unique_timeseries=True)
     per_row = np.bincount(plan[2]) + 1  # + the series line's sample
     spilled = int(np.maximum(per_row - kw["stage_depth"], 0).sum())
     gpu = tw.DeviceWorker(**kw, device=DEVICE)
@@ -285,12 +367,20 @@ def phase_worker(tw, generate, parse, qs):
     qv = snap_g.quantile_values
     if qv.shape != (n, len(qs)) or not (qv == qv).all():
         raise AssertionError("quantiles not finite for every series")
+    check_set_estimates(snap_g.set_estimates)
+    if snap_g.set_registers.shape != (N_SETS, 1 << 14) \
+            or not snap_g.unique_timeseries_registers.any():
+        raise AssertionError("set registers or unique-timeseries "
+                             "registers missing")
     t0 = time.perf_counter()
     metrics = generate(snap_g)
     t_g["generate_s"] = time.perf_counter() - t0
     samples = len(plan[0]) + len(plan[2])
+    set_samples = len(plan[5][0]) + len(plan[5][1])
     log(f"[worker] {n} histogram series ({samples} samples, {spilled} "
         f"past stage depth {kw['stage_depth']} through the spill fold), "
+        f"{snap_g.directory.num_set_rows} set series ({set_samples} set "
+        f"samples; {N_SETS_BIG} promoted to the dense tier), "
         f"{len(snap_g.scalars.counter_meta)} counters, "
         f"{len(snap_g.scalars.gauge_meta)} gauges -> {len(metrics)} "
         f"InterMetrics; CUDA snapshot bitwise equal to CPU snapshot")
@@ -298,7 +388,57 @@ def phase_worker(tw, generate, parse, qs):
         log(f"[worker] {where}: " + ", ".join(
             f"{k} {v:.4f}" for k, v in t.items()))
     return {"card": t_g, "cpu": t_c, "series": n, "samples": samples,
-            "spilled": spilled}
+            "spilled": spilled, "set_series": N_SETS,
+            "set_samples": set_samples}
+
+
+def phase_dense_sets(tw, parse, hll):
+    """The interval's set traffic alone through set_store="dense"
+    workers, card against CPU: every batch scatters into the 32,768-row
+    pool on the card (hll_insert), the flush estimates all of it
+    (hll_estimate)."""
+    import numpy as np
+
+    rng = np.random.default_rng(6)
+    set_lines, rows, idx, rank = set_plan(rng)
+    kw = dict(batch_size=16384, set_store="dense",
+              count_unique_timeseries=True)
+    out = {}
+    snaps = {}
+    for where, dev in (("card", DEVICE), ("cpu", "cpu")):
+        w = tw.DeviceWorker(**kw, device=dev)
+        k0, e0 = hll.insert_batch.launches, hll.estimate.launches
+        t0 = time.perf_counter()
+        for line in set_lines:
+            w.process_metric(parse(line))
+        w._flush_pending_sets()
+        w._sync()
+        t1 = time.perf_counter()
+        set_insert_s = insert_sets(w, rows, idx, rank)
+        pool_rows = w._sets.shape[0]
+        t2 = time.perf_counter()
+        snaps[where] = w.flush(np.asarray(QS))
+        t3 = time.perf_counter()
+        out[where] = {"process_metric_s": t1 - t0,
+                      "set_insert_s": set_insert_s, "flush_s": t3 - t2,
+                      **w.last_extract_phases,
+                      "hll_insert_launches": hll.insert_batch.launches - k0,
+                      "hll_estimate_launches": hll.estimate.launches - e0}
+        del w
+    compare_snapshots(snaps["card"], snaps["cpu"])
+    check_set_estimates(snaps["card"].set_estimates)
+    if pool_rows != 1 << N_SETS.bit_length():  # + its scratch row
+        raise AssertionError(f"dense pool of {pool_rows} rows")
+    log(f"[dense sets] {N_SETS} set series, {len(set_lines) + len(rows)} "
+        f"samples into a {pool_rows} x {1 << 14} int8 pool: CUDA snapshot "
+        f"bitwise equal to CPU snapshot; card launches hll_insert "
+        f"{out['card']['hll_insert_launches']}, hll_estimate "
+        f"{out['card']['hll_estimate_launches']}")
+    for where, t in out.items():
+        log(f"[dense sets] {where}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in t.items()))
+    return out
 
 
 # -- phase 5 ------------------------------------------------------------------
@@ -318,6 +458,8 @@ def server_datagrams(seed: int, n: int = 300) -> list[bytes]:
             f"api.latency:{rng.gamma(2.0, 12.0):.4f}|ms|#route:r{k % 5}",
             f"api.payload:{rng.lognormal(6.0, 1.0):.3f}|h",
             f"api.slow:{rng.exponential(200.0):.3f}|ms|@0.25",
+            f"api.users:u{int(rng.integers(0, 5000))}|s",
+            f"api.users:u{k}|s|#veneurlocalonly",
         ]
         out.append("\n".join(lines).encode())
     out.append(b"_sc|api.health|0|#pod:p1|m:serving")
@@ -345,7 +487,7 @@ def phase_server(ek):
             "aggregates": ["min", "max", "count", "sum", "avg", "median"],
             "hostname": "chip-smoke", "tpu_native_ingest": False,
             "tpu_native_readers": False, "flush_emit_native": False,
-            "device_guard": False}
+            "device_guard": False, "count_unique_timeseries": True}
     sink = ChannelMetricSink()
     server = build_server(load_config(data=data), extra_metric_sinks=[sink],
                           device=DEVICE)
@@ -381,14 +523,23 @@ def phase_server(ek):
     if canonical(got) != canonical(ref) or \
             canonical(delivered) != canonical(got):
         raise AssertionError("CUDA server InterMetrics != CPU server's")
+    tally = server.last_unique_timeseries
+    if tally is None or tally != ref_server.last_unique_timeseries \
+            or tally < 1:
+        raise AssertionError(f"unique-timeseries tally {tally} != CPU "
+                             f"server's {ref_server.last_unique_timeseries}")
+    users = [m.value for m in got if m.name == "api.users"]
+    if len(users) != 2:
+        raise AssertionError("the set gauges are missing")
     if launched < 1:
         raise AssertionError("the server flush launched no kernel")
     vals = [m.value for m in got]
     if not vals or any(v != v for v in vals):
         raise AssertionError("server emitted no or non-finite values")
     log(f"[server] {len(grams)} UDP datagrams -> {len(got)} InterMetrics "
-        f"on {server.device}, equal to the CPU server's; flush_extract "
-        f"launches during the flush: {launched}")
+        f"on {server.device}, equal to the CPU server's; set gauges "
+        f"api.users {sorted(users)}; unique timeseries {tally} on both; "
+        f"flush_extract launches during the flush: {launched}")
 
 
 # -- main ---------------------------------------------------------------------
@@ -413,8 +564,9 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tools"))
-    global probe
+    global probe, probe_hll
     import port_probe_extract as probe
+    import port_probe_hll as probe_hll
 
     # 1. setup
     card = probe.card_line()
@@ -427,25 +579,45 @@ def main() -> int:
                                                generate_inter_metrics)
     from veneur_tpu_torch.core.metrics import HistogramAggregates
     from veneur_tpu_torch.ops import extract_kernel as ek
+    from veneur_tpu_torch.ops import hll, hll_kernel
     from veneur_tpu_torch.protocol.dogstatsd import parse_metric
 
-    t0 = time.perf_counter()
-    lib_path = ek.build()
+    t_start = t0 = time.perf_counter()
+    # one nvcc per source, started together
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        builds = [pool.submit(ek.build), pool.submit(hll_kernel.build)]
+        lib_paths = [f.result() for f in builds]
     ek.load()
-    log(f"[setup] built and loaded {lib_path.relative_to(ROOT)} in "
+    hll_kernel.load()
+    log(f"[setup] built and loaded "
+        f"{', '.join(str(p.relative_to(ROOT)) for p in lib_paths)} in "
         f"{time.perf_counter() - t0:.2f} s")
     for r, rep in sorted(ek.build_report().items()):
-        log(f"[setup] ptxas r{r}: " + ", ".join(
+        log(f"[setup] ptxas flush_extract r{r}: " + ", ".join(
             f"{k} {v}" for k, v in rep.items()))
+    hll_build = hll_kernel.build_report()
+    for name, rep in sorted(hll_build.items()):
+        log(f"[setup] ptxas {name}: " + ", ".join(
+            f"{k} {v}" for k, v in rep.items()))
+    wall = {"setup_s": time.perf_counter() - t_start}
 
-    # 2. kernel vs plain, 3. the variant probe
+    # 2. kernel vs plain, 3. the variant probe, 3b. the HLL kernels
+    t0 = time.perf_counter()
     fields, qs3, plain_check, kres = phase_kernel_vs_plain(ek)
+    wall["kernel_vs_plain_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     variants = probe.probe_variants(fields, qs3, plain_check)
     if not all(v["bitwise"] for v in variants):
         raise AssertionError("a variant is not bitwise equal to the plain "
                              "version")
     yardstick = probe.read_yardstick(fields)
     del fields, plain_check
+    wall["variant_probe_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    hll_checks = {"hll_insert": probe_hll.check_insert(hll),
+                  "hll_estimate": probe_hll.check_estimate(hll)}
+    hll_times = probe_hll.time_kernels(hll)
+    wall["hll_kernels_s"] = time.perf_counter() - t0
 
     # 4 + 5: the main path, launch counts reset just before
     aggs = HistogramAggregates.from_names(["min", "max", "count"])
@@ -458,13 +630,27 @@ def main() -> int:
     ek.flush_extract.launches = 0
     for r in ek.variant_launches:
         ek.variant_launches[r] = 0
+    hll.insert_batch.launches = hll.estimate.launches = 0
+    t0 = time.perf_counter()
     phases = phase_worker(tw, generate, parse_metric, qs)
+    wall["worker_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phases["dense_sets"] = phase_dense_sets(tw, parse_metric, hll)
+    wall["dense_sets_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     phase_server(ek)
+    wall["server_s"] = time.perf_counter() - t0
     launches = ek.flush_extract.launches
     by_variant = dict(ek.variant_launches)
+    hll_launches = {"hll_insert": hll.insert_batch.launches,
+                    "hll_estimate": hll.estimate.launches}
     if launches < 1:
         raise AssertionError("flush_extract was not launched on the main "
                              "path")
+    for name, n in hll_launches.items():
+        if n < 1:
+            raise AssertionError(f"{name} was not launched on the main "
+                                 f"path")
 
     source = "veneur_tpu_torch/csrc/flush_extract.cu"
     kernels = {"kernels": [{
@@ -490,6 +676,22 @@ def main() -> int:
                 "registers", "spill_stores", "spill_loads", "local_bytes",
                 "static_smem_bytes", "dynamic_smem_bytes",
                 "blocks_per_sm")}})
+    for name, line in (("hll_insert", 73), ("hll_estimate", 126)):
+        t = hll_times[name]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "veneur_tpu_torch/csrc/hll.cu",
+            "replaces": f"veneur_tpu/ops/hll.py:{line}",
+            "launches": hll_launches[name],
+            "max_abs_err": hll_checks[name]["max_abs_err"],
+            "ms": t["ms"], "plain_ms": t["plain_ms"],
+            "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+            "library_ms": t["library_ms"],
+            "build": hll_build.get(name, "no ptxas report"),
+            **{k: t[k] for k in ("rows", "precision", "batch",
+                                 "library_note") if k in t}})
+    wall["total_s"] = time.perf_counter() - t_start
+    log("[timing] " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
     result = {"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}
@@ -497,7 +699,7 @@ def main() -> int:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card, **kernels, "worker": phases,
-             "yardstick": yardstick, **result},
+             "yardstick": yardstick, "wall_s": wall, **result},
             indent=1))
     print(card, flush=True)
     print(json.dumps(kernels), flush=True)

@@ -2,8 +2,12 @@
 flush_extract launches, and every built variant) against its plain
 version, bitwise, at row counts around the kernel's chunk and block
 round, up to 1,000,003 rows, P = 1, 3 and 16, a row-offset view and the
-edge rows of tools/port_probe_extract.edge_pool; and the CUDA worker
-against its CPU twin.
+edge rows of tools/port_probe_extract.edge_pool (denormal rows
+included); the HLL kernels against their plain versions, bytewise and in
+f32 bits, at p = 4, 8, 14 and 18 (tools/port_probe_hll cases: duplicate
+slots, padding, dropped rows, every estimator regime, int8 values outside
+the rank range, row counts around each block round); and the CUDA worker,
+with and without sets, against its CPU twin.
 
 Every test here is marked ``cuda`` and skips without a card. On a card
 machine (no JAX needed) run them with
@@ -24,10 +28,12 @@ import torch
 
 from veneur_tpu_torch.core import worker as tw
 from veneur_tpu_torch.ops import extract_kernel as ek
+from veneur_tpu_torch.ops import hll, hll_kernel
 from veneur_tpu_torch.protocol.dogstatsd import parse_metric
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import port_probe_extract as probe  # noqa: E402
+import port_probe_hll as probe_hll  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -184,3 +190,100 @@ def test_worker_cuda_equals_cpu(card):
         assert _bitwise(torch.from_numpy(np.ascontiguousarray(
             getattr(a, name))), torch.from_numpy(np.ascontiguousarray(
                 getattr(b, name)))), name
+
+
+# -- the HLL kernels -----------------------------------------------------------
+
+
+@pytest.mark.parametrize("p", [4, 8, 14, 18])
+@pytest.mark.parametrize("n", [1, 16_384, 200_000])
+def test_hll_insert_bytewise_equals_plain(card, p, n):
+    s = 1_024 if p == 14 else 257
+    start = probe_hll.regime_pool(s, p, p, card)
+    rows, idx, rank = probe_hll.updates(s, p, n, p + n, card)
+    a, b = start.clone(), start.clone()
+    before = hll.insert_batch.launches
+    assert hll.insert_batch(a, rows, idx, rank) is a
+    torch.cuda.synchronize()
+    assert hll.insert_batch.launches == before + 1
+    hll.insert_batch_plain(b, rows, idx, rank)
+    assert torch.equal(a, b)
+
+
+def _block_rows(p: int) -> int:
+    return 256 // min(256, (1 << p) // 16)
+
+
+@pytest.mark.parametrize("p", [4, 8, 10, 14, 18])
+def test_hll_estimate_bits_equal_plain(card, p):
+    r = _block_rows(p)
+    for s in sorted({1, r - 1, r, r + 1, 2 * r + 1, 607} - {0}):
+        regs = probe_hll.regime_pool(s, p, s + p, card)
+        before = hll.estimate.launches
+        got = hll.estimate(regs, p)
+        torch.cuda.synchronize()
+        assert hll.estimate.launches == before + 1
+        assert _bitwise(got, hll.estimate_plain(regs, p)), (p, s)
+
+
+@pytest.mark.parametrize("p", [4, 14])
+def test_hll_estimate_odd_register_values(card, p):
+    """int8 values outside [0, 64]: the kernel's byte table wraps and
+    clamps them as the reference's gather does, like the plain version."""
+    g = torch.Generator(device=card).manual_seed(p)
+    regs = torch.randint(-128, 128, (40, 1 << p), generator=g,
+                         device=card).to(torch.int8)
+    assert _bitwise(hll.estimate(regs, p), hll.estimate_plain(regs, p))
+
+
+def test_hll_kernels_refuse_what_they_cannot_take(card):
+    pool = hll.init_pool(8, 8, device=card)
+    z32 = torch.zeros(3, dtype=torch.int32, device=card)
+    r8 = torch.zeros(3, dtype=torch.int8, device=card)
+    with pytest.raises(ValueError):
+        hll_kernel.insert(pool, z32, z32, r8.to(torch.int32))
+    with pytest.raises(ValueError):
+        hll_kernel.insert(pool, z32[:2], z32, r8)
+    with pytest.raises(TypeError):
+        hll_kernel.estimate(pool.to(torch.int16), 8)
+    with pytest.raises(ValueError):
+        hll_kernel.estimate(pool, 9)
+    with pytest.raises(ValueError):
+        hll_kernel.estimate(torch.zeros((8, 24), dtype=torch.int8,
+                                        device=card), 8)
+    with pytest.raises(ValueError):
+        hll_kernel.estimate(pool.t(), 8)
+
+
+def _set_lines(seed: int) -> list[bytes]:
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(60):
+        for _ in range(3000 if i < 2 else int(rng.integers(1, 40))):
+            out.append(f"u{i}:m{int(rng.integers(0, 1 << 30))}|s"
+                       f"{'|#veneurlocalonly' if i % 3 == 0 else ''}"
+                       .encode())
+    out += [f"lat:{rng.normal(5, 1):.4f}|ms".encode() for _ in range(50)]
+    return out
+
+
+@pytest.mark.parametrize("store", ["staged", "dense"])
+def test_worker_sets_cuda_equals_cpu(card, store):
+    kw = dict(batch_size=1024, set_store=store, count_unique_timeseries=True,
+              initial_set_rows=16)
+    gpu = tw.DeviceWorker(**kw, device=card)
+    cpu = tw.DeviceWorker(**kw, device="cpu")
+    if store == "staged":
+        for w in (gpu, cpu):  # promote during the interval
+            w._staged_sets.compact_every = 2048
+    k0, e0 = hll.insert_batch.launches, hll.estimate.launches
+    for w in (gpu, cpu):
+        for line in _set_lines(4):
+            w.process_metric(parse_metric(line))
+    a, b = gpu.flush(np.array([0.5])), cpu.flush(np.array([0.5]))
+    assert hll.insert_batch.launches > k0
+    assert hll.estimate.launches == e0 + 1
+    for name in ("set_estimates", "set_registers",
+                 "unique_timeseries_registers", "quantile_values"):
+        va, vb = getattr(a, name), getattr(b, name)
+        assert va.dtype == vb.dtype and va.tobytes() == vb.tobytes(), name

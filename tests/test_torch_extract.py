@@ -8,9 +8,10 @@
 * on the edge rows of tools/port_probe_extract.edge_pool (occupancy 0,
   1, 127, 128, equal means, weights near the f32 maximum, real-valued
   and widely spread weights whose Hillis-Steele prefixes are not
-  monotone): bitwise, q = 0 and q = 1 included. Denormal weights are the
-  exception: XLA on the CPU reads them as zero, PyTorch and the kernel
-  do not (ROADMAP.md section 3).
+  monotone; denormal weights, means, dmin, dmax and row scalars): bitwise,
+  q = 0 and q = 1 included. XLA on the CPU reads f32 denormals as zero
+  and flushes denormal results; the port's plain version (and the
+  kernel) flush the same reads and writes.
 * the wrapper's routing and checks: a CPU tensor takes the plain version
   and launches nothing; bad inputs raise; the variant entry takes CUDA
   tensors only. ptxas's build report parses per variant.
@@ -176,9 +177,6 @@ def _edge_fields(s=400):
                                 list(np.linspace(0.0, 1.0, 16))])
 def test_plain_matches_xla_on_edge_rows(qs):
     fields = _edge_fields()
-    kind = np.arange(len(fields[2])) % len(probe.EDGE_KINDS)
-    keep = kind != probe.EDGE_KINDS.index("denormal")
-    fields = [np.ascontiguousarray(f[keep]) for f in fields]
     # the real-valued rows do give scans that are not monotone
     w_cum = texn.cumsum(torch.from_numpy(fields[1])).numpy()
     finite = np.isfinite(w_cum).all(axis=1)
@@ -189,14 +187,32 @@ def test_plain_matches_xla_on_edge_rows(qs):
 
 
 def test_denormal_weights_read_as_zero_by_xla_on_cpu():
-    fields = _edge_fields(20)
+    fields = _edge_fields(22)
     row = probe.EDGE_KINDS.index("denormal")
     q = np.array([0.5], np.float32)
     jax_row = _jax_packed(fields, q)[row]
     torch_row = _torch_packed(fields, q)[row]
     assert 0 < fields[1][row].max() < np.finfo(np.float32).tiny
     assert np.isnan(jax_row[0]) and jax_row[1 + 3] == 0  # no weight left
-    assert np.isfinite(torch_row[0]) and torch_row[1 + 3] > 0
+    _assert_bitwise(jax_row, torch_row, "denormal weights")
+
+
+def test_denormal_scalars_flushed_where_xla_flushes_them():
+    """Denormal means, dmin, dmax and row scalars: arithmetic reads them
+    as zero, the dmin/dmax/lmin/lmax columns copy their bits, and a
+    denormal sum of two normal scalars (lsum + lsum_c) is flushed."""
+    fields = _edge_fields(22)
+    row = probe.EDGE_KINDS.index("denormal_scalars")
+    p = 3
+    q = np.array([0.0, 0.5, 1.0], np.float32)
+    jax_row = _jax_packed(fields, q)[row]
+    torch_row = _torch_packed(fields, q)[row]
+    _assert_bitwise(jax_row, torch_row, "denormal scalars")
+    tiny = np.finfo(np.float32).tiny
+    assert 0 < abs(fields[2][row]) < tiny and 0 < abs(fields[3][row]) < tiny
+    assert torch_row[p + 0] == fields[2][row] != 0  # dmin copied as is
+    assert (torch_row[:p] == 0).all()  # every midpoint read as zero
+    assert torch_row[p + 7] == 0  # 1.5e-38 + -1.2e-38 flushed
 
 
 _PTXAS = """\

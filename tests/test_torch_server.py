@@ -117,7 +117,6 @@ def test_intermetrics_identical(seed, workers):
         assert _canonical(jm) == _canonical(tm), f"interval {rnd}"
         je, te = _drain(jsink.other_samples), _drain(tsink.other_samples)
         assert [e.name for e in je] == [e.name for e in te] == ["title"]
-    assert ts.unported_samples_total == 0
 
 
 def test_udp_round_trip():
@@ -146,17 +145,9 @@ def test_udp_round_trip():
         assert ts.shutdown()
 
 
-def test_set_samples_counted_not_merged():
-    ts, sink = _torch_server()
-    ts.process_metric_packet(b"users:alice|s\nusers:bob|s\nx:1|c")
-    got = ts.flush(now=NOW)
-    assert ts.unported_samples_total == 2
-    assert [m.name for m in got] == ["x"]
-
-
 @pytest.mark.parametrize("key,value", [
     ("micro_fold", True),
-    ("count_unique_timeseries", True),
+    ("flush_pipeline", True),
     ("series_shards", 2),
     ("reader_shards", 2),
     ("tenant_default_budget", 100),

@@ -181,3 +181,68 @@ def test_init_pool_matches():
         _assert_bitwise(j[key], b, key)
     assert ttd.capacity_for(100.0) == jtd.capacity_for(100.0)
     assert ttd.capacity_for(200.0) == jtd.capacity_for(200.0)
+
+
+def _bad_rows(j, t) -> np.ndarray:
+    """Rows where the two outputs differ in bits (NaN positions equal)."""
+    j, t = np.asarray(j), t.numpy()
+    same = (j.view(np.uint32) == t.view(np.uint32)) | (np.isnan(j)
+                                                        & np.isnan(t))
+    return ~same.reshape(len(same), -1).all(axis=1)
+
+
+def test_denormal_samples_differ_as_recorded():
+    """Denormal sample values and weights through add_batch and
+    _compress_rows. XLA on the CPU reads them as zero, the port's ingest
+    does not: the rows holding them differ (ROADMAP.md section 3); every
+    other row is bitwise equal. Fed the same samples flushed to zero
+    first, the port matches the reference everywhere except the batch
+    min/max, which the reference gathers from the raw values."""
+    from veneur_tpu_torch.ops.exactnum import flush_denormals as z
+
+    rng = np.random.default_rng(3)
+    s, n = 8, 400
+    rows = rng.integers(0, s, n).astype(np.int32)
+    vals = rng.normal(50.0, 10.0, n).astype(np.float32)
+    wts = np.ones(n, np.float32)
+    dv = rows < 4  # rows 0-3: denormal values; rows 4-5: denormal weights
+    vals[dv] = rng.integers(-2**20, 2**20, int(dv.sum())) * np.float32(1e-45)
+    dw = (rows >= 4) & (rows < 6)
+    wts[dw] = rng.integers(1, 2**20, int(dw.sum())) * np.float32(1e-45)
+    jo = jtd.add_batch(*jtd.init_pool(s, C), jnp.asarray(rows),
+                       jnp.asarray(vals), jnp.asarray(wts))
+    pool = ttd.init_pool(s, C, device="cpu")
+    raw = ttd.add_batch(*pool, torch.from_numpy(rows),
+                        torch.from_numpy(vals), torch.from_numpy(wts))
+    differ = np.arange(s) < 4
+    for i in (0, 2, 3):  # means, min, max
+        assert (_bad_rows(jo[i], raw[i]) == differ).all(), i
+    for i in (1, 4):  # weights, recip
+        _assert_bitwise(jo[i], raw[i], f"field {i}")
+    flushed = ttd.add_batch(*pool, torch.from_numpy(rows),
+                            z(torch.from_numpy(vals)),
+                            z(torch.from_numpy(wts)))
+    for i in range(5):
+        _assert_bitwise(jo[i], flushed[i], f"flushed field {i}")
+    for f in ("weight", "sum", "recip"):
+        _assert_bitwise(getattr(jo[5], f), getattr(flushed[5], f), f)
+    for f in ("min", "max"):
+        assert (_bad_rows(getattr(jo[5], f), getattr(flushed[5], f))
+                == differ).all(), f
+
+    m = 2 * C
+    means = rng.normal(50.0, 20.0, (s, m)).astype(np.float32)
+    w = np.ones((s, m), np.float32)
+    means[:3] = rng.integers(-2**20, 2**20, (3, m)) * np.float32(1e-45)
+    w[3:5] = rng.integers(1, 2**20, (2, m)) * np.float32(1e-45)
+    jm, jw = jtd.compress_rows(jnp.asarray(means), jnp.asarray(w),
+                               compression=100.0, capacity=C)
+    tm, tw = ttd.compress_rows(torch.from_numpy(means), torch.from_numpy(w),
+                               compression=100.0, capacity=C)
+    assert (_bad_rows(jm, tm) == (np.arange(s) < 5)).all()
+    assert not _bad_rows(jw, tw)[5:].any()
+    fm, fw = ttd.compress_rows(z(torch.from_numpy(means)),
+                               z(torch.from_numpy(w)),
+                               compression=100.0, capacity=C)
+    _assert_bitwise(jm, fm, "flushed means")
+    _assert_bitwise(jw, fw, "flushed weights")

@@ -136,18 +136,6 @@ def test_pools_grow_like_the_reference():
     assert all(a == b for a, b in sizes), sizes
 
 
-def test_set_samples_are_counted_not_merged():
-    w = tw.DeviceWorker(**_kw(), device="cpu")
-    for i in range(5):
-        w.process_metric(tdog.parse_metric(f"users:u{i}|s".encode()))
-    w.process_metric(tdog.parse_metric(b"x:1|c"))
-    assert w.unported_samples_total == 5
-    snap = w.flush(QS)
-    assert snap.directory.num_set_rows == 0
-    assert snap.set_estimates is None
-    assert len(snap.scalars.counter_meta) == 1
-
-
 def test_worker_refuses_cuda_without_a_card():
     if torch.cuda.is_available():
         pytest.skip("a card is present")

@@ -130,7 +130,7 @@ def make_pool(s: int, seed: int):
 
 
 EDGE_KINDS = ("empty", "one", "127", "128", "equal_means", "denormal",
-              "huge", "real", "spread", "integer")
+              "huge", "real", "spread", "integer", "denormal_scalars")
 
 
 def edge_pool(s: int, seed: int):
@@ -138,7 +138,9 @@ def edge_pool(s: int, seed: int):
     occupancy 0, 1, 127 and 128; equal means; denormal weights; weights
     near the f32 maximum (sums overflow to inf); real-valued weights and
     weights spread over twelve decades, whose Hillis-Steele prefixes are
-    not monotone; plain integer weights."""
+    not monotone; plain integer weights; denormal means, dmin, dmax and
+    row scalars, with one pair of tiny normal scalars (lsum, lsum_c)
+    whose sum is denormal."""
     import numpy as np
 
     c = 128
@@ -168,6 +170,19 @@ def edge_pool(s: int, seed: int):
     dmax = np.where(has, means[np.arange(s), np.maximum(occ - 1, 0)],
                     -np.inf).astype(np.float32)
     extra = [rng.normal(0.0, 5.0, s).astype(np.float32) for _ in range(10)]
+    sub = kind == EDGE_KINDS.index("denormal_scalars")
+    n_sub = int(sub.sum())
+    tiny = np.float32(1e-45)
+    means[sub] = np.where(empty[sub], np.inf, np.cumsum(
+        rng.integers(1, 64, (n_sub, c)), axis=1) * tiny).astype(np.float32)
+    dmin[sub] = means[sub, 0]
+    dmax[sub] = means[sub][np.arange(n_sub), np.maximum(occ[sub] - 1, 0)]
+    for j, e in enumerate(extra):
+        e[sub] = rng.integers(-2**22, 2**22, n_sub) * tiny
+        if j == 4:  # lsum
+            e[sub] = np.float32(1.5e-38)
+        elif j == 5:  # lsum_c
+            e[sub] = np.float32(-1.2e-38)
     return [means, weights, dmin, dmax] + extra
 
 

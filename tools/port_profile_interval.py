@@ -4,9 +4,10 @@
     python3 tools/port_profile_interval.py [--json PATH]
 
 Runs the 100k-series interval of chip_smoke.py (its ``interval_plan``
-and ``run_interval``) on a CUDA DeviceWorker once to warm up, then once
-under ``torch.profiler`` with a range around each step (process_metric,
-staging with its spill folds, flush). Prints the card's name and power
+and ``run_interval``, sets and count_unique_timeseries included) on a
+CUDA DeviceWorker once to warm up, then once under ``torch.profiler``
+with a range around each step (process_metric, staging with its spill
+folds, sets: the bulk set inserts, flush). Prints the card's name and power
 limit, each step's wall seconds and device busy share (the union of
 kernel intervals inside the step's range over its length), device time
 by kernel name (top 15), and the peak device memory. Exits 2 without
@@ -63,7 +64,7 @@ def main() -> int:
         ["min", "max", "count"]))
     plan = cs.interval_plan(seed=5)
     kw = dict(compression=100.0, stage_depth=64, batch_size=16384,
-              initial_histo_rows=4096)
+              initial_histo_rows=4096, count_unique_timeseries=True)
     # warm-up interval: first-use kernel loads and allocator growth
     cs.run_interval(tw.DeviceWorker(**kw, device="cuda"), plan,
                     parse_metric, qs)
@@ -76,7 +77,7 @@ def main() -> int:
                                         step=record_function)
         wall = time.perf_counter() - t0
     events = prof.events()
-    steps = ("process_metric", "staging", "flush")
+    steps = ("process_metric", "staging", "sets", "flush")
     # device-side events: kernels and copies; the step ranges also show
     # on the device timeline as annotations, which are not work
     kernels = [e for e in events

@@ -6,6 +6,11 @@ feature the port does not have yet is refused by name, so no deployment
 silently runs without something it asked for. Four keys are on by
 default and do not change results (the JAX package's own parity tests
 show it); the port logs one warning that it runs without them.
+
+Sets are ported: both set stores (``tpu_set_store: staged | dense``),
+both set hashes (``set_hash: fnv | metro``), every ``tpu_hll_precision``
+the config accepts (4 to 18) and ``count_unique_timeseries`` load as
+they do in the JAX package.
 """
 
 from __future__ import annotations
@@ -29,8 +34,6 @@ def _on(v) -> bool:
 
 # key → predicate: the config turns an unported feature on
 REFUSED_KEYS = {
-    # sets / HLL and the unique-timeseries HLL
-    "count_unique_timeseries": _on,
     # device-side schedulers and layouts
     "micro_fold": _on,
     "series_shards": lambda v: v not in (0, 1),

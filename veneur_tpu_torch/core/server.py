@@ -5,23 +5,28 @@ on UDP listeners (``start_statsd_udp``) or through
 ``handle_metric_packet``; metrics route to the device workers by digest,
 service checks to their host status state, events to the event worker.
 Every interval the flush loop runs ``flush``: swap each worker's epoch,
-fold and extract it on the device (the flush extract kernel on the card),
-generate InterMetrics and hand them to the metric sinks.
+fold and extract it on the device (the flush extract and HLL estimate
+kernels on the card), generate InterMetrics and hand them to the metric
+sinks. With ``count_unique_timeseries`` the workers' unique-timeseries
+HLLs merge and are estimated on the device at each flush
+(``last_unique_timeseries``).
 
 Not in this slice (the factory refuses their config keys): SSF/TCP/TLS/
 unixgram listeners, the native C++ ingest and readers, forwarding,
 imports, proxies, query listeners, tenancy, the flush pipeline, plugins,
-self-telemetry. Set samples are counted in ``unported_samples_total``
-and logged, never merged.
+self-telemetry (so the unique-timeseries tally is kept, not sent).
 """
 
 from __future__ import annotations
 
 import logging
+import math
 import socket
 import threading
 import time
 from typing import Optional
+
+import numpy as np
 
 from veneur_tpu_torch import __version__
 from veneur_tpu_torch.core.config import Config
@@ -30,6 +35,7 @@ from veneur_tpu_torch.core.flusher import (device_quantiles,
 from veneur_tpu_torch.core.metrics import HistogramAggregates, InterMetric
 from veneur_tpu_torch.core.worker import DeviceWorker, FlushSnapshot
 from veneur_tpu_torch.device import resolve
+from veneur_tpu_torch.ops import hll as hll_ops
 from veneur_tpu_torch.protocol import dogstatsd
 from veneur_tpu_torch.sinks import (MetricSink, filter_routed,
                                     strip_excluded_tags)
@@ -73,8 +79,13 @@ class Server:
                 batch_size=cfg.tpu_batch_size,
                 stage_depth=cfg.tpu_stage_depth,
                 compression=cfg.tpu_compression,
+                hll_precision=cfg.tpu_hll_precision,
                 initial_histo_rows=cfg.tpu_initial_histo_rows,
+                initial_set_rows=cfg.tpu_initial_set_rows,
+                count_unique_timeseries=cfg.count_unique_timeseries,
                 is_local=self.is_local,
+                set_hash=cfg.set_hash,
+                set_store=cfg.tpu_set_store,
                 device=self.device,
             )
             for _ in range(cfg.num_workers)
@@ -90,17 +101,15 @@ class Server:
         self._counter_lock = threading.Lock()
         self.packets_received = 0
         self.parse_errors = 0
-        self._unported_logged = 0
         self.last_flush_phases: dict[str, float] = {}
+        # the last flush's unique-timeseries estimate (with
+        # count_unique_timeseries; the reference sends it as
+        # flush.unique_timeseries_total)
+        self.last_unique_timeseries: Optional[int] = None
 
     @property
     def is_local(self) -> bool:
         return self.config.is_local()
-
-    @property
-    def unported_samples_total(self) -> int:
-        """Set samples received and dropped (no HLL pools in this slice)."""
-        return sum(w.unported_samples_total for w in self.workers)
 
     # -- packet handling ----------------------------------------------------
 
@@ -267,14 +276,26 @@ class Server:
             except Exception:
                 log.exception("sink %s flush failed", sink.name())
         phases["sink_flush_s"] = time.perf_counter() - _t
-        unported = self.unported_samples_total
-        if unported > self._unported_logged:
-            log.warning("dropped %d set samples this interval: sets are "
-                        "not ported yet (unported_samples_total=%d)",
-                        unported - self._unported_logged, unported)
-            self._unported_logged = unported
+        if self.config.count_unique_timeseries:
+            self.last_unique_timeseries = self._tally_timeseries(snaps)
         self.last_flush_phases = phases
         return final
+
+    def _tally_timeseries(self, snaps: list[FlushSnapshot]) -> int:
+        """Merge per-worker unique-timeseries HLLs and estimate on the
+        device (reference Server.tallyTimeseries, flusher.go:134-143)."""
+        regs = [s.unique_timeseries_registers for s in snaps
+                if s.unique_timeseries_registers is not None]
+        if not regs:
+            return 0
+        merged = regs[0]
+        for r in regs[1:]:
+            merged = np.maximum(merged, r)
+        precision = int(math.log2(merged.shape[-1]))
+        est = hll_ops.estimate(hll_ops.pool_from_numpy(merged[None, :],
+                                                       self.device),
+                               precision=precision)
+        return int(float(est.cpu()[0]))
 
     # -- lifecycle ----------------------------------------------------------
 

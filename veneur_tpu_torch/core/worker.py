@@ -1,29 +1,32 @@
 """DeviceWorker: the batched aggregation engine, PyTorch port.
 
 The counterpart of veneur_tpu/core/worker.py, limited to the Python
-staging path. One worker owns a dense t-digest pool on its device,
+staging path. One worker owns, on its device,
 
   t-digest rows   f32[S_h, C]×2 + scalars   (histogram & timer series)
   local stats     f32[S_h] × 5 (+ compensation halves)
+  HLL registers   int8[S_s, 2^p]            (set series)
 
 and ingests samples in batches: histogram/timer samples stage host-side
 in a [S, B] plane (``_device_histo_step``), rows whose plane is full
 spill through a gather → add_batch → scatter fold (``_fold_batch_direct``),
 and one staged fold per interval folds the plane into the pool at
-extraction (``_histo_fold_staged``). Counters, gauges and status checks
-stay host-side in exact float64. The flush extract runs the hand-written
-CUDA kernel on the card (ops/extract_kernel.py).
+extraction (``_histo_fold_staged``). Set samples hash on the host into
+(register, rank) and go to the set store: the staged store (sparse host
+tier, dense device tier; ops/staged_sets.py) by default, or one dense
+device pool (``set_store="dense"``). Counters, gauges, status checks and
+the unique-timeseries HLL stay host-side. On the card the flush extract,
+the set inserts and the set estimates run hand-written CUDA kernels
+(ops/extract_kernel.py, ops/hll.py).
 
 The device steps keep the reference's names and argument order. Where
 the reference donates its pool buffers, the port may update the pool
 tensors in place; a swapped epoch owns its tensors outright (the live
 epoch starts a fresh pool), so no swapped epoch aliases the live pool.
 
-Not in this slice (config refuses them, see core/factory.py): set/HLL
-pools, the native C++ ingest, micro-folds, series sharding, reader
-shards, the device guard, tenancy, the query view, imports, the mesh.
-Set samples that reach the worker are counted in
-``unported_samples_total`` and dropped.
+Not in this slice (config refuses them, see core/factory.py): the native
+C++ ingest, micro-folds, series sharding, reader shards, the device
+guard, tenancy, the query view, imports, the mesh.
 """
 
 from __future__ import annotations
@@ -43,7 +46,10 @@ from veneur_tpu_torch.core.metrics import MetricKey, UDPMetric, route_info
 from veneur_tpu_torch.device import resolve
 from veneur_tpu_torch.ops import exactnum as exn
 from veneur_tpu_torch.ops import extract_kernel as ek
+from veneur_tpu_torch.ops import hll as hll_ops
 from veneur_tpu_torch.ops import tdigest as td
+from veneur_tpu_torch.ops.staged_sets import StagedSetStore
+from veneur_tpu_torch.utils.hashing import fmix64, hll_hash, metro_hash64
 
 _INF = float("inf")
 
@@ -382,8 +388,8 @@ class HistoDeviceState:
 class FlushSnapshot:
     """Everything one interval produced, in host memory: the input to
     InterMetric generation (core/flusher.py). Field for field the
-    reference's; the set, unique-timeseries and degraded fields stay at
-    their defaults in this slice."""
+    reference's; ``degraded`` stays False in this slice (no device
+    guard)."""
 
     directory: SeriesDirectory
     scalars: HostScalars
@@ -443,8 +449,13 @@ class DeviceWorker:
         batch_size: int = 16384,
         compression: float = td.DEFAULT_COMPRESSION,
         capacity: int = td.DEFAULT_CAPACITY,
+        hll_precision: int = hll_ops.DEFAULT_PRECISION,
         initial_histo_rows: int = 1024,
+        initial_set_rows: int = 256,
+        count_unique_timeseries: bool = False,
         is_local: bool = True,
+        set_hash: str = "fnv",
+        set_store: str = "staged",
         stage_depth: int = 64,
         device=None,
     ) -> None:
@@ -455,21 +466,31 @@ class DeviceWorker:
         self.stage_depth = stage_depth
         self.compression = compression
         self.capacity = capacity
+        self.hll_precision = hll_precision
+        self._set_hash64 = metro_hash64 if set_hash == "metro" else hll_hash
         self._initial_histo_rows = initial_histo_rows
+        self._initial_set_rows = initial_set_rows
+        self.count_unique_timeseries = count_unique_timeseries
         self.is_local = is_local
+        self.set_store = set_store
         self.processed = 0
         self.processed_total = 0
-        # wall seconds of the last extract_snapshot's staged fold and
-        # packed extract (+ readback), each ended by a device sync
+        # wall seconds of the last extract_snapshot's staged fold, packed
+        # extract (+ readback) and set estimates (+ readbacks), each ended
+        # by a device sync
         self.last_extract_phases: dict[str, float] = {}
-        # set samples (HLL pools are not in this slice): counted, dropped
-        self.unported_samples_total = 0
         self._reset_epoch()
 
     def _reset_epoch(self) -> None:
         self.directory = SeriesDirectory()
         self.scalars = HostScalars()
         self._histo: Optional[HistoDeviceState] = None
+        # dense set pool (set_store="dense"); the staged store (the
+        # default) keeps its own dense tier
+        self._sets: Optional[torch.Tensor] = None
+        self._staged_sets = (StagedSetStore(self.hll_precision,
+                                            device=self.device)
+                             if self.set_store == "staged" else None)
         # host raw-sample staging planes (see _device_histo_step)
         self._stage_vals: Optional[np.ndarray] = None
         self._stage_wts: Optional[np.ndarray] = None
@@ -478,6 +499,13 @@ class DeviceWorker:
         self._ph_rows: list[int] = []
         self._ph_vals: list[float] = []
         self._ph_wts: list[float] = []
+        self._ps_rows: list[int] = []
+        self._ps_idx: list[int] = []
+        self._ps_rank: list[int] = []
+        # unique-timeseries HLL registers (host, tiny)
+        m = hll_ops.num_registers(self.hll_precision)
+        self._umts = (np.zeros(m, dtype=np.int8)
+                      if self.count_unique_timeseries else None)
 
     def _ensure_histo(self, needed_rows: int) -> None:
         # keep one scratch row free at the top for gather/scatter padding
@@ -490,6 +518,20 @@ class DeviceWorker:
             self._histo = self._histo.grow(
                 _next_pow2(needed_rows + 1, self._histo.num_rows * 2))
 
+    def _ensure_sets(self, needed_rows: int) -> None:
+        if self._staged_sets is not None:
+            return  # the staged store sizes itself
+        # one scratch row at the top pads the insert batches
+        if self._sets is None:
+            rows = _next_pow2(needed_rows + 1, self._initial_set_rows)
+            self._sets = hll_ops.init_pool(rows, self.hll_precision,
+                                           self.device)
+        elif needed_rows + 1 > self._sets.shape[0]:
+            self._flush_pending_sets()  # pending rows use the old scratch
+            self._sets = _grow_2d(
+                self._sets,
+                _next_pow2(needed_rows + 1, self._sets.shape[0] * 2))
+
     # -- ingest -------------------------------------------------------------
 
     def process_metric(self, m: UDPMetric) -> None:
@@ -498,6 +540,9 @@ class DeviceWorker:
         self.processed += 1
         mtype = m.key.type
         scope_class = classify(mtype, m.scope)
+        if self._umts is not None and self._should_count_timeseries(
+                mtype, scope_class):
+            self._insert_timeseries(m.digest)
         if mtype == "counter":
             self._host_counter(m.key, scope_class, m.tags,
                                counter_contribution(m.value, m.sample_rate))
@@ -512,9 +557,35 @@ class DeviceWorker:
             if len(self._ph_rows) >= self.batch_size:
                 self._flush_pending_histos()
         elif mtype == "set":
-            self.unported_samples_total += 1
+            row, _ = self.directory.upsert_set(m.key, scope_class, m.tags)
+            self._ensure_sets(max(self.directory.num_set_rows, row + 1))
+            h = self._set_hash64(str(m.value).encode("utf-8"))
+            idx, rank = hll_ops.split_hashes(
+                np.array([h], dtype=np.uint64), self.hll_precision)
+            self._ps_rows.append(row)
+            self._ps_idx.append(int(idx[0]))
+            self._ps_rank.append(int(rank[0]))
+            if len(self._ps_rows) >= self.batch_size:
+                self._flush_pending_sets()
         elif mtype == "status":
             self._host_status(m)
+
+    def _should_count_timeseries(self, mtype: str, cls: ScopeClass) -> bool:
+        """Forwarding-aware unique-timeseries gating (reference
+        SampleTimeseries, worker.go:300-341): a local instance skips series
+        it forwards upstream (the global instance counts those)."""
+        if not self.is_local:
+            return True
+        if mtype in ("counter", "gauge"):
+            return cls != ScopeClass.GLOBAL
+        if mtype in ("histogram", "set", "timer"):
+            return cls == ScopeClass.LOCAL
+        return True
+
+    def _insert_timeseries(self, digest: int) -> None:
+        idx, rank = hll_ops.split_hashes(
+            np.array([fmix64(digest)], dtype=np.uint64), self.hll_precision)
+        self._umts[idx[0]] = max(self._umts[idx[0]], rank[0])
 
     def _host_counter(self, key: MetricKey, scope_class: ScopeClass,
                       tags: list[str], contribution: int) -> None:
@@ -552,6 +623,37 @@ class DeviceWorker:
         wts = np.asarray(self._ph_wts, dtype=np.float32)
         self._ph_rows, self._ph_vals, self._ph_wts = [], [], []
         self._device_histo_step(rows, vals, wts)
+
+    def _flush_pending_sets(self) -> None:
+        if not self._ps_rows:
+            return
+        rows = np.asarray(self._ps_rows, dtype=np.int32)
+        idx = np.asarray(self._ps_idx, dtype=np.int32)
+        rank = np.asarray(self._ps_rank, dtype=np.int8)
+        self._ps_rows, self._ps_idx, self._ps_rank = [], [], []
+        self._device_set_step(rows, idx, rank)
+
+    def _device_set_step(self, rows: np.ndarray, idx: np.ndarray,
+                         rank: np.ndarray) -> None:
+        """One batch of (set row, register, rank) updates: into the
+        staged store, or padded to a power of two (at least 256; padding
+        is the scratch row with rank 0, a no-op max) and scattered into
+        the dense pool in place."""
+        if self._staged_sets is not None:
+            self._staged_sets.insert(rows, idx, rank)
+            return
+        regs = self._sets
+        assert regs is not None
+        n = _next_pow2(len(rows), 256)
+        prow = np.full(n, regs.shape[0] - 1, dtype=np.int32)
+        prow[: len(rows)] = rows
+        pidx = np.zeros(n, dtype=np.int32)
+        pidx[: len(rows)] = idx
+        prank = np.zeros(n, dtype=np.int8)
+        prank[: len(rows)] = rank
+        dev = self.device
+        hll_ops.insert_batch(regs, _to_device(prow, dev),
+                             _to_device(pidx, dev), _to_device(prank, dev))
 
     def _ensure_stage(self) -> None:
         """Size the host staging planes to the digest pool's row count."""
@@ -658,6 +760,7 @@ class DeviceWorker:
         no pool, so nothing of the swapped epoch is shared with it."""
         self.processed_total += self.processed
         self._flush_pending_histos()
+        self._flush_pending_sets()
         staged_histo = None
         if self._stage_count is not None and self._stage_count.any():
             # hand the host staging plane to the closed epoch; the fold
@@ -666,7 +769,8 @@ class DeviceWorker:
             staged_histo = [StagedPlane(self._stage_vals, self._stage_wts)]
         swapped = SwappedEpoch(
             directory=self.directory, scalars=self.scalars,
-            histo=self._histo, sets=None, staged_sets=None, umts=None,
+            histo=self._histo, sets=self._sets,
+            staged_sets=self._staged_sets, umts=self._umts,
             mesh_out=None, staged_histo=staged_histo)
         self.processed = 0
         self._reset_epoch()
@@ -695,15 +799,26 @@ class DeviceWorker:
                          interval_s: float = 10.0) -> FlushSnapshot:
         """Fold and read back a swapped epoch. Touches only the swapped
         objects, never the live epoch."""
-        directory = swapped.directory
-        histo = swapped.histo
-        snap = FlushSnapshot(directory=directory, scalars=swapped.scalars,
-                             interval_s=interval_s)
+        snap = FlushSnapshot(directory=swapped.directory,
+                             scalars=swapped.scalars, interval_s=interval_s,
+                             unique_timeseries_registers=swapped.umts)
         pending = list(swapped.staged_histo or ())
         swapped.staged_histo = None
-        if histo is None or not directory.num_histo_rows:
-            return snap
-        n = directory.num_histo_rows
+        phases: dict[str, float] = {}
+        if swapped.histo is not None and swapped.directory.num_histo_rows:
+            self._extract_histo(snap, swapped.histo, pending, quantiles,
+                                phases)
+        if swapped.directory.num_set_rows:
+            t0 = time.perf_counter()
+            self._extract_sets(snap, swapped, phases)
+            phases["sets_s"] = time.perf_counter() - t0
+        self.last_extract_phases = phases
+        return snap
+
+    def _extract_histo(self, snap: FlushSnapshot, histo: HistoDeviceState,
+                       pending: list, quantiles: np.ndarray,
+                       phases: dict) -> None:
+        n = snap.directory.num_histo_rows
         # fold + extract over the used rows only (pow2-bucketed, as the
         # reference does): the pool is up to 2x oversized from growth
         s_eff = min(histo.num_rows, _next_pow2(n, 1024))
@@ -718,8 +833,8 @@ class DeviceWorker:
         qnp = np.asarray(quantiles, dtype=np.float32)
         qs = _to_device(qnp, self.device)
         packed = self._extract(fields, qs).cpu().numpy()
-        self.last_extract_phases = {"fold_s": t1 - t0,
-                                    "extract_s": time.perf_counter() - t1}
+        phases["fold_s"] = t1 - t0
+        phases["extract_s"] = time.perf_counter() - t1
         p = qnp.shape[0]
         qv, (dmin, dmax, dsum, dcount, drecip, lmin, lmax, lsum, lweight,
              lrecip) = unpack_extract_columns(packed, p)
@@ -734,7 +849,28 @@ class DeviceWorker:
         if self.is_local:
             snap.digest_means = fields[0].cpu().numpy()[:n]
             snap.digest_weights = fields[1].cpu().numpy()[:n]
-        return snap
+
+    def _extract_sets(self, snap: FlushSnapshot, swapped: SwappedEpoch,
+                      phases: dict) -> None:
+        """Set estimates (the hll_estimate kernel on the card) and, where
+        the reference reads them back, the register rows (their wall time
+        is ``set_registers_s``, a part of ``sets_s``)."""
+        n = snap.directory.num_set_rows
+        staged = swapped.staged_sets
+        if staged is not None:
+            snap.set_estimates = staged.estimates(n)
+            # register materialization is [n, 2^p] host bytes — only pay
+            # it where forwarding can read it (locals forward mixed sets)
+            if self.is_local:
+                t0 = time.perf_counter()
+                snap.set_registers = staged.registers(n)
+                phases["set_registers_s"] = time.perf_counter() - t0
+        elif swapped.sets is not None:
+            est = hll_ops.estimate(swapped.sets, self.hll_precision)
+            snap.set_estimates = est.cpu().numpy()[:n]
+            t0 = time.perf_counter()
+            snap.set_registers = swapped.sets[:n].cpu().numpy()
+            phases["set_registers_s"] = time.perf_counter() - t0
 
     def flush(self, quantiles: np.ndarray, interval_s: float = 10.0
               ) -> FlushSnapshot:

@@ -110,3 +110,36 @@ _EXP2_NEG_TABLE = np.exp2(-np.arange(65, dtype=np.float64)).astype(np.float32)
 def exp2_neg_table() -> np.ndarray:
     """f32[65]: exp2(-r) for register ranks r = 0..64."""
     return _EXP2_NEG_TABLE
+
+
+@functools.lru_cache(maxsize=None)
+def hll_linear_table(precision: int) -> np.ndarray:
+    """f32[m+1]: m·ln(m / max(z, 1)) by zero-register count z."""
+    m = float(1 << precision)
+    z = np.maximum(np.arange((1 << precision) + 1, dtype=np.float64), 1.0)
+    return (m * np.log(m / z)).astype(np.float32)
+
+
+@functools.lru_cache(maxsize=None)
+def hll_alpha_m2(precision: int) -> np.float32:
+    """f32: α_m · m² for the harmonic-mean estimator, rounded once."""
+    m = float(1 << precision)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    return np.float32(alpha * m * m)
+
+
+# ---------------------------------------------------------------------------
+# f32 denormals as XLA reads them on the CPU
+
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def flush_denormals(x: torch.Tensor) -> torch.Tensor:
+    """f32 denormals → zero of the same sign; every other value as is.
+
+    XLA on the CPU runs with denormals-are-zero and flush-to-zero: an
+    arithmetic op or a comparison reads a denormal input as ±0 and writes
+    a denormal result as ±0, while a copy or a select passes the bits
+    through. The port applies this where such an op reads a function's
+    inputs and where it writes the function's outputs."""
+    return torch.where(torch.abs(x) < _F32_TINY, x * 0.0, x)

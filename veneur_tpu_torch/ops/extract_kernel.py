@@ -14,8 +14,10 @@ TPU kernel ``_extract_kernel`` of veneur_tpu/ops/pallas_kernels.py.
 * On a CPU tensor it runs ``flush_extract_plain``: the same function as
   PyTorch ops (ops/tdigest.quantile, row_sum, row_count and the pack).
 
-Both follow the XLA path's bit contract, so the kernel's output is
-bitwise the plain version's on the same inputs (NaN where a row is empty).
+Both follow the XLA path's bit contract, f32 denormals included (read and
+written as XLA on the CPU does, see ``histo_flush_extract``), so the
+kernel's output is bitwise the plain version's on the same inputs (NaN
+where a row is empty).
 ``flush_extract.launches`` counts kernel launches, nothing else.
 
 The library holds one kernel per R in ``VARIANTS``; ``flush_extract``
@@ -28,16 +30,13 @@ spills and is bitwise equal to the plain version on the card
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import re
-import shutil
-import subprocess
 import threading
 from pathlib import Path
 
 import torch
 
+from veneur_tpu_torch.ops import exactnum as exn
+from veneur_tpu_torch.ops import nvcc
 from veneur_tpu_torch.ops import tdigest as td
 
 CAPACITY = 128  # centroids per row the kernel takes
@@ -46,11 +45,7 @@ AGG_COLUMNS = 10
 VARIANTS = (1, 2, 4, 8)  # rows per warp, one kernel each in the library
 ROWS_PER_WARP = 8  # the variant flush_extract launches
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "flush_extract.cu"
-_BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-fmad=false", "-Xptxas", "-v", "-shared",
-              "-Xcompiler", "-fPIC")
+_SRC = nvcc.CSRC / "flush_extract.cu"
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -59,73 +54,28 @@ _blocks_per_sm: dict[tuple[int, int], int] = {}
 variant_launches = {r: 0 for r in VARIANTS}
 
 
-def _nvcc() -> str:
-    path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
-    if not os.path.exists(path):
-        raise RuntimeError("nvcc not found: the flush extract kernel is "
-                           "built from csrc/flush_extract.cu at first use")
-    return path
-
-
 def library_path() -> Path:
-    """Where the built library lives: named by the source's and flags'
-    hash, so an edited source never loads a stale build."""
-    h = hashlib.sha256(_SRC.read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    return _BUILD_DIR / f"libflush_extract-{h.hexdigest()[:12]}.so"
+    """Where the built library lives (named by the source's and flags'
+    hash, ops/nvcc.py)."""
+    return nvcc.library_path(_SRC, nvcc.FLAGS)
 
 
 def build() -> Path:
     """Compile csrc/flush_extract.cu with nvcc unless this exact build
     exists; returns the library path. ptxas's report (``-Xptxas -v``)
     goes to the same name with ``.ptxas.txt``."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-        capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stderr[-4000:]}")
-    out.with_suffix(".ptxas.txt").write_text(proc.stderr)
-    os.replace(tmp, out)
-    return out
+    return nvcc.build(_SRC, nvcc.FLAGS)
 
 
 def parse_ptxas(text: str) -> dict[int, dict[str, int]]:
-    """Per variant R, what ptxas reported for its kernel: registers per
-    thread, spill store and load bytes, local memory (stack frame or
-    lmem) bytes and static shared memory bytes."""
-    out: dict[int, dict[str, int]] = {}
-    cur = None
-    for line in text.splitlines():
-        m = re.search(r"flush_extract_kernelILi(\d+)E", line)
-        if m and ("Compiling entry function" in line
-                  or "Function properties for" in line):
-            cur = out.setdefault(int(m.group(1)), {
-                "registers": 0, "spill_stores": 0, "spill_loads": 0,
-                "local_bytes": 0, "static_smem_bytes": 0})
-            continue
-        if cur is None:
-            continue
-        for key, pat in (("registers", r"Used (\d+) registers"),
-                         ("spill_stores", r"(\d+) bytes spill stores"),
-                         ("spill_loads", r"(\d+) bytes spill loads"),
-                         ("local_bytes", r"(\d+) bytes stack frame"),
-                         ("local_bytes", r"(\d+) bytes lmem"),
-                         ("static_smem_bytes", r"(\d+) bytes smem")):
-            m = re.search(pat, line)
-            if m:
-                cur[key] = max(cur[key], int(m.group(1)))
-    return out
+    """Per variant R, what ptxas reported for its kernel (registers,
+    spills, local and static shared memory; ops/nvcc.parse_ptxas)."""
+    return nvcc.parse_ptxas(text, r"flush_extract_kernelILi(\d+)E", int)
 
 
 def build_report() -> dict[int, dict[str, int]]:
     """ptxas's report of the current build, per variant R."""
-    return parse_ptxas(build().with_suffix(".ptxas.txt").read_text())
+    return parse_ptxas(nvcc.ptxas_report(_SRC, nvcc.FLAGS))
 
 
 def load():
@@ -168,13 +118,26 @@ def histo_flush_extract(means, weights, dmin, dmax, drecip, drecip_c,
     """Everything the flusher needs from all rows, as plain tensor ops
     (the reference's XLA extract, ``_histo_flush_extract``): quantiles
     (gather form), tree-summed dsum/dcount, compensated accumulators
-    resolved (s + c)."""
-    quantiles = td.quantile(means, weights, dmin, dmax, qs)
-    dsum = td.row_sum(means, weights)
-    dcount = td.row_count(weights)
-    return (quantiles, dmin, dmax, dsum, dcount, drecip + drecip_c,
-            lmin, lmax, lsum + lsum_c, lweight + lweight_c,
-            lrecip + lrecip_c)
+    resolved (s + c).
+
+    Denormals as XLA on the CPU treats them: flushed to ±0 where
+    arithmetic or a comparison reads an input and where arithmetic writes
+    an output column; dmin, dmax, lmin and lmax are copied out bit for
+    bit. A denormal that arises inside the arithmetic from normal inputs
+    (a product m·w, a prefix, a midpoint) is not flushed (ROADMAP.md,
+    section 3)."""
+    z = exn.flush_denormals
+    m, w = z(means), z(weights)
+    quantiles = z(td.quantile(m, w, z(dmin), z(dmax), z(qs)))
+    dsum = z(td.row_sum(m, w))
+    dcount = z(td.row_count(w))
+
+    def resolved(s, c):
+        return z(z(s) + z(c))
+
+    return (quantiles, dmin, dmax, dsum, dcount, resolved(drecip, drecip_c),
+            lmin, lmax, resolved(lsum, lsum_c), resolved(lweight, lweight_c),
+            resolved(lrecip, lrecip_c))
 
 
 def pack_extract_columns(qv, *cols):
