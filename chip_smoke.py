@@ -8,8 +8,9 @@ script exits non-zero:
 
 1. setup: card name and power limit (nvidia-smi), nvcc build of every
    kernel of the path from the sources in this checkout (the flush
-   extract and the HLL library, one nvcc each, started together),
-   ptxas's report of each.
+   extract and the HLL library, one nvcc each) and g++ build of the
+   native C++ ingest library from native/'s sources into build/native/,
+   all three started together; ptxas's report of each kernel.
 2. kernel vs plain on the card: the flush extract kernel against its
    plain PyTorch version at S = 1,048,576 and S = 1,000,003 rows and at
    the main path's shapes (131,072 and 1,024 rows), C = 128,
@@ -28,7 +29,9 @@ script exits non-zero:
    hll_estimate in f32 bits equal to their plain versions over pools of
    1 to 32,768 rows at p = 4, 8, 14 and 18 in every estimator regime;
    their times at the main path's shapes, the plain versions', the
-   bounds, and scatter_reduce_ beside the insert.
+   bounds, and scatter_reduce_ beside the insert; the insert also on
+   all-distinct words and on 1,048,576 updates, beside an empty kernel at
+   its grid (the launch floor).
 4. one worker interval at the mixed configuration of BASELINE.md
    (100k series, bench.py's "mixed" mix): 80,000 histogram/timer series
    made through process_metric, 40 samples each staged through
@@ -37,22 +40,38 @@ script exits non-zero:
    sampled timers, and 25,000 set series: one line each through
    process_metric, then about 1.02 M set inserts through _device_set_step
    in 16,384-sample batches (64 series of 8,192 members, past the staged
-   store's promotion to its dense tier; the rest of 20 members, sparse);
+   store's promotion to its dense tier; the rest of 20 members, sparse;
+   members are strings, hashed as the parser hashes them);
    count_unique_timeseries on; then flush. The same interval on a second
    worker on the CPU must give bitwise the same snapshot (set estimates
    and registers and the unique-timeseries registers included).
 4b. the same set traffic through set_store="dense" workers, card against
    CPU: a 32,768 x 16,384 int8 pool (512 MiB) on the card; every batch
    launches hll_insert and the flush hll_estimate over the whole pool.
+4c. phase 4's interval rendered as about 45,000 DogStatsD datagrams
+   (4.4 M lines: every bulk sample its series' line, every set member a
+   set line) through workers with attach_native(), the C++ parser
+   staging the samples: the card's snapshot must be bitwise equal to a
+   native worker's on the CPU and to phase 4's Python-path snapshot. The
+   flush compacts the C++ staging plane on the host, uploads it flat and
+   rebuilds it on the card. Prints native_ingest_s, fold_s, the plane's
+   upload bytes and the launches of the three kernels.
+   In phases 4, 4b and 4c the CPU worker runs after the card's, in this
+   process, so nothing else loads the host while the card's steps are
+   timed; compare_snapshots holds the two snapshots to each other.
 5. server: the port's Server built by its factory with a UDP listener on
    port 0, a channel sink and count_unique_timeseries answers a few
    hundred real datagrams (set lines among them); one flush; its
    InterMetrics and its unique-timeseries tally equal a CPU server's over
    the same datagrams.
+5b. the same datagrams through a server with tpu_native_ingest and
+   tpu_native_readers on: a C++ reader thread reads the socket (the
+   script fails if a Python reader runs or native mode is off); its
+   InterMetrics and tally equal the CPU server's of phase 5.
 6. on the line before the last two, the card's name and power limit;
    then a ``kernels`` JSON line: every kernel with its launches on the
-   main path (phases 4, 4b and 5, counts reset just before, read just
-   after), its agreement with the plain version, its time, the plain
+   main path (phases 4, 4b, 4c, 5 and 5b, counts reset just before, read
+   just after), its agreement with the plain version, its time, the plain
    time and its bound; the probe's variants beside it, with their build
    report and launches on the main path (only the variant flush_extract
    launches has any).
@@ -233,10 +252,34 @@ def interval_plan(seed: int):
     return series, scalars, rows, vals, wts, set_plan(rng)
 
 
+def member_hashes(ids):
+    """hll_hash (FNV-1a 64, then murmur3's finalizer) of the member
+    strings b"m%09d" % id, vectorized over the ids: the hash the port's
+    Python path and the C++ parser give those set values."""
+    import numpy as np
+
+    d = np.empty((len(ids), 10), np.uint8)
+    d[:, 0] = ord("m")
+    v = np.asarray(ids, np.int64)
+    for k in range(9, 0, -1):
+        d[:, k] = 48 + v % 10
+        v = v // 10
+    h = np.full(len(ids), 0xCBF29CE484222325, np.uint64)
+    for k in range(d.shape[1]):
+        h ^= d[:, k].astype(np.uint64)
+        h *= np.uint64(0x100000001B3)
+    for mult in (0xFF51AFD7ED558CCD, 0xC4CEB9FE1A85EC53):
+        h ^= h >> np.uint64(33)
+        h *= np.uint64(mult)
+    return h ^ (h >> np.uint64(33))
+
+
 def set_plan(rng):
     """The sets of the interval: one line per set series (registers set
-    rows 0..N_SETS-1 in order), then the bulk members as (set row,
-    register, rank) at p = 14 from seeded uint64 hashes, shuffled."""
+    rows 0..N_SETS-1 in order), then the bulk members, the strings
+    b"m%09d" % id with a distinct id each, as (set row, register, rank)
+    at p = 14 from their hashes, shuffled. Returns the ids too, so the
+    members can be rendered as DogStatsD lines."""
     import numpy as np
 
     from veneur_tpu_torch.ops.hll import split_hashes
@@ -249,9 +292,9 @@ def set_plan(rng):
     ]).astype(np.int32)
     perm = rng.permutation(len(rows))
     rows = rows[perm]
-    hashes = rng.integers(0, 2**64, len(rows), dtype=np.uint64)
-    idx, rank = split_hashes(hashes, 14)
-    return lines, rows, idx, rank
+    ids = np.arange(len(rows), dtype=np.int64)
+    idx, rank = split_hashes(member_hashes(ids), 14)
+    return lines, rows, idx, rank, ids
 
 
 def run_interval(worker, plan, parse, qs, step=contextlib.nullcontext):
@@ -259,7 +302,8 @@ def run_interval(worker, plan, parse, qs, step=contextlib.nullcontext):
     by step: lines through process_metric, bulk staging with its spill
     folds, and the flush with its staged fold and extract). ``step(name)``
     wraps each step (a profiler range in tools/port_profile_interval.py)."""
-    series, scalars, rows, vals, wts, (set_lines, srows, sidx, srank) = plan
+    series, scalars, rows, vals, wts, (set_lines, srows, sidx, srank,
+                                       _ids) = plan
     t0 = time.perf_counter()
     with step("process_metric"):
         for line in series:
@@ -304,7 +348,9 @@ def insert_sets(worker, rows, idx, rank, step=contextlib.nullcontext
     return time.perf_counter() - t0
 
 
-def compare_snapshots(a, b) -> None:
+def compare_snapshots(a, b, what: str) -> None:
+    """Every array of two snapshots bitwise equal (NaN positions equal),
+    the counters and gauges, and the directories' keys in row order."""
     import dataclasses
 
     import numpy as np
@@ -315,8 +361,8 @@ def compare_snapshots(a, b) -> None:
         if isinstance(va, np.ndarray) or isinstance(vb, np.ndarray):
             if va is None or vb is None or va.shape != vb.shape \
                     or va.dtype != vb.dtype:
-                raise AssertionError(f"snapshot field {f.name} differs in "
-                                     "shape/type")
+                raise AssertionError(f"{what}: snapshot field {f.name} "
+                                     "differs in shape/type")
             ta, tb = torch.from_numpy(np.ascontiguousarray(va)), \
                 torch.from_numpy(np.ascontiguousarray(vb))
             if ta.dtype == torch.float32:
@@ -324,12 +370,16 @@ def compare_snapshots(a, b) -> None:
             else:
                 same, err = va.tobytes() == vb.tobytes(), 0.0
             if not same:
-                raise AssertionError(f"snapshot field {f.name}: CUDA != CPU"
-                                     f" (max abs err {err})")
+                raise AssertionError(f"{what}: snapshot field {f.name} "
+                                     f"differs (max abs err {err})")
     for pool in ("counters", "gauges"):
         pa, pb = getattr(a.scalars, pool), getattr(b.scalars, pool)
         if pa.values[:pa.used].tobytes() != pb.values[:pb.used].tobytes():
-            raise AssertionError(f"{pool} differ")
+            raise AssertionError(f"{what}: {pool} differ")
+    for pool in ("histo", "sets"):
+        if [r.key for r in getattr(a.directory, pool).rows] != \
+                [r.key for r in getattr(b.directory, pool).rows]:
+            raise AssertionError(f"{what}: {pool} directory differs")
 
 
 def check_set_estimates(est) -> None:
@@ -350,20 +400,30 @@ def check_set_estimates(est) -> None:
                              f"{small.max()}")
 
 
+# the worker configuration of phases 4 and 4c, and of 4b
+INTERVAL_KW = dict(compression=100.0, stage_depth=64, batch_size=16384,
+                   initial_histo_rows=4096, count_unique_timeseries=True)
+DENSE_KW = dict(batch_size=16384, set_store="dense",
+                count_unique_timeseries=True)
+
+
 def phase_worker(tw, generate, parse, qs):
+    """Phase 4 on the card, then its CPU twin; the snapshots bitwise
+    equal."""
     import numpy as np
 
     plan = interval_plan(seed=5)
-    kw = dict(compression=100.0, stage_depth=64, batch_size=16384,
-              initial_histo_rows=4096, count_unique_timeseries=True)
     per_row = np.bincount(plan[2]) + 1  # + the series line's sample
-    spilled = int(np.maximum(per_row - kw["stage_depth"], 0).sum())
-    gpu = tw.DeviceWorker(**kw, device=DEVICE)
+    spilled = int(np.maximum(per_row - INTERVAL_KW["stage_depth"], 0).sum())
+    gpu = tw.DeviceWorker(**INTERVAL_KW, device=DEVICE)
     snap_g, t_g = run_interval(gpu, plan, parse, qs)
-    cpu = tw.DeviceWorker(**kw, device="cpu")
+    del gpu
+    cpu = tw.DeviceWorker(**INTERVAL_KW, device="cpu")
     snap_c, t_c = run_interval(cpu, plan, parse, qs)
+    del cpu
+    compare_snapshots(snap_g, snap_c, "phase 4, card against CPU")
+    del snap_c
     n = snap_g.directory.num_histo_rows
-    compare_snapshots(snap_g, snap_c)
     qv = snap_g.quantile_values
     if qv.shape != (n, len(qs)) or not (qv == qv).all():
         raise AssertionError("quantiles not finite for every series")
@@ -378,7 +438,8 @@ def phase_worker(tw, generate, parse, qs):
     samples = len(plan[0]) + len(plan[2])
     set_samples = len(plan[5][0]) + len(plan[5][1])
     log(f"[worker] {n} histogram series ({samples} samples, {spilled} "
-        f"past stage depth {kw['stage_depth']} through the spill fold), "
+        f"past stage depth {INTERVAL_KW['stage_depth']} through the spill "
+        f"fold), "
         f"{snap_g.directory.num_set_rows} set series ({set_samples} set "
         f"samples; {N_SETS_BIG} promoted to the dense tier), "
         f"{len(snap_g.scalars.counter_meta)} counters, "
@@ -389,47 +450,189 @@ def phase_worker(tw, generate, parse, qs):
             f"{k} {v:.4f}" for k, v in t.items()))
     return {"card": t_g, "cpu": t_c, "series": n, "samples": samples,
             "spilled": spilled, "set_series": N_SETS,
-            "set_samples": set_samples}
+            "set_samples": set_samples}, plan, snap_g
+
+
+# -- phase 4c -----------------------------------------------------------------
+
+
+def render_datagrams(plan, lines_per_datagram: int = 100):
+    """Phase 4's interval as DogStatsD datagrams, in the steps
+    run_interval takes: the series, scalar and set lines; then the bulk
+    histogram samples and the bulk set members, each cut into the
+    worker's 16,384-sample batches. A bulk sample is its row's series
+    line with the value written as the shortest decimal of the f64 that
+    holds its f32 exactly (so it parses back to the same f32) and a
+    weight of 2 as @0.5; a member is the string "m%09d" % id. Returns
+    ([(step, [datagrams])], bytes), a step being what run_interval hands
+    the worker between two drains. Vectorized with numpy's string
+    arrays."""
+    import numpy as np
+
+    series, scalars, rows, vals, wts, (set_lines, srows, _i, _r, ids) = plan
+
+    def grams(lines):
+        return [b"\n".join(lines[i:i + lines_per_datagram])
+                for i in range(0, len(lines), lines_per_datagram)]
+
+    def text_grams(lines):
+        lines = lines.tolist()
+        return ["\n".join(lines[i:i + lines_per_datagram]).encode()
+                for i in range(0, len(lines), lines_per_datagram)]
+
+    steps = [("lines", grams(series + scalars + set_lines))]
+    # each row's line around its value: name, then type, rate and tags
+    # (the hot rows' lines carry no tags)
+    r = np.arange(N_HIST)
+    kind = np.where(r % 2 == 1, "ms", "h")
+    shard = np.char.add("#shard:", (r % 16).astype(str))
+    head = np.concatenate([
+        np.char.add(np.char.add("svc.lat.", r.astype(str)), ":"),
+        np.char.add(np.char.add("hot.", np.arange(N_HOT).astype(str)), ":")])
+    tail1 = np.concatenate([
+        np.char.add(np.char.add(np.char.add("|", kind), "|"), shard),
+        np.full(N_HOT, "|ms")])
+    tail2 = np.concatenate([
+        np.char.add(np.char.add(np.char.add("|", kind), "|@0.5|"), shard),
+        np.full(N_HOT, "|ms|@0.5")])
+    b = 16_384
+    for i in range(0, len(rows), b):
+        rr = rows[i:i + b]
+        tail = np.where(wts[i:i + b] == 2.0, tail2[rr], tail1[rr])
+        v = vals[i:i + b].astype(np.float64).astype(str)
+        steps.append(("histo", text_grams(
+            np.char.add(np.char.add(head[rr], v), tail))))
+    s = np.arange(N_SETS)
+    set_head = np.char.add(np.char.add("users.", s.astype(str)), ":m")
+    set_tail = np.char.add("|s|#shard:", (s % 16).astype(str))
+    for i in range(0, len(srows), b):
+        rr = srows[i:i + b]
+        member = np.char.zfill(ids[i:i + b].astype(str), 9)
+        steps.append(("sets", text_grams(np.char.add(
+            np.char.add(set_head[rr], member), set_tail[rr]))))
+    n = sum(len(g) for _s, gs in steps for g in gs)
+    return steps, n
+
+
+def run_native_interval(worker, steps, qs):
+    """The datagrams through a worker with attach_native(): each step's
+    datagrams, then a drain (the spill of a 16,384-sample batch folds as
+    one batch, as run_interval's staging folds it), then the flush.
+    Returns (snapshot, seconds by step)."""
+    t_ingest = t_drain = 0.0
+    for _kind, grams in steps:
+        t0 = time.perf_counter()
+        for d in grams:
+            worker.ingest_datagram(d)
+        t1 = time.perf_counter()
+        worker.drain_native()
+        worker._sync()
+        t_drain += time.perf_counter() - t1
+        t_ingest += t1 - t0
+    t1 = time.perf_counter()
+    snap = worker.flush(qs)
+    t2 = time.perf_counter()
+    if worker.parse_errors or worker.overload_dropped_total:
+        raise AssertionError(f"native worker on {worker.device}: "
+                             f"{worker.parse_errors} parse errors, "
+                             f"{worker.overload_dropped_total} shed")
+    return snap, {"native_ingest_s": t_ingest + t_drain,
+                  "ingest_datagram_s": t_ingest, "drain_s": t_drain,
+                  "flush_s": t2 - t1, **worker.last_extract_phases,
+                  "plane_upload_bytes": worker.last_plane_upload_bytes}
+
+
+def phase_native(tw, ek, hll, qs, plan, python_snap):
+    """Phase 4's interval as datagrams through native workers on the card
+    and then on the CPU: bitwise equal to each other and to phase 4's
+    Python-path snapshot on the card."""
+    t0 = time.perf_counter()
+    steps, n_bytes = render_datagrams(plan)
+    render_s = time.perf_counter() - t0
+    w = tw.DeviceWorker(**INTERVAL_KW, device=DEVICE)
+    w.attach_native()
+    k1, k4, k5 = (ek.flush_extract.launches, hll.insert_batch.launches,
+                  hll.estimate.launches)
+    snap, card = run_native_interval(w, steps, qs)
+    card.update({
+        "flush_extract_launches": ek.flush_extract.launches - k1,
+        "hll_insert_launches": hll.insert_batch.launches - k4,
+        "hll_estimate_launches": hll.estimate.launches - k5})
+    del w
+    compare_snapshots(snap, python_snap, "phase 4c, native against phase 4")
+    check_set_estimates(snap.set_estimates)
+    if min(card[k] for k in ("flush_extract_launches", "hll_insert_launches",
+                             "hll_estimate_launches")) < 1:
+        raise AssertionError(f"native interval launches {card}")
+    w = tw.DeviceWorker(**INTERVAL_KW, device="cpu")
+    w.attach_native()
+    snap_c, cpu = run_native_interval(w, steps, qs)
+    del w
+    compare_snapshots(snap, snap_c, "phase 4c, card against CPU")
+    del snap_c
+    dense = snap.directory.num_histo_rows * INTERVAL_KW["stage_depth"] * 4 * 2
+    grams = sum(len(g) for _k, g in steps)
+    log(f"[native] {grams} datagrams ({n_bytes} bytes; rendered in "
+        f"{render_s:.2f} s) through attach_native() workers: the card's "
+        f"snapshot bitwise equal to phase 4's Python-path snapshot and to "
+        f"the native CPU worker's; plane upload "
+        f"{card['plane_upload_bytes']} bytes (a dense plane of the used "
+        f"rows: {dense}); launches flush_extract "
+        f"{card['flush_extract_launches']}, hll_insert "
+        f"{card['hll_insert_launches']}, hll_estimate "
+        f"{card['hll_estimate_launches']}")
+    for where, t in (("card", card), ("cpu", cpu)):
+        log(f"[native] {where}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in t.items()))
+    return {"card": card, "cpu": cpu, "render_s": render_s,
+            "datagrams": grams, "bytes": n_bytes}
+
+
+def dense_interval(worker, parse):
+    """Phase 4b's set traffic (seed 6) through a set_store="dense"
+    worker: the set lines, the bulk members, the flush. Returns
+    (snapshot, seconds by step, pool rows, samples)."""
+    import numpy as np
+
+    set_lines, rows, idx, rank, _ids = set_plan(np.random.default_rng(6))
+    t0 = time.perf_counter()
+    for line in set_lines:
+        worker.process_metric(parse(line))
+    worker._flush_pending_sets()
+    worker._sync()
+    t1 = time.perf_counter()
+    set_insert_s = insert_sets(worker, rows, idx, rank)
+    pool_rows = worker._sets.shape[0]
+    t2 = time.perf_counter()
+    snap = worker.flush(np.asarray(QS))
+    t3 = time.perf_counter()
+    return snap, {"process_metric_s": t1 - t0, "set_insert_s": set_insert_s,
+                  "flush_s": t3 - t2, **worker.last_extract_phases}, \
+        pool_rows, len(set_lines) + len(rows)
 
 
 def phase_dense_sets(tw, parse, hll):
     """The interval's set traffic alone through set_store="dense"
-    workers, card against CPU: every batch scatters into the 32,768-row
-    pool on the card (hll_insert), the flush estimates all of it
-    (hll_estimate)."""
-    import numpy as np
-
-    rng = np.random.default_rng(6)
-    set_lines, rows, idx, rank = set_plan(rng)
-    kw = dict(batch_size=16384, set_store="dense",
-              count_unique_timeseries=True)
-    out = {}
-    snaps = {}
-    for where, dev in (("card", DEVICE), ("cpu", "cpu")):
-        w = tw.DeviceWorker(**kw, device=dev)
-        k0, e0 = hll.insert_batch.launches, hll.estimate.launches
-        t0 = time.perf_counter()
-        for line in set_lines:
-            w.process_metric(parse(line))
-        w._flush_pending_sets()
-        w._sync()
-        t1 = time.perf_counter()
-        set_insert_s = insert_sets(w, rows, idx, rank)
-        pool_rows = w._sets.shape[0]
-        t2 = time.perf_counter()
-        snaps[where] = w.flush(np.asarray(QS))
-        t3 = time.perf_counter()
-        out[where] = {"process_metric_s": t1 - t0,
-                      "set_insert_s": set_insert_s, "flush_s": t3 - t2,
-                      **w.last_extract_phases,
-                      "hll_insert_launches": hll.insert_batch.launches - k0,
-                      "hll_estimate_launches": hll.estimate.launches - e0}
-        del w
-    compare_snapshots(snaps["card"], snaps["cpu"])
-    check_set_estimates(snaps["card"].set_estimates)
+    workers, the card's then the CPU's: every batch scatters into the
+    32,768-row pool on the card (hll_insert), the flush estimates all of
+    it (hll_estimate)."""
+    w = tw.DeviceWorker(**DENSE_KW, device=DEVICE)
+    k0, e0 = hll.insert_batch.launches, hll.estimate.launches
+    snap, card, pool_rows, samples = dense_interval(w, parse)
+    card.update({"hll_insert_launches": hll.insert_batch.launches - k0,
+                 "hll_estimate_launches": hll.estimate.launches - e0})
+    del w
+    w = tw.DeviceWorker(**DENSE_KW, device="cpu")
+    snap_c, cpu, _rows, _n = dense_interval(w, parse)
+    del w
+    compare_snapshots(snap, snap_c, "phase 4b, card against CPU")
+    del snap_c
+    out = {"card": card, "cpu": cpu}
+    check_set_estimates(snap.set_estimates)
     if pool_rows != 1 << N_SETS.bit_length():  # + its scratch row
         raise AssertionError(f"dense pool of {pool_rows} rows")
-    log(f"[dense sets] {N_SETS} set series, {len(set_lines) + len(rows)} "
+    log(f"[dense sets] {N_SETS} set series, {samples} "
         f"samples into a {pool_rows} x {1 << 14} int8 pool: CUDA snapshot "
         f"bitwise equal to CPU snapshot; card launches hll_insert "
         f"{out['card']['hll_insert_launches']}, hll_estimate "
@@ -475,26 +678,42 @@ def canonical(metrics) -> list[tuple]:
         for m in metrics)
 
 
-def phase_server(ek):
+def server_config(native: bool) -> dict:
+    return {"statsd_listen_addresses": ["udp://127.0.0.1:0"],
+            "interval": "1h", "percentiles": [0.5, 0.9, 0.99],
+            "aggregates": ["min", "max", "count", "sum", "avg", "median"],
+            "hostname": "chip-smoke", "tpu_native_ingest": native,
+            "tpu_native_readers": native, "flush_emit_native": False,
+            "device_guard": False, "count_unique_timeseries": True}
+
+
+def serve_once(data: dict, grams: list, now: int):
+    """A factory-built server on the card with a channel sink: the
+    datagrams over UDP to its listener, one flush. Returns (server,
+    InterMetrics of the flush, InterMetrics the sink got)."""
     import socket
 
     from veneur_tpu_torch.core.config import load_config
     from veneur_tpu_torch.core.factory import build_server
     from veneur_tpu_torch.sinks.channel import ChannelMetricSink
 
-    data = {"statsd_listen_addresses": ["udp://127.0.0.1:0"],
-            "interval": "1h", "percentiles": [0.5, 0.9, 0.99],
-            "aggregates": ["min", "max", "count", "sum", "avg", "median"],
-            "hostname": "chip-smoke", "tpu_native_ingest": False,
-            "tpu_native_readers": False, "flush_emit_native": False,
-            "device_guard": False, "count_unique_timeseries": True}
     sink = ChannelMetricSink()
     server = build_server(load_config(data=data), extra_metric_sinks=[sink],
                           device=DEVICE)
-    grams = server_datagrams(seed=9)
-    before = ek.flush_extract.launches
     ports = server.start()
     try:
+        if data["tpu_native_readers"]:
+            # the C++ reader took the socket: no Python reader runs
+            import threading
+
+            py_readers = [t.name for t in threading.enumerate()
+                          if t.name.startswith("statsd-udp")]
+            if not server.native_mode or server.native_reader_threads != 1 \
+                    or py_readers:
+                raise AssertionError(
+                    f"native server: native_mode {server.native_mode}, C++ "
+                    f"readers {server.native_reader_threads}, Python readers "
+                    f"{py_readers}")
         port = ports["udp://127.0.0.1:0"]
         with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
             for d in grams:
@@ -507,14 +726,26 @@ def phase_server(ek):
         if server.packets_received != len(grams):
             raise AssertionError(f"received {server.packets_received} of "
                                  f"{len(grams)} datagrams")
-        now = 1_700_000_000
         got = server.flush(now=now)
     finally:
         server.shutdown()
-    launched = ek.flush_extract.launches - before
     delivered = []
     while not sink.queue.empty():
         delivered.extend(sink.queue.get_nowait())
+    return server, got, delivered
+
+
+def phase_server(ek):
+
+    from veneur_tpu_torch.core.config import load_config
+    from veneur_tpu_torch.core.factory import build_server
+
+    data = server_config(native=False)
+    grams = server_datagrams(seed=9)
+    before = ek.flush_extract.launches
+    now = 1_700_000_000
+    server, got, delivered = serve_once(data, grams, now)
+    launched = ek.flush_extract.launches - before
     ref_server = build_server(load_config(data={
         **data, "statsd_listen_addresses": []}), device="cpu")
     for d in grams:
@@ -540,6 +771,29 @@ def phase_server(ek):
         f"on {server.device}, equal to the CPU server's; set gauges "
         f"api.users {sorted(users)}; unique timeseries {tally} on both; "
         f"flush_extract launches during the flush: {launched}")
+    return grams, canonical(ref), ref_server.last_unique_timeseries
+
+
+def phase_native_server(grams, ref, ref_tally):
+    """Phase 5's datagrams through a server with tpu_native_ingest and
+    tpu_native_readers on (a C++ reader thread on the UDP socket): its
+    InterMetrics equal the Python-path CPU server's of phase 5."""
+    t0 = time.perf_counter()
+    server, got, delivered = serve_once(server_config(native=True), grams,
+                                        1_700_000_000)
+    wall = time.perf_counter() - t0
+    if canonical(got) != ref or canonical(delivered) != ref:
+        raise AssertionError("native server InterMetrics != the Python-path "
+                             "CPU server's")
+    if server.last_unique_timeseries != ref_tally:
+        raise AssertionError(f"native server tally "
+                             f"{server.last_unique_timeseries} != {ref_tally}")
+    if server.native_reader_threads != 0:
+        raise AssertionError("a C++ reader outlived shutdown")
+    log(f"[native server] {len(grams)} UDP datagrams read by a C++ reader "
+        f"thread (native_mode on, no Python reader) -> {len(got)} "
+        f"InterMetrics on {server.device}, equal to the Python-path CPU "
+        f"server's; unique timeseries {ref_tally}; {wall:.2f} s")
 
 
 # -- main ---------------------------------------------------------------------
@@ -581,14 +835,20 @@ def main() -> int:
     from veneur_tpu_torch.ops import extract_kernel as ek
     from veneur_tpu_torch.ops import hll, hll_kernel
     from veneur_tpu_torch.protocol.dogstatsd import parse_metric
+    from veneur_tpu_torch import native
 
     t_start = t0 = time.perf_counter()
-    # one nvcc per source, started together
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        builds = [pool.submit(ek.build), pool.submit(hll_kernel.build)]
+    # one nvcc per kernel source and the g++ of the native library,
+    # started together
+    with ThreadPoolExecutor(max_workers=3) as pool:
+        builds = [pool.submit(ek.build), pool.submit(hll_kernel.build),
+                  pool.submit(native.build)]
         lib_paths = [f.result() for f in builds]
     ek.load()
     hll_kernel.load()
+    if native.source_hash() != native.source_stamp():
+        raise AssertionError("the native library's source stamp is not its "
+                             "sources' hash")
     log(f"[setup] built and loaded "
         f"{', '.join(str(p.relative_to(ROOT)) for p in lib_paths)} in "
         f"{time.perf_counter() - t0:.2f} s")
@@ -632,14 +892,21 @@ def main() -> int:
         ek.variant_launches[r] = 0
     hll.insert_batch.launches = hll.estimate.launches = 0
     t0 = time.perf_counter()
-    phases = phase_worker(tw, generate, parse_metric, qs)
+    phases, plan, python_snap = phase_worker(tw, generate, parse_metric, qs)
     wall["worker_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phases["dense_sets"] = phase_dense_sets(tw, parse_metric, hll)
     wall["dense_sets_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    phase_server(ek)
+    phases["native"] = phase_native(tw, ek, hll, qs, plan, python_snap)
+    del plan, python_snap
+    wall["native_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    server_grams, server_ref, server_tally = phase_server(ek)
     wall["server_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    phase_native_server(server_grams, server_ref, server_tally)
+    wall["native_server_s"] = time.perf_counter() - t0
     launches = ek.flush_extract.launches
     by_variant = dict(ek.variant_launches)
     hll_launches = {"hll_insert": hll.insert_batch.launches,
@@ -689,7 +956,10 @@ def main() -> int:
             "library_ms": t["library_ms"],
             "build": hll_build.get(name, "no ptxas report"),
             **{k: t[k] for k in ("rows", "precision", "batch",
-                                 "library_note") if k in t}})
+                                 "library_note", "noop_ms", "noop_grid",
+                                 "ms_main_path", "ms_distinct", "ms_big",
+                                 "big_batch", "bound_ms_big",
+                                 "library_ms_big") if k in t}})
     wall["total_s"] = time.perf_counter() - t_start
     log("[timing] " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
     result = {"ok": True, "device": {

@@ -6,8 +6,11 @@ edge rows of tools/port_probe_extract.edge_pool (denormal rows
 included); the HLL kernels against their plain versions, bytewise and in
 f32 bits, at p = 4, 8, 14 and 18 (tools/port_probe_hll cases: duplicate
 slots, padding, dropped rows, every estimator regime, int8 values outside
-the rank range, row counts around each block round); and the CUDA worker,
-with and without sets, against its CPU twin.
+the rank range, row counts around each block round; for the insert
+negative rows, duplicate words within a warp, odd negative registers, n
+not a multiple of 32, n = 1,048,576 and the host inserter's pinned
+uploads); the CUDA worker, with and without sets, against its CPU twin;
+and the native ingest path on the card against the CPU.
 
 Every test here is marked ``cuda`` and skips without a card. On a card
 machine (no JAX needed) run them with
@@ -196,8 +199,12 @@ def test_worker_cuda_equals_cpu(card):
 
 
 @pytest.mark.parametrize("p", [4, 8, 14, 18])
-@pytest.mark.parametrize("n", [1, 16_384, 200_000])
+@pytest.mark.parametrize("n", [1, 31, 16_384, 16_385, 200_000, 1_048_576])
 def test_hll_insert_bytewise_equals_plain(card, p, n):
+    """Duplicate words within a warp (a quarter of the updates on 64 rows
+    and 8 registers), rank-0 padding, negative rows (wrapped once or
+    dropped), rows past the pool, n not a multiple of 32, and n past the
+    threads the card holds at once (blocks queued behind others)."""
     s = 1_024 if p == 14 else 257
     start = probe_hll.regime_pool(s, p, p, card)
     rows, idx, rank = probe_hll.updates(s, p, n, p + n, card)
@@ -208,6 +215,76 @@ def test_hll_insert_bytewise_equals_plain(card, p, n):
     assert hll.insert_batch.launches == before + 1
     hll.insert_batch_plain(b, rows, idx, rank)
     assert torch.equal(a, b)
+
+
+def test_hll_insert_negative_rows(card):
+    """Flat slots in [-S·m, -1] wrap once to slot + S·m (the reference's
+    jnp indexing); below -S·m they drop."""
+    s, p = 6, 8
+    m = 1 << p
+    pool = torch.zeros((s, m), dtype=torch.int8, device=card)
+    rows = torch.tensor([-1, -s, -s - 1, -3, 2], dtype=torch.int32,
+                        device=card)
+    idx = torch.tensor([5, 3, 9, m - 1, 7], dtype=torch.int32, device=card)
+    rank = torch.tensor([9, 4, 7, 11, 3], dtype=torch.int8, device=card)
+    a = hll.insert_batch(pool.clone(), rows, idx, rank)
+    b = hll.insert_batch_plain(pool.clone(), rows, idx, rank)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+    assert int(a[s - 1, 5]) == 9 and int(a[0, 3]) == 4
+    assert int(a[s - 3, m - 1]) == 11 and int(a.sum()) == 9 + 4 + 11 + 3
+
+
+def test_hll_insert_duplicate_words_in_a_warp(card):
+    """Every lane of every warp on the same few words, with ranks in any
+    order and negative ones, and words whose four bytes are all updated:
+    the aggregated byte max equals the plain version's."""
+    g = torch.Generator(device=card).manual_seed(5)
+    s, p, n = 4, 4, 32 * 1000
+    rows = torch.randint(0, s, (n,), generator=g, device=card)
+    idx = torch.randint(0, 8, (n,), generator=g, device=card)
+    rank = torch.randint(-128, 128, (n,), generator=g, device=card)
+    pool = torch.full((s, 1 << p), -128, dtype=torch.int8, device=card)
+    args = (rows.to(torch.int32), idx.to(torch.int32), rank.to(torch.int8))
+    a = hll.insert_batch(pool.clone(), *args)
+    b = hll.insert_batch_plain(pool.clone(), *args)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("p", [4, 14])
+def test_hll_insert_odd_negative_registers(card, p):
+    """Registers an import may leave negative: any update lifts them
+    (signed max, identity -128), rank 0 included."""
+    s = 300
+    start = probe_hll.odd_registers(probe_hll.regime_pool(s, p, 3, card), 4)
+    assert bool((start < 0).any())
+    rows, idx, rank = probe_hll.updates(s, p, 50_000, 6, card)
+    a, b = start.clone(), start.clone()
+    hll.insert_batch(a, rows, idx, rank)
+    hll.insert_batch_plain(b, rows, idx, rank)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+def test_hll_host_inserter_on_the_card(card):
+    """The worker's path: host batches through the pinned buffers, one
+    copy and one launch each, back to back so the two buffers alternate;
+    equal to the plain version on the CPU."""
+    s, p = 1_024, 14
+    start = probe_hll.regime_pool(s, p, 8, card)
+    a, b = start.clone(), start.clone().cpu()
+    ins = hll.HostInserter()
+    before = hll.insert_batch.launches
+    for k in range(6):
+        rows, idx, rank = (t.cpu().numpy() for t in probe_hll.updates(
+            s, p, 16_384 + 7 * k, 40 + k, card))
+        ins.insert(a, rows, idx, rank)
+        hll.insert_batch_plain(b, torch.from_numpy(rows),
+                               torch.from_numpy(idx), torch.from_numpy(rank))
+    torch.cuda.synchronize()
+    assert hll.insert_batch.launches == before + 6
+    assert torch.equal(a.cpu(), b)
 
 
 def _block_rows(p: int) -> int:
@@ -238,12 +315,13 @@ def test_hll_estimate_odd_register_values(card, p):
 
 def test_hll_kernels_refuse_what_they_cannot_take(card):
     pool = hll.init_pool(8, 8, device=card)
-    z32 = torch.zeros(3, dtype=torch.int32, device=card)
-    r8 = torch.zeros(3, dtype=torch.int8, device=card)
+    recs = torch.zeros((3, 2), dtype=torch.int32, device=card)
     with pytest.raises(ValueError):
-        hll_kernel.insert(pool, z32, z32, r8.to(torch.int32))
+        hll_kernel.insert(pool, recs.to(torch.int64))
     with pytest.raises(ValueError):
-        hll_kernel.insert(pool, z32[:2], z32, r8)
+        hll_kernel.insert(pool, recs.t())
+    with pytest.raises(ValueError):
+        hll_kernel.insert(pool, recs.cpu())
     with pytest.raises(TypeError):
         hll_kernel.estimate(pool.to(torch.int16), 8)
     with pytest.raises(ValueError):
@@ -287,3 +365,51 @@ def test_worker_sets_cuda_equals_cpu(card, store):
                  "unique_timeseries_registers", "quantile_values"):
         va, vb = getattr(a, name), getattr(b, name)
         assert va.dtype == vb.dtype and va.tobytes() == vb.tobytes(), name
+
+
+@pytest.mark.parametrize("store", ["staged", "dense"])
+def test_native_worker_cuda_equals_cpu(card, store):
+    """The native C++ ingest path on the card: datagrams through workers
+    with attach_native() (hot rows spilling past a staging depth of 16 and
+    drained mid-interval; the flush uploads the compacted plane and
+    rebuilds it with _expand_flat_planes), every snapshot array equal to
+    the CPU worker's, over two intervals."""
+    kw = dict(stage_depth=16, batch_size=512, initial_histo_rows=64,
+              set_store=store, count_unique_timeseries=True,
+              initial_set_rows=16)
+    gpu = tw.DeviceWorker(**kw, device=card)
+    cpu = tw.DeviceWorker(**kw, device="cpu")
+    for w in (gpu, cpu):
+        w.attach_native()
+    lines = _lines(5) + _set_lines(6)
+    grams = [b"\n".join(lines[i:i + 40]) for i in range(0, len(lines), 40)]
+    qs = np.array([0.5, 0.9, 0.99])
+    for _ in range(2):
+        k1, k4, k5 = (ek.flush_extract.launches, hll.insert_batch.launches,
+                      hll.estimate.launches)
+        for w in (gpu, cpu):
+            if store == "staged":  # each epoch's store promotes early
+                w._staged_sets.compact_every = 2048
+            for d in grams:
+                w.ingest_datagram(d)
+        a, b = gpu.flush(qs), cpu.flush(qs)
+        assert ek.flush_extract.launches == k1 + 1
+        assert hll.insert_batch.launches > k4
+        assert hll.estimate.launches == k5 + 1
+        assert gpu.last_plane_upload_bytes == cpu.last_plane_upload_bytes > 0
+        for name in ("quantile_values", "dmin", "dmax", "dsum", "dcount",
+                     "drecip", "lmin", "lmax", "lsum", "lweight", "lrecip",
+                     "digest_means", "digest_weights", "set_estimates",
+                     "set_registers", "unique_timeseries_registers"):
+            va, vb = getattr(a, name), getattr(b, name)
+            assert va.dtype == vb.dtype and va.shape == vb.shape, name
+            if va.dtype == np.float32:
+                assert _bitwise(torch.from_numpy(np.ascontiguousarray(va)),
+                                torch.from_numpy(np.ascontiguousarray(vb))), \
+                    name
+            else:
+                assert va.tobytes() == vb.tobytes(), name
+        for pool in ("counters", "gauges"):
+            pa, pb = getattr(a.scalars, pool), getattr(b.scalars, pool)
+            assert pa.values[:pa.used].tobytes() == \
+                pb.values[:pb.used].tobytes(), pool

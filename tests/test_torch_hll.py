@@ -7,7 +7,8 @@ equal, at p = 4, 8, 14 and 18:
 * ``split_hashes`` (NumPy in both);
 * ``insert_batch`` against the reference's ``insert_batch`` (sorted
   run-end scatter) and ``insert_batch_scatter``: duplicate slots, rank-0
-  padding, out-of-range rows dropped;
+  padding, out-of-range rows dropped, negative rows wrapped once as the
+  reference indexes; the kernel's packed records and the host inserter;
 * ``merge``;
 * ``estimate`` against the reference's ``estimate`` and
   ``host_engine.np_hll_estimate_exact`` in every regime: empty rows,
@@ -109,26 +110,65 @@ def test_insert_batch_bitwise(p):
     assert (out.numpy() != start).any()
 
 
-def test_negative_rows_differ_as_recorded():
-    """A negative row: the reference's device programs index like numpy
-    (flat slot -k wraps to S·m - k) and raise the register there; its
-    NumPy twin (host_engine.np_hll_insert_batch) and the port drop the
-    update, as for every slot outside [0, S·m) (ROADMAP.md section 3).
-    The worker never forms such a row."""
+def test_negative_rows():
+    """Negative rows: the reference's device programs index like numpy
+    (a flat slot in [-S·m, -1] wraps once to slot + S·m) and raise the
+    register there; the port does the same, bitwise, where the
+    reference's NumPy twin host_engine.np_hll_insert_batch drops such
+    updates (ROADMAP.md section 3). Slots below -S·m are dropped by
+    both."""
     s, p = 6, 8
+    m = 1 << p
     start = _start_pool(s, p, 3)
     start[s - 1, 5] = 0
-    rows = np.array([-1, 2], np.int32)
-    idx = np.array([5, 7], np.int32)
-    rank = np.array([9, 9], np.int8)
+    start[0, 3] = 0
+    rows = np.array([-1, 2, -s, -s - 1, -3, -1], np.int32)
+    idx = np.array([5, 7, 3, 9, m - 1, 5], np.int32)
+    rank = np.array([9, 9, 4, 7, 11, 2], np.int8)
     args = [jnp.asarray(a) for a in (start, rows, idx, rank)]
-    for fn in (jhll.insert_batch, jhll.insert_batch_scatter):
-        assert np.asarray(fn(*args))[s - 1, 5] == 9
+    refs = [np.asarray(fn(*args)) for fn in (jhll.insert_batch,
+                                             jhll.insert_batch_scatter)]
     port = thll.insert_batch(thll.pool_from_numpy(start, "cpu"),
                              torch.from_numpy(rows), torch.from_numpy(idx),
                              torch.from_numpy(rank)).numpy()
-    assert port[s - 1, 5] == 0 and port[2, 7] == 9
-    _same(he.np_hll_insert_batch(start, rows, idx, rank), port)
+    for ref in refs:
+        _same(ref, port, "negative rows")
+    assert port[s - 1, 5] == 9 and port[0, 3] == 4 and port[2, 7] == 9
+    assert (port != he.np_hll_insert_batch(start, rows, idx, rank)).any()
+
+
+def test_packed_records_decode_to_the_updates():
+    """pack_updates writes the int32[N, 2] records into the head of a
+    larger buffer (a pinned buffer's numpy view on the card), records
+    gives the same records as a tensor, and the
+    kernel's decode of them (row, register in the low 24 bits, the rank
+    in the high 8 as int8) gives back every update, negative ranks
+    included; registers outside [0, 2^24) are refused; HostInserter on a
+    CPU pool is the plain version."""
+    s, p = 37, 14
+    rows, idx, rank = _updates(s, p, 5000, 9)
+    rank[:7] = [-128, -1, 0, 1, 50, 127, -65]
+    host = np.full((8192, 2), -7, np.int32)
+    assert thll.pack_updates(rows, idx, rank, host) == len(rows)
+    assert (host[len(rows):] == -7).all()
+    t = host[:len(rows)]
+    hi = t[:, 1].view(np.uint32)
+    _same(t[:, 0], rows, "rows")
+    _same((hi & 0xFFFFFF).astype(np.int32), idx, "registers")
+    _same((hi >> 24).astype(np.uint8).view(np.int8), rank, "ranks")
+    _same(thll.records(torch.from_numpy(rows), torch.from_numpy(idx),
+                       torch.from_numpy(rank), "cpu").numpy(), t, "records")
+    for bad in (1 << 24, -1):
+        with pytest.raises(ValueError, match="2\\^24"):
+            thll.pack_updates(rows[:1], np.array([bad], np.int32),
+                              rank[:1], host)
+    start = _start_pool(s, p, 4)
+    a = thll.HostInserter().insert(thll.pool_from_numpy(start, "cpu"),
+                                   rows, idx, rank)
+    b = thll.insert_batch_plain(thll.pool_from_numpy(start, "cpu"),
+                                torch.from_numpy(rows), torch.from_numpy(idx),
+                                torch.from_numpy(rank))
+    _same(a.numpy(), b.numpy(), "HostInserter on the CPU")
 
 
 @pytest.mark.parametrize("p", [4, 14])
@@ -250,18 +290,26 @@ def test_init_pool_and_device():
 
 def test_kernel_launchers_take_cuda_tensors_only():
     pool = thll.init_pool(4, 8, device="cpu")
-    z32 = torch.zeros(3, dtype=torch.int32)
+    recs = torch.zeros((3, 2), dtype=torch.int32)
     with pytest.raises(ValueError, match="cuda"):
-        hll_kernel.insert(pool, z32, z32, torch.zeros(3, dtype=torch.int8))
+        hll_kernel.insert(pool, recs)
     with pytest.raises(ValueError, match="cuda"):
         hll_kernel.estimate(pool, 8)
 
 
 _PTXAS = """\
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117hll_insert_kernelEPhPKiS2_PKaxxi' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_117hll_insert_kernelEPhPKiS2_PKaxxi
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117hll_insert_kernelILi1EEEvPjPK4int2xxi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117hll_insert_kernelILi1EEEvPjPK4int2xxi
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 18 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117hll_insert_kernelILi4EEEvPjPK4int2xxi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117hll_insert_kernelILi4EEEvPjPK4int2xxi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 17 registers, 400 bytes cmem[0]
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115hll_noop_kernelEv' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115hll_noop_kernelEv
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 4 registers, 352 bytes cmem[0]
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119hll_estimate_kernelILi256EEEvPKhPKfS4_Pfiiff' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_119hll_estimate_kernelILi256EEEvPKhPKfS4_Pfiiff
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads

@@ -191,17 +191,16 @@ def _bad_rows(j, t) -> np.ndarray:
     return ~same.reshape(len(same), -1).all(axis=1)
 
 
-def test_denormal_samples_differ_as_recorded():
-    """Denormal sample values and weights through add_batch and
-    _compress_rows. XLA on the CPU reads them as zero, the port's ingest
-    does not: the rows holding them differ (ROADMAP.md section 3); every
-    other row is bitwise equal. Fed the same samples flushed to zero
-    first, the port matches the reference everywhere except the batch
-    min/max, which the reference gathers from the raw values."""
-    from veneur_tpu_torch.ops.exactnum import flush_denormals as z
-
+def test_denormal_samples():
+    """Denormal sample values and weights, and normal samples whose
+    products, quotients and partial sums underflow, through add_batch and
+    _compress_rows: bitwise equal to the reference, which runs on XLA on
+    the CPU with denormals-are-zero and flush-to-zero (ROADMAP.md section
+    3). The batch min and max are gathers, so a denormal there keeps its
+    bits in both."""
     rng = np.random.default_rng(3)
-    s, n = 8, 400
+    s, n = 10, 400
+    tiny = np.finfo(np.float32).tiny
     rows = rng.integers(0, s, n).astype(np.int32)
     vals = rng.normal(50.0, 10.0, n).astype(np.float32)
     wts = np.ones(n, np.float32)
@@ -209,40 +208,40 @@ def test_denormal_samples_differ_as_recorded():
     vals[dv] = rng.integers(-2**20, 2**20, int(dv.sum())) * np.float32(1e-45)
     dw = (rows >= 4) & (rows < 6)
     wts[dw] = rng.integers(1, 2**20, int(dw.sum())) * np.float32(1e-45)
+    # rows 6-7: normal values of both signs in [tiny, 2 tiny) and weights
+    # near 1, so v·w and the prefixes underflow; rows 8-9: values near
+    # the f32 maximum, so the reciprocals w/v do
+    uf = (rows >= 6) & (rows < 8)
+    vals[uf] = (rng.choice([-1.0, 1.0], int(uf.sum()))
+                * tiny * (1.0 + rng.random(int(uf.sum()))))
+    wts[uf] = rng.uniform(0.5, 1.5, int(uf.sum()))
+    big = rows >= 8
+    vals[big] = rng.uniform(1e38, 3e38, int(big.sum()))
     jo = jtd.add_batch(*jtd.init_pool(s, C), jnp.asarray(rows),
                        jnp.asarray(vals), jnp.asarray(wts))
-    pool = ttd.init_pool(s, C, device="cpu")
-    raw = ttd.add_batch(*pool, torch.from_numpy(rows),
-                        torch.from_numpy(vals), torch.from_numpy(wts))
-    differ = np.arange(s) < 4
-    for i in (0, 2, 3):  # means, min, max
-        assert (_bad_rows(jo[i], raw[i]) == differ).all(), i
-    for i in (1, 4):  # weights, recip
-        _assert_bitwise(jo[i], raw[i], f"field {i}")
-    flushed = ttd.add_batch(*pool, torch.from_numpy(rows),
-                            z(torch.from_numpy(vals)),
-                            z(torch.from_numpy(wts)))
-    for i in range(5):
-        _assert_bitwise(jo[i], flushed[i], f"flushed field {i}")
-    for f in ("weight", "sum", "recip"):
-        _assert_bitwise(getattr(jo[5], f), getattr(flushed[5], f), f)
-    for f in ("min", "max"):
-        assert (_bad_rows(getattr(jo[5], f), getattr(flushed[5], f))
-                == differ).all(), f
+    to = ttd.add_batch(*ttd.init_pool(s, C, device="cpu"),
+                       torch.from_numpy(rows), torch.from_numpy(vals),
+                       torch.from_numpy(wts))
+    for i, name in enumerate(("means", "weights", "min", "max", "recip")):
+        _assert_bitwise(jo[i], to[i], name)
+    for f in jtd.BatchStats._fields:
+        _assert_bitwise(getattr(jo[5], f), getattr(to[5], f), f"stats.{f}")
+    # the raw bits survive in the batch min/max, not in the digest's
+    smin = to[5].min.numpy()
+    assert ((np.abs(smin) < tiny) & (smin != 0)).any()
+    assert not ((np.abs(to[2].numpy()) < tiny) & (to[2].numpy() != 0)).any()
 
     m = 2 * C
     means = rng.normal(50.0, 20.0, (s, m)).astype(np.float32)
     w = np.ones((s, m), np.float32)
     means[:3] = rng.integers(-2**20, 2**20, (3, m)) * np.float32(1e-45)
     w[3:5] = rng.integers(1, 2**20, (2, m)) * np.float32(1e-45)
+    means[5:8] = (rng.choice([-1.0, 1.0], (3, m))
+                  * tiny * (1.0 + rng.random((3, m))))
+    w[5:8] = rng.uniform(0.25, 2.0, (3, m))
     jm, jw = jtd.compress_rows(jnp.asarray(means), jnp.asarray(w),
                                compression=100.0, capacity=C)
     tm, tw = ttd.compress_rows(torch.from_numpy(means), torch.from_numpy(w),
                                compression=100.0, capacity=C)
-    assert (_bad_rows(jm, tm) == (np.arange(s) < 5)).all()
-    assert not _bad_rows(jw, tw)[5:].any()
-    fm, fw = ttd.compress_rows(z(torch.from_numpy(means)),
-                               z(torch.from_numpy(w)),
-                               compression=100.0, capacity=C)
-    _assert_bitwise(jm, fm, "flushed means")
-    _assert_bitwise(jw, fw, "flushed weights")
+    _assert_bitwise(jm, tm, "means")
+    _assert_bitwise(jw, tw, "weights")

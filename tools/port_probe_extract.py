@@ -24,6 +24,10 @@ fastest while bitwise equal to the plain version. For every variant R
 
 Then the fastest variant that is bitwise and spill-free, and, as a
 yardstick of the card's read rate, ``torch.sum`` over means and weights.
+Before all that, ``cuobjdump -sass`` of the library: how many of the
+kernels' f32 adds, multiplies, compares and min/max carry .FTZ (the
+library is built with -ftz=true to read and write denormals as XLA on
+the CPU does).
 With ``--against DIR`` it also times ``flush_extract`` of another
 checkout of the repository at DIR (say the parent commit, unpacked with
 ``git archive``) in turns with this checkout's: other, this, this, other.
@@ -130,7 +134,8 @@ def make_pool(s: int, seed: int):
 
 
 EDGE_KINDS = ("empty", "one", "127", "128", "equal_means", "denormal",
-              "huge", "real", "spread", "integer", "denormal_scalars")
+              "huge", "real", "spread", "integer", "denormal_scalars",
+              "underflow")
 
 
 def edge_pool(s: int, seed: int):
@@ -140,7 +145,11 @@ def edge_pool(s: int, seed: int):
     weights spread over twelve decades, whose Hillis-Steele prefixes are
     not monotone; plain integer weights; denormal means, dmin, dmax and
     row scalars, with one pair of tiny normal scalars (lsum, lsum_c)
-    whose sum is denormal."""
+    whose sum is denormal; normal inputs whose intermediates underflow
+    (means of alternating sign in [tiny, 2 tiny), so midpoints, products
+    m·w and the row sum's partial sums are denormal; on every other such
+    row also weights in [tiny, 2 tiny) at occupancy 2 to 8, so prefixes,
+    targets q·total and their differences are)."""
     import numpy as np
 
     c = 128
@@ -183,7 +192,60 @@ def edge_pool(s: int, seed: int):
             e[sub] = np.float32(1.5e-38)
         elif j == 5:  # lsum_c
             e[sub] = np.float32(-1.2e-38)
+    und = np.flatnonzero(kind == EDGE_KINDS.index("underflow"))
+    ftiny = np.finfo(np.float32).tiny
+    for i, r in enumerate(und):
+        sign = np.where(np.arange(c) % 2, -1.0, 1.0)
+        means[r] = sign * ftiny * (1.0 + rng.random(c))
+        if i % 2:
+            occ[r] = rng.integers(2, 9)
+            weights[r] = ftiny * (1.0 + rng.random(c))
+        else:
+            weights[r] = rng.uniform(0.5, 2.0, c)
+        means[r, occ[r]:], weights[r, occ[r]:] = np.inf, 0.0
+        dmin[r] = means[r, :occ[r]].min()
+        dmax[r] = means[r, :occ[r]].max()
     return [means, weights, dmin, dmax] + extra
+
+
+SASS_OPS = ("FADD", "FMUL", "FFMA", "FSETP", "FMNMX")
+
+
+def cuobjdump() -> str:
+    """cuobjdump from the CUDA toolkit, or the copy Triton ships."""
+    import shutil
+
+    path = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    if Path(path).exists():
+        return path
+    try:
+        import triton
+    except ImportError as e:
+        raise RuntimeError("no cuobjdump: neither the CUDA toolkit's nor "
+                           "Triton's") from e
+    return str(Path(triton.__file__).parent / "backends" / "nvidia" / "bin"
+               / "cuobjdump")
+
+
+def sass_ftz(lib: Path, kernel: str) -> dict[str, dict[str, int]]:
+    """Per f32 opcode of SASS_OPS, over the functions of the library
+    ``lib`` whose name matches the regex ``kernel``: how many carry .FTZ
+    and how many do not (``cuobjdump -sass``)."""
+    import re
+
+    text = subprocess.run([cuobjdump(), "-sass", str(lib)],
+                          capture_output=True, text=True, check=True).stdout
+    out = {op: {"ftz": 0, "plain": 0} for op in SASS_OPS}
+    inside = False
+    pat = re.compile(r"\b(" + "|".join(SASS_OPS) + r")((?:\.[A-Z0-9_]+)*)\s")
+    for line in text.splitlines():
+        if "Function :" in line:
+            inside = re.search(kernel, line) is not None
+            continue
+        m = pat.search(line) if inside else None
+        if m:
+            out[m.group(1)]["ftz" if ".FTZ" in m.group(2) else "plain"] += 1
+    return out
 
 
 def bound(s: int, p: int) -> tuple[float, str]:
@@ -278,17 +340,34 @@ def read_yardstick(fields) -> dict:
     return {"ms": ms, "bytes": nbytes}
 
 
+def load_other(other: Path, *names: str) -> list:
+    """Modules ``veneur_tpu_torch.<name>`` of the checkout at ``other``,
+    imported with that checkout's own package (its sources, its build
+    directory, its flags); this process's own modules are back in place
+    when it returns."""
+    pkg = "veneur_tpu_torch"
+    mine = {k: v for k, v in sys.modules.items()
+            if k == pkg or k.startswith(pkg + ".")}
+    for k in mine:
+        del sys.modules[k]
+    sys.path.insert(0, str(other))
+    try:
+        return [importlib.import_module(f"{pkg}.{n}") for n in names]
+    finally:
+        sys.path.remove(str(other))
+        for k in [k for k in sys.modules
+                  if k == pkg or k.startswith(pkg + ".")]:
+            del sys.modules[k]
+        sys.modules.update(mine)
+
+
 def time_against(other: Path, fields, qs) -> dict:
     """flush_extract of the checkout at ``other`` (its own source, built
     into its own build/kernels) and of this one at S_TIME rows, each held
     bitwise against the plain version, timed in turns."""
     from veneur_tpu_torch.ops import extract_kernel as ek
 
-    spec = importlib.util.spec_from_file_location(
-        "other_extract_kernel",
-        other / "veneur_tpu_torch" / "ops" / "extract_kernel.py")
-    oek = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(oek)
+    oek, = load_other(other, "ops.extract_kernel")
     full = [f[:S_TIME] for f in fields]
     ref = ek.flush_extract_plain(*full, qs)
     runs = {"other": [], "this": []}
@@ -345,6 +424,18 @@ def main() -> int:
     card = card_line()
     log(f"[probe] card: {card}")
     ek.load()
+    sass = {"this": sass_ftz(ek.library_path(), "flush_extract_kernel")}
+    if args.against:
+        oek, = load_other(args.against.resolve(), "ops.extract_kernel")
+        oek.load()
+        sass["other"] = sass_ftz(oek.library_path(), "flush_extract_kernel")
+        for r, rep in sorted(oek.build_report().items()):
+            log(f"[probe] other checkout's ptxas r{r}: " + ", ".join(
+                f"{k} {v}" for k, v in rep.items()))
+    for who, rep in sass.items():
+        log(f"[probe] SASS of {who} checkout's flush_extract kernels, f32 "
+            f"ops with .FTZ / without: " + ", ".join(
+                f"{op} {v['ftz']}/{v['plain']}" for op, v in rep.items()))
     fields = [torch.from_numpy(a).cuda()
               for a in make_pool(S_TIME, seed=11)]
     qs = torch.tensor(QS, dtype=torch.float32, device="cuda")
@@ -356,7 +447,7 @@ def main() -> int:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
             {"card": card, "variants": variants, "yardstick": yard,
-             "against": against}, indent=1))
+             "against": against, "sass_ftz": sass}, indent=1))
     print(json.dumps({"card": card, "variants": variants}), flush=True)
     return 0 if any(v["bitwise"] for v in variants) else 1
 

@@ -3,9 +3,13 @@
 The counterpart of veneur_tpu/core/factory.py for this slice: the same
 YAML loads (core/config.py is a copy), and every key that turns on a
 feature the port does not have yet is refused by name, so no deployment
-silently runs without something it asked for. Four keys are on by
+silently runs without something it asked for. Two keys are on by
 default and do not change results (the JAX package's own parity tests
 show it); the port logs one warning that it runs without them.
+
+The native C++ ingest path is ported: ``tpu_native_ingest`` and
+``tpu_native_readers`` (both on by default) load as they do in the JAX
+package, with UDP listeners only; ``reader_shards`` stays refused.
 
 Sets are ported: both set stores (``tpu_set_store: staged | dense``),
 both set hashes (``set_hash: fnv | metro``), every ``tpu_hll_precision``
@@ -86,8 +90,7 @@ REFUSED_KEYS = {
 }
 
 # on by default, result-neutral: the port runs without them
-RUNS_WITHOUT_KEYS = ("device_guard", "tpu_native_ingest",
-                     "tpu_native_readers", "flush_emit_native")
+RUNS_WITHOUT_KEYS = ("device_guard", "flush_emit_native")
 
 
 def check_config(cfg: Config) -> None:

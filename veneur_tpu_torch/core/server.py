@@ -11,10 +11,19 @@ sinks. With ``count_unique_timeseries`` the workers' unique-timeseries
 HLLs merge and are estimated on the device at each flush
 (``last_unique_timeseries``).
 
+With ``tpu_native_ingest`` every worker attaches a C++ ingest context
+(veneur_tpu_torch/native.py) and datagrams go through a ``NativeRouter``:
+parsed in C++ and committed to the context of worker digest % N. With
+``tpu_native_readers`` as well, C++ threads read the UDP sockets, and a
+pump thread drains the contexts' batches past ``batch_size`` and hands
+event and service-check lines back to the Python parser. A library that
+does not build or load raises; the server never falls back to the
+Python path behind the configuration's back.
+
 Not in this slice (the factory refuses their config keys): SSF/TCP/TLS/
-unixgram listeners, the native C++ ingest and readers, forwarding,
-imports, proxies, query listeners, tenancy, the flush pipeline, plugins,
-self-telemetry (so the unique-timeseries tally is kept, not sent).
+unixgram listeners, reader shards, forwarding, imports, proxies, query
+listeners, tenancy, the flush pipeline, plugins, self-telemetry (so the
+unique-timeseries tally is kept, not sent).
 """
 
 from __future__ import annotations
@@ -86,10 +95,15 @@ class Server:
                 is_local=self.is_local,
                 set_hash=cfg.set_hash,
                 set_store=cfg.tpu_set_store,
+                spill_cap=cfg.tpu_spill_cap,
                 device=self.device,
             )
             for _ in range(cfg.num_workers)
         ]
+        # each flush may inherit at most half an interval of spill-fold
+        # work (swap sheds the excess, counted)
+        for w in self.workers:
+            w.fold_budget_s = 0.5 * self.interval
         self._worker_locks = [threading.Lock() for _ in self.workers]
         self.event_worker = EventWorker()
         self.metric_sinks: list[MetricSink] = list(metric_sinks or [])
@@ -99,17 +113,66 @@ class Server:
         self._shutdown = threading.Event()
         self._flush_lock = threading.Lock()
         self._counter_lock = threading.Lock()
-        self.packets_received = 0
-        self.parse_errors = 0
+        # Python-path tallies; the properties add the native readers' and
+        # contexts' counts
+        self._packets_py = 0
+        self._parse_errors_py = 0
         self.last_flush_phases: dict[str, float] = {}
         # the last flush's unique-timeseries estimate (with
         # count_unique_timeseries; the reference sends it as
         # flush.unique_timeseries_total)
         self.last_unique_timeseries: Optional[int] = None
+        # the native C++ ingest path: one parser context per worker,
+        # lines committed to the context of worker digest % N
+        self.native_mode = False
+        self._native_router = None
+        self._native_ingest_tick = 0
+        # C++ reader-thread handles, and the packets of stopped ones
+        self._native_readers: list = []
+        self._native_reader_packets_stopped = 0
+        self._native_reader_lock = threading.Lock()
+        self._native_pump_started = False
+        if cfg.tpu_native_ingest:
+            from veneur_tpu_torch.native import NativeRouter
+
+            for w in self.workers:
+                w.attach_native()
+            self._native_router = NativeRouter(
+                [w._native for w in self.workers])
+            self.native_mode = True
+            log.info("native C++ ingest enabled (%d contexts)",
+                     len(self.workers))
 
     @property
     def is_local(self) -> bool:
         return self.config.is_local()
+
+    @property
+    def packets_received(self) -> int:
+        """Datagrams received: the Python readers' and the C++ readers'
+        (live and stopped)."""
+        n = self._packets_py + self._native_reader_packets_stopped
+        with self._native_reader_lock:
+            for h in self._native_readers:
+                n += self._native_router.reader_packets(h)
+        return n
+
+    @property
+    def parse_errors(self) -> int:
+        """Parse and overlong errors: the Python path's, each worker's
+        drained native count and the native delta not yet drained."""
+        n = self._parse_errors_py
+        for w in self.workers:
+            n += w.parse_errors
+            if w._native is not None:
+                n += int(w._native.errors) - w._native_errs_seen
+        return n
+
+    @property
+    def native_reader_threads(self) -> int:
+        """C++ reader threads running now."""
+        with self._native_reader_lock:
+            return len(self._native_readers)
 
     # -- packet handling ----------------------------------------------------
 
@@ -127,7 +190,7 @@ class Server:
                 self._route(dogstatsd.parse_metric(packet))
         except dogstatsd.ParseError as e:
             with self._counter_lock:
-                self.parse_errors += 1
+                self._parse_errors_py += 1
             log.debug("bad metric packet %r: %s", packet[:128], e)
 
     def _route(self, metric) -> None:
@@ -139,13 +202,44 @@ class Server:
         """Split a datagram on newlines and handle each line
         (reference processMetricPacket, server.go:1136)."""
         with self._counter_lock:
-            self.packets_received += 1
+            self._packets_py += 1
         if len(datagram) > self.config.metric_max_length:
             with self._counter_lock:
-                self.parse_errors += 1
+                self._parse_errors_py += 1
+            return
+        if self.native_mode:
+            # parsed in C++ without a Python lock; the contexts commit
+            # under their own mutexes. The drain check is strided (each
+            # is a C call per context); everything drains at flush
+            self._native_router.ingest(datagram)
+            self._native_ingest_tick += 1
+            if self._native_ingest_tick % 64 == 0:
+                self._drain_native_thresholds()
+            # event and service-check lines come back for the Python
+            # parser
+            if b"_e{" in datagram or b"_sc" in datagram:
+                self._drain_native_events()
             return
         for line in datagram.split(b"\n"):
             if line:
+                self.handle_metric_packet(line)
+
+    def _drain_native_thresholds(self) -> None:
+        """Drain each worker whose native spill or set batch reached
+        batch_size."""
+        for w, lock in zip(self.workers, self._worker_locks):
+            ctx = w._native
+            if (ctx.pending_histo >= w.batch_size
+                    or ctx.pending_set >= w.batch_size):
+                with lock:
+                    w.drain_native()
+
+    def _drain_native_events(self) -> None:
+        """Parse the event and service-check lines the C++ contexts hand
+        back on the Python path. Must not be called under a worker lock:
+        the lines re-enter _route, which takes one."""
+        for w in self.workers:
+            for line in w._native.drain_other():
                 self.handle_metric_packet(line)
 
     # -- listeners ----------------------------------------------------------
@@ -171,9 +265,65 @@ class Server:
             sock.bind((addr, bound_port))
             bound_port = sock.getsockname()[1]  # resolve port 0 once
             self._sockets.append(sock)
-            self._spawn(lambda s=sock: self._read_metric_socket(s),
-                        f"statsd-udp-{i}")
+            if self.native_mode and self.config.tpu_native_readers:
+                self._start_native_metric_reader(sock, i)
+            else:
+                self._spawn(lambda s=sock: self._read_metric_socket(s),
+                            f"statsd-udp-{i}")
         return bound_port
+
+    def _start_native_metric_reader(self, sock: socket.socket,
+                                    i: int) -> None:
+        """Hand the bound socket's fd to a C++ reader thread: datagram to
+        staged sample with no Python on the path. The socket object stays
+        in self._sockets so the fd outlives the thread. ``i`` spreads the
+        readers' event lines and parse errors over the contexts."""
+        sock.setblocking(True)
+        h = self._native_router.start_reader(
+            sock.fileno(), self.config.metric_max_length,
+            home=i % len(self.workers))
+        with self._native_reader_lock:
+            self._native_readers.append(h)
+        self._start_native_pump()
+
+    def _start_native_pump(self) -> None:
+        """With C++ readers no Python code sees a datagram: this thread
+        takes over process_metric_packet's strided duties, the threshold
+        drains and the event hand-back (both also run at every flush)."""
+        if self._native_pump_started:
+            return
+
+        def pump() -> None:
+            while not self._shutdown.wait(0.1):
+                self._drain_native_thresholds()
+                self._drain_native_events()
+
+        self._spawn(pump, "native-pump")
+        self._native_pump_started = True
+
+    def _stop_native_readers(self) -> None:
+        """Join the C++ reader threads (their fds stay open). Idempotent."""
+        with self._native_reader_lock:
+            readers, self._native_readers = self._native_readers, []
+            for h in readers:
+                # the count after the join: the last recv window included
+                self._native_reader_packets_stopped += (
+                    self._native_router.stop_reader(h))
+
+    def sync_native_series_once(self) -> None:
+        """One locked sweep adopting the contexts' new series (the pending
+        probe is a lock-free C call)."""
+        for w, lock in zip(self.workers, self._worker_locks):
+            if w.native_series_pending():
+                with lock:
+                    w.sync_native_series()
+
+    def _series_sync_loop(self) -> None:
+        """Adopt new series as they arrive, so swap (under the ingest
+        lock) adopts only the tail."""
+        cadence = max(0.1, min(1.0, self.interval / 8.0))
+        while not self._shutdown.wait(cadence):
+            self.sync_native_series_once()
 
     def _read_metric_socket(self, sock: socket.socket) -> None:
         """Tight recv loop (reference ReadMetricSocket, server.go:1123);
@@ -210,6 +360,8 @@ class Server:
             sink.start()
         ports = self.start_listeners()
         self._spawn(self._flush_loop, "flush-ticker")
+        if self.native_mode:
+            self._spawn(self._series_sync_loop, "series-sync")
         return ports
 
     # -- flush --------------------------------------------------------------
@@ -237,6 +389,10 @@ class Server:
     def _flush(self, now: Optional[float]) -> list[InterMetric]:
         flush_start = time.time() if now is None else float(now)
         phases: dict[str, float] = {}
+        if self.native_mode:
+            # event and service-check lines still buffered in C++; those
+            # landing after this are caught by swap with the epoch close
+            self._drain_native_events()
         other_samples = self.event_worker.flush()
         for sink in self.metric_sinks:
             try:
@@ -250,6 +406,12 @@ class Server:
         for worker, lock in zip(self.workers, self._worker_locks):
             with lock:
                 swapped.append(worker.swap(qs))
+        # lines the contexts handed back at epoch close belong to the new
+        # epoch; parsed outside the worker locks (they re-enter _route)
+        for worker in self.workers:
+            lines, worker.pending_other_lines = worker.pending_other_lines, []
+            for line in lines:
+                self.handle_metric_packet(line)
         phases["swap_s"] = time.perf_counter() - _t
         _t = time.perf_counter()
         snaps: list[FlushSnapshot] = []
@@ -304,6 +466,8 @@ class Server:
         if self._shutdown.is_set():
             return True
         self._shutdown.set()
+        if self._native_router is not None:
+            self._stop_native_readers()  # joins; then the fds close
         for sock in self._sockets:
             try:
                 sock.close()

@@ -1,7 +1,7 @@
 """DeviceWorker: the batched aggregation engine, PyTorch port.
 
-The counterpart of veneur_tpu/core/worker.py, limited to the Python
-staging path. One worker owns, on its device,
+The counterpart of veneur_tpu/core/worker.py. One worker owns, on its
+device,
 
   t-digest rows   f32[S_h, C]×2 + scalars   (histogram & timer series)
   local stats     f32[S_h] × 5 (+ compensation halves)
@@ -19,14 +19,24 @@ the unique-timeseries HLL stay host-side. On the card the flush extract,
 the set inserts and the set estimates run hand-written CUDA kernels
 (ops/extract_kernel.py, ops/hll.py).
 
+With ``attach_native()`` the C++ ingest pipeline (veneur_tpu_torch/
+native.py, built from native/) parses datagrams, assigns rows and stages
+raw histogram samples in its own [S, B] plane: ``ingest_datagram`` feeds
+it, ``drain_native`` moves its batches (hot-row spill, set updates,
+counters, gauges) into the pools and adopts its new series into the
+directory, and at flush the plane is compacted on the host, uploaded
+flat and rebuilt on the device (``_expand_flat_planes``) before the
+staged fold. The Python-side paths share the native directory through
+its upsert.
+
 The device steps keep the reference's names and argument order. Where
 the reference donates its pool buffers, the port may update the pool
 tensors in place; a swapped epoch owns its tensors outright (the live
 epoch starts a fresh pool), so no swapped epoch aliases the live pool.
 
-Not in this slice (config refuses them, see core/factory.py): the native
-C++ ingest, micro-folds, series sharding, reader shards, the device
-guard, tenancy, the query view, imports, the mesh.
+Not in this slice (config refuses them, see core/factory.py):
+micro-folds, series sharding, reader shards, the device guard, tenancy,
+the query view, imports, the mesh.
 """
 
 from __future__ import annotations
@@ -40,8 +50,8 @@ import numpy as np
 import torch
 
 from veneur_tpu_torch.core.columnar import unpack_extract_columns
-from veneur_tpu_torch.core.directory import (ScopeClass, SeriesDirectory,
-                                             classify)
+from veneur_tpu_torch.core.directory import (RowMeta, ScopeClass,
+                                             SeriesDirectory, classify)
 from veneur_tpu_torch.core.metrics import MetricKey, UDPMetric, route_info
 from veneur_tpu_torch.device import resolve
 from veneur_tpu_torch.ops import exactnum as exn
@@ -49,9 +59,14 @@ from veneur_tpu_torch.ops import extract_kernel as ek
 from veneur_tpu_torch.ops import hll as hll_ops
 from veneur_tpu_torch.ops import tdigest as td
 from veneur_tpu_torch.ops.staged_sets import StagedSetStore
-from veneur_tpu_torch.utils.hashing import fmix64, hll_hash, metro_hash64
+from veneur_tpu_torch.utils.hashing import (fmix64, hll_hash, metric_digest,
+                                           metro_hash64)
 
 _INF = float("inf")
+# samples per spill fold: a native drain after a stall can hold millions
+# of spilled samples; folding them in bounded chunks keeps the padded
+# per-fold arrays small (the reference's _FOLD_CHUNK)
+_FOLD_CHUNK = 1 << 18
 
 
 def _next_pow2(n: int, floor: int = 1) -> int:
@@ -134,11 +149,24 @@ def _histo_ingest_step(
 
 
 class StagedPlane(NamedTuple):
-    """One dense raw-sample staging plane handed to the flush: host
-    arrays vals/wts [S, B] (empty slots weigh 0)."""
+    """One raw-sample staging plane handed to the flush. Python plane:
+    host arrays vals/wts [S, B] (empty slots weigh 0), counts and free
+    None. Native plane: vals/wts [rows, B] alias C++ memory until
+    ``free()``; counts [rows] per-row fills; wts None when every weight
+    is 1.0. A native plane compacted for its upload is re-staged as its
+    host copies: flat vals/wts and counts, free None."""
 
     vals: np.ndarray
-    wts: np.ndarray
+    wts: Optional[np.ndarray]
+    counts: Optional[np.ndarray] = None
+    free: Optional[object] = None
+
+
+def _free_staged_planes(planes) -> None:
+    """Release the native memory of the planes not yet freed."""
+    for p in planes or ():
+        if p.free is not None:
+            p.free()
 
 
 def _expand_flat_planes(flat_v, flat_w, counts, depth: int, unit: bool):
@@ -457,31 +485,93 @@ class DeviceWorker:
         set_hash: str = "fnv",
         set_store: str = "staged",
         stage_depth: int = 64,
+        spill_cap: int = 1 << 22,
         device=None,
     ) -> None:
         self.device = resolve(device)
         self.batch_size = batch_size
+        # native pending-batch bound; beyond it samples shed, counted in
+        # overload_dropped (drop-don't-block under overload)
+        self.spill_cap = spill_cap
         # raw-sample staging slots per digest row (B in the staged fold);
         # rows whose staged count reaches B spill through the direct fold
         self.stage_depth = stage_depth
         self.compression = compression
         self.capacity = capacity
         self.hll_precision = hll_precision
+        self.set_hash = set_hash
         self._set_hash64 = metro_hash64 if set_hash == "metro" else hll_hash
         self._initial_histo_rows = initial_histo_rows
         self._initial_set_rows = initial_set_rows
         self.count_unique_timeseries = count_unique_timeseries
         self.is_local = is_local
         self.set_store = set_store
+        # the C++ context (attach_native); None keeps the Python path
+        self._native = None
+        self._native_epoch_closed = False
+        self._native_errs_seen = 0
+        self._native_proc_seen = 0
+        self._native_drop_seen = 0
         self.processed = 0
         self.processed_total = 0
+        # native parse errors drained so far (reset per process)
+        self.parse_errors = 0
+        # overload shedding: per interval (the server's telemetry resets
+        # it) and lifetime
+        self.overload_dropped = 0
+        self.overload_dropped_total = 0
+        # seconds of spill-fold work one flush may inherit, and the
+        # measured fold rate (samples/s) that turns it into samples:
+        # backlog past it sheds at swap, counted
+        self.fold_budget_s: float = 5.0
+        self._fold_rate_ewma: float = 1e6
+        # event and service-check lines the C++ parser handed back at
+        # epoch close; the server parses them into the next epoch
+        self.pending_other_lines: list[bytes] = []
+        # cross-epoch series metadata (_sync_native_series): the same
+        # series re-register every interval, so RowMeta is built once per
+        # series lifetime
+        self._adopt_cache: dict = {}
+        # bytes of the last flush's staging-plane uploads
+        self.last_plane_upload_bytes = 0
         # wall seconds of the last extract_snapshot's staged fold, packed
         # extract (+ readback) and set estimates (+ readbacks), each ended
         # by a device sync
         self.last_extract_phases: dict[str, float] = {}
+        # the dense set pool's uploads (its pinned buffers outlive epochs)
+        self._set_inserter = hll_ops.HostInserter()
         self._reset_epoch()
 
+    @property
+    def processed(self) -> int:
+        """Samples accepted this epoch, the native context's (committed
+        off the Python path) included."""
+        n = self._processed_py
+        if self._native is not None:
+            n += int(self._native.processed) - self._native_proc_seen
+        return n
+
+    @processed.setter
+    def processed(self, v: int) -> None:
+        # keeps `processed += k` exact: the native delta the getter adds
+        # is taken back out
+        nd = 0
+        if self._native is not None:
+            nd = int(self._native.processed) - self._native_proc_seen
+        self._processed_py = v - nd
+
     def _reset_epoch(self) -> None:
+        if self._native_epoch_closed:
+            # swap reset the context with its last drain; resetting again
+            # would destroy what readers committed since
+            self._native_epoch_closed = False
+        else:
+            if self._native is not None:
+                self._native.reset()
+            self._native_errs_seen = 0
+            self._native_proc_seen = 0
+            self._native_drop_seen = 0
+        self._processed_py = 0
         self.directory = SeriesDirectory()
         self.scalars = HostScalars()
         self._histo: Optional[HistoDeviceState] = None
@@ -549,7 +639,7 @@ class DeviceWorker:
         elif mtype == "gauge":
             self._host_gauge(m.key, scope_class, m.tags, float(m.value))
         elif mtype in ("histogram", "timer"):
-            row, _ = self.directory.upsert_histo(m.key, scope_class, m.tags)
+            row = self._upsert_histo(m.key, scope_class, m.tags)
             self._ensure_histo(max(self.directory.num_histo_rows, row + 1))
             self._ph_rows.append(row)
             self._ph_vals.append(float(m.value))
@@ -557,7 +647,7 @@ class DeviceWorker:
             if len(self._ph_rows) >= self.batch_size:
                 self._flush_pending_histos()
         elif mtype == "set":
-            row, _ = self.directory.upsert_set(m.key, scope_class, m.tags)
+            row = self._upsert_set(m.key, scope_class, m.tags)
             self._ensure_sets(max(self.directory.num_set_rows, row + 1))
             h = self._set_hash64(str(m.value).encode("utf-8"))
             idx, rank = hll_ops.split_hashes(
@@ -569,6 +659,31 @@ class DeviceWorker:
                 self._flush_pending_sets()
         elif mtype == "status":
             self._host_status(m)
+
+    def _upsert_histo(self, key: MetricKey, scope_class: ScopeClass,
+                      tags: list[str]) -> int:
+        if self._native is not None:
+            # the native directory assigns the row; its metadata is
+            # adopted in batches (every 1,024 new series, and always
+            # before extraction: swap's drain syncs)
+            row = self._native.upsert(key.name, key.type, key.joined_tags,
+                                      int(scope_class))
+            if self._native.pending_new_series >= 1024:
+                self.sync_native_series()
+            return row
+        row, _ = self.directory.upsert_histo(key, scope_class, tags)
+        return row
+
+    def _upsert_set(self, key: MetricKey, scope_class: ScopeClass,
+                    tags: list[str]) -> int:
+        if self._native is not None:
+            row = self._native.upsert(key.name, "set", key.joined_tags,
+                                      int(scope_class))
+            if self._native.pending_new_series >= 1024:
+                self.sync_native_series()
+            return row
+        row, _ = self.directory.upsert_set(key, scope_class, tags)
+        return row
 
     def _should_count_timeseries(self, mtype: str, cls: ScopeClass) -> bool:
         """Forwarding-aware unique-timeseries gating (reference
@@ -587,17 +702,36 @@ class DeviceWorker:
             np.array([fmix64(digest)], dtype=np.uint64), self.hll_precision)
         self._umts[idx[0]] = max(self._umts[idx[0]], rank[0])
 
+    def _sample_timeseries_key(self, name: str, mtype: str, joined: str,
+                               cls: ScopeClass) -> None:
+        """Native-path unique-timeseries sampling, once per new series
+        (the insert is idempotent, so it agrees with per-sample
+        feeding)."""
+        if self._umts is not None and self._should_count_timeseries(mtype,
+                                                                    cls):
+            self._insert_timeseries(metric_digest(name, mtype, joined))
+
     def _host_counter(self, key: MetricKey, scope_class: ScopeClass,
                       tags: list[str], contribution: int) -> None:
         pool = self.scalars.counters
-        row = pool.upsert(key, scope_class, tags, route_info(tags))
+        if self._native is not None:
+            row = self._native.upsert(key.name, "counter", key.joined_tags,
+                                      int(scope_class))
+            self.sync_native_series()
+        else:
+            row = pool.upsert(key, scope_class, tags, route_info(tags))
         pool.values[row] += contribution
         pool.present[row] = True
 
     def _host_gauge(self, key: MetricKey, scope_class: ScopeClass,
                     tags: list[str], value: float) -> None:
         pool = self.scalars.gauges
-        row = pool.upsert(key, scope_class, tags, route_info(tags))
+        if self._native is not None:
+            row = self._native.upsert(key.name, "gauge", key.joined_tags,
+                                      int(scope_class))
+            self.sync_native_series()
+        else:
+            row = pool.upsert(key, scope_class, tags, route_info(tags))
         pool.values[row] = value
         pool.present[row] = True
 
@@ -612,6 +746,185 @@ class DeviceWorker:
                 (m.key, m.tags, ScopeClass.LOCAL, route_info(m.tags)))
             sc.status_values.append(None)
         sc.status_values[row] = (float(m.value), m.message, m.hostname)
+
+    # -- native front-end ---------------------------------------------------
+
+    def attach_native(self) -> bool:
+        """Attach the C++ ingest pipeline (native/dogstatsd.cpp through
+        veneur_tpu_torch/native.py): parsing, tag normalization, row
+        assignment and raw-sample staging leave the Python path. Builds
+        the library at first use and raises if it cannot: the worker
+        never falls back to the Python parser behind its caller's back.
+        Returns True (the reference's signature)."""
+        from veneur_tpu_torch.native import NativeIngest
+
+        self._native = NativeIngest(self.hll_precision,
+                                    set_hash=self.set_hash)
+        if self.stage_depth > 0:
+            self._native.set_stage_depth(self.stage_depth)
+        if self.spill_cap:
+            self._native.set_spill_cap(self.spill_cap)
+        return True
+
+    def ingest_datagram(self, datagram: bytes) -> int:
+        """Native-path ingest of one (possibly multi-line) datagram; drains
+        when the spill or set batch reaches batch_size. Event and
+        service-check lines wait in the context for the caller's
+        drain_other."""
+        n = self._native.ingest(datagram)
+        if (self._native.pending_histo >= self.batch_size
+                or self._native.pending_set >= self.batch_size):
+            self.drain_native()
+        return n
+
+    def _sync_native_series(self) -> None:
+        """Adopt the context's new-series records into the directory and
+        the scalar pools, at the rows the context assigned (in order).
+        Caller holds the context lock."""
+        from veneur_tpu_torch.native import NativeIngest
+
+        ctx = self._native
+        if not ctx.pending_new_series:
+            return
+        cache = self._adopt_cache
+        for pool, row, kind, scope, name, joined in ctx.drain_new_series():
+            ck = (pool, kind, scope, name, joined)
+            meta = cache.get(ck)
+            if meta is None:
+                key = MetricKey(name=name, type=NativeIngest.TYPE_BY_KIND[kind],
+                                joined_tags=joined)
+                tags = joined.split(",") if joined else []
+                meta = RowMeta(key=key, tags=tags,
+                               scope_class=ScopeClass(scope),
+                               sinks=route_info(tags))
+                if len(cache) >= 4_000_000:
+                    # unbounded series churn: drop the cache rather than
+                    # grow without limit
+                    cache.clear()
+                cache[ck] = meta
+            if self.count_unique_timeseries:
+                self._sample_timeseries_key(name, meta.key.type, joined,
+                                            meta.scope_class)
+            if pool == 0:
+                self.directory.histo.adopt_meta(row, meta)
+            elif pool == 1:
+                self.directory.sets.adopt_meta(row, meta)
+            else:
+                scalars = (self.scalars.counters if pool == 2
+                           else self.scalars.gauges)
+                scalars.adopt_row(row, meta.key, meta.tags,
+                                  meta.scope_class, meta.sinks)
+
+    def sync_native_series(self) -> None:
+        """Adopt pending new-series registrations mid-epoch, so swap only
+        adopts the tail. Caller holds the worker lock; takes the context
+        lock itself."""
+        if self._native is None:
+            return
+        self._native.lock()
+        try:
+            self._sync_native_series()
+        finally:
+            self._native.unlock()
+
+    def native_series_pending(self) -> bool:
+        """Lock-free probe for undrained new-series records."""
+        return self._native is not None and bool(
+            self._native.pending_new_series)
+
+    def drain_native(self) -> None:
+        """Move everything pending in the native pipeline into device and
+        host state. The context lock is held across the raw drain, so a
+        reader thread's commit cannot land between its calls; the device
+        work runs after it is released."""
+        if self._native is None:
+            return
+        self._native.lock()
+        try:
+            raw = self._drain_native_raw()
+        finally:
+            self._native.unlock()
+        self._apply_native_raw(raw)
+
+    def _drain_native_raw(self, detach_stage: bool = False):
+        """Pull the raw sample batches and bookkeeping out of the context.
+        Caller holds the context lock. Samples drain before the series
+        sync: a sample's series record is committed with or before it, so
+        no drained sample lacks its row's metadata. ``detach_stage``
+        (swap only) also detaches the staging plane and the event lines,
+        in the same critical section as the epoch's reset."""
+        ctx = self._native
+        errs = int(ctx.errors)
+        dropped = int(ctx.overload_dropped)
+        self.parse_errors += errs - self._native_errs_seen
+        self._native_errs_seen = errs
+        delta = dropped - self._native_drop_seen
+        self._native_drop_seen = dropped
+        self.overload_dropped += delta
+        self.overload_dropped_total += delta
+        n = ctx.pending_histo
+        h = ctx.drain_histo(n) if n else None
+        n = ctx.pending_set
+        s = ctx.drain_set(n) if n else None
+        c = ctx.drain_counter(ctx.pending_counter)
+        g = ctx.drain_gauge(ctx.pending_gauge)
+        st, others = None, []
+        if detach_stage:
+            st = ctx.detach_stage()
+            others = ctx.drain_other()
+        self._sync_native_series()
+        return h, s, c, g, st, others
+
+    def _apply_native_raw(self, raw, defer_histo_spill: bool = False):
+        """Apply drained batches to the pools (no context lock held). With
+        staging on, the histogram batch is hot-row spill: folded directly
+        in bounded chunks, or with ``defer_histo_spill`` (swap) returned
+        for extract_snapshot to fold; None when nothing was deferred."""
+        h, s, c, g, _st, _others = raw
+        deferred = None
+        if h is not None and len(h[0]):
+            self._ensure_histo(self.directory.num_histo_rows)
+            if self.stage_depth > 0:
+                if defer_histo_spill:
+                    deferred = h
+                else:
+                    rows, vals, wts = h
+                    for i in range(0, len(rows), _FOLD_CHUNK):
+                        self._fold_batch_direct(rows[i:i + _FOLD_CHUNK],
+                                                vals[i:i + _FOLD_CHUNK],
+                                                wts[i:i + _FOLD_CHUNK])
+            else:
+                self._device_histo_step(*h)
+        if s is not None and len(s[0]):
+            self._ensure_sets(self.directory.num_set_rows)
+            self._device_set_step(*s)
+        rows, contribs = c
+        if len(rows):
+            pool = self.scalars.counters
+            np.add.at(pool.values, rows, contribs)
+            pool.present[rows] = True
+        rows, vals = g
+        if len(rows):
+            pool = self.scalars.gauges
+            pool.values[rows] = vals  # in order: the last write wins
+            pool.present[rows] = True
+        return deferred
+
+    def _shed_spill_budget(self, spill_histo):
+        """Bound the spill-fold work a flush inherits: past what the
+        measured fold rate absorbs in ``fold_budget_s`` the oldest samples
+        shed (the newest kept), counted as overload drops."""
+        if spill_histo is None:
+            return None
+        budget = max(_FOLD_CHUNK,
+                     int(self._fold_rate_ewma * self.fold_budget_s))
+        total = len(spill_histo[0])
+        if total <= budget:
+            return spill_histo
+        shed = total - budget
+        self.overload_dropped += shed
+        self.overload_dropped_total += shed
+        return tuple(a[-budget:] for a in spill_histo)
 
     # -- pending-batch device steps ----------------------------------------
 
@@ -636,24 +949,13 @@ class DeviceWorker:
     def _device_set_step(self, rows: np.ndarray, idx: np.ndarray,
                          rank: np.ndarray) -> None:
         """One batch of (set row, register, rank) updates: into the
-        staged store, or padded to a power of two (at least 256; padding
-        is the scratch row with rank 0, a no-op max) and scattered into
-        the dense pool in place."""
+        staged store, or scattered into the dense pool in place (on the
+        card: one packed upload and one kernel launch, no padding)."""
         if self._staged_sets is not None:
             self._staged_sets.insert(rows, idx, rank)
             return
-        regs = self._sets
-        assert regs is not None
-        n = _next_pow2(len(rows), 256)
-        prow = np.full(n, regs.shape[0] - 1, dtype=np.int32)
-        prow[: len(rows)] = rows
-        pidx = np.zeros(n, dtype=np.int32)
-        pidx[: len(rows)] = idx
-        prank = np.zeros(n, dtype=np.int8)
-        prank[: len(rows)] = rank
-        dev = self.device
-        hll_ops.insert_batch(regs, _to_device(prow, dev),
-                             _to_device(pidx, dev), _to_device(prank, dev))
+        assert self._sets is not None
+        self._set_inserter.insert(self._sets, rows, idx, rank)
 
     def _ensure_stage(self) -> None:
         """Size the host staging planes to the digest pool's row count."""
@@ -735,13 +1037,7 @@ class DeviceWorker:
         spill path for rows whose staging plane is full (in place)."""
         h = self._histo
         assert h is not None
-        active, lids, v, w = self._pad_spill_batch(
-            rows, vals, wts, h.num_rows - 1)
-        dev = self.device
-        h.set_fields(_histo_ingest_step(
-            *h.fields(), _to_device(active, dev), _to_device(lids, dev),
-            _to_device(v, dev), _to_device(w, dev),
-            compression=self.compression))
+        h.set_fields(self._fold_spill_chunk(h.fields(), rows, vals, wts))
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -759,40 +1055,127 @@ class DeviceWorker:
         map-swap analog of worker.go:498-517). The new epoch starts with
         no pool, so nothing of the swapped epoch is shared with it."""
         self.processed_total += self.processed
+        native_stage = None
+        spill_histo = None
+        if self._native is not None:
+            # drain, detach the staging plane and close the native epoch
+            # under one lock hold: a routed commit could otherwise land
+            # between the last drain and the reset and die with the epoch
+            self._native.lock()
+            try:
+                raw = self._drain_native_raw(detach_stage=True)
+                native_stage = raw[4]
+                # event and service-check lines caught at epoch close; the
+                # server parses them into the new epoch
+                self.pending_other_lines = raw[5]
+                self._native.reset()
+                self._native_errs_seen = 0
+                self._native_proc_seen = 0
+                self._native_drop_seen = 0
+                self._native_epoch_closed = True
+            finally:
+                self._native.unlock()
+            spill_histo = self._shed_spill_budget(
+                self._apply_native_raw(raw, defer_histo_spill=True))
+            if native_stage is not None:
+                # every sample may be staged: the pool must exist for the
+                # fold to land in
+                self._ensure_histo(self.directory.num_histo_rows)
         self._flush_pending_histos()
         self._flush_pending_sets()
-        staged_histo = None
+        staged_histo = []
         if self._stage_count is not None and self._stage_count.any():
             # hand the host staging plane to the closed epoch; the fold
             # runs in extract_snapshot
             self._ensure_stage()  # pool may have grown since staging
-            staged_histo = [StagedPlane(self._stage_vals, self._stage_wts)]
+            staged_histo.append(StagedPlane(self._stage_vals,
+                                            self._stage_wts))
+        if native_stage is not None:
+            sv, sw, counts, unit, free = native_stage
+            # unit weights (no sampled metric this epoch): the weights
+            # plane is rebuilt from the counts, not uploaded
+            staged_histo.append(
+                StagedPlane(sv, None if unit else sw, counts, free))
         swapped = SwappedEpoch(
             directory=self.directory, scalars=self.scalars,
             histo=self._histo, sets=self._sets,
             staged_sets=self._staged_sets, umts=self._umts,
-            mesh_out=None, staged_histo=staged_histo)
+            mesh_out=None, staged_histo=staged_histo or None,
+            spill_histo=spill_histo)
         self.processed = 0
         self._reset_epoch()
         return swapped
 
     def _fold_one_plane(self, fields: tuple, pending: list, s_eff: int
                         ) -> tuple:
-        """Upload pending[0] (a dense host plane), fold it into the digest
-        fields, and pop it."""
+        """Upload pending[0], release its native memory, fold it into the
+        digest fields, and pop it. A dense Python plane uploads as it is;
+        a native plane is compacted on the host first (the filled slots,
+        row-major, and the per-row counts: O(samples) bytes where the
+        dense plane is O(S·B)) and rebuilt on the device by
+        ``_expand_flat_planes``."""
         plane: StagedPlane = pending[0]
         dev = self.device
-        svj = _to_device(plane.vals[:s_eff], dev)
-        swj = _to_device(plane.wts[:s_eff], dev)
-        if svj.shape[0] < s_eff:
-            pad = torch.zeros((s_eff - svj.shape[0], svj.shape[1]),
-                              dtype=torch.float32, device=dev)
-            svj = torch.cat([svj, pad])
-            swj = torch.cat([swj, pad])
+        if plane.free is not None:
+            B = plane.vals.shape[1]
+            rows_avail = min(plane.vals.shape[0], s_eff)
+            counts_np = np.minimum(plane.counts[:rows_avail],
+                                   B).astype(np.int32)
+            mask = (np.arange(B, dtype=np.int32)[None, :]
+                    < counts_np[:, None])
+            flat_v = plane.vals[:rows_avail][mask]  # copies out of C++
+            if rows_avail < s_eff:
+                # the native plane grows on its own pow2 schedule and may
+                # trail the pool's; rows past its end are empty
+                counts_np = np.pad(counts_np, (0, s_eff - rows_avail))
+            unit = plane.wts is None
+            flat_w = None if unit else plane.wts[:rows_avail][mask]
+            n_pad = _next_pow2(max(len(flat_v), 1), 1024)
+            fv = np.zeros(n_pad, np.float32)
+            fv[:len(flat_v)] = flat_v
+            fvj = _to_device(fv, dev)
+            cj = _to_device(counts_np, dev)
+            nbytes = fv.nbytes + counts_np.nbytes
+            if unit:
+                fwj = fvj  # ignored under unit=True
+            else:
+                fw = np.zeros(n_pad, np.float32)
+                fw[:len(flat_w)] = flat_w
+                fwj = _to_device(fw, dev)
+                nbytes += fw.nbytes
+            self.last_plane_upload_bytes += nbytes
+            # fv, fw and counts_np are copies: nothing uploaded aliases
+            # the C++ plane, so it can go now; the host copies are
+            # re-staged in its place (free None: never freed twice)
+            plane.free()
+            pending[0] = StagedPlane(flat_v, flat_w, counts_np, None)
+            svj, swj = _expand_flat_planes(fvj, fwj, cj, B, unit)
+        else:
+            svj = _to_device(plane.vals[:s_eff], dev)
+            swj = _to_device(plane.wts[:s_eff], dev)
+            self.last_plane_upload_bytes += (svj.numel() + swj.numel()) * 4
+            if svj.shape[0] < s_eff:
+                pad = torch.zeros((s_eff - svj.shape[0], svj.shape[1]),
+                                  dtype=torch.float32, device=dev)
+                svj = torch.cat([svj, pad])
+                swj = torch.cat([swj, pad])
         fields = _histo_fold_staged(*fields, svj, swj,
                                     compression=self.compression)
         pending.pop(0)
         return fields
+
+    def _fold_spill_chunk(self, fields: tuple, rows: np.ndarray,
+                          vals: np.ndarray, wts: np.ndarray) -> tuple:
+        """Fold one spill batch into the full-pool ``fields`` (the live
+        pool's or a swapped epoch's; the top row is the padding
+        scratch)."""
+        active, lids, v, w = self._pad_spill_batch(
+            rows, vals, wts, fields[0].shape[0] - 1)
+        dev = self.device
+        return _histo_ingest_step(
+            *fields, _to_device(active, dev), _to_device(lids, dev),
+            _to_device(v, dev), _to_device(w, dev),
+            compression=self.compression)
 
     def extract_snapshot(self, swapped: SwappedEpoch,
                          quantiles: np.ndarray,
@@ -804,10 +1187,24 @@ class DeviceWorker:
                              unique_timeseries_registers=swapped.umts)
         pending = list(swapped.staged_histo or ())
         swapped.staged_histo = None
+        # the deferred spill backlog is taken whatever happens below: with
+        # no pool to fold into, its samples are counted as shed
+        spill = swapped.spill_histo
+        swapped.spill_histo = None
         phases: dict[str, float] = {}
+        self.last_plane_upload_bytes = 0
         if swapped.histo is not None and swapped.directory.num_histo_rows:
-            self._extract_histo(snap, swapped.histo, pending, quantiles,
-                                phases)
+            try:
+                self._extract_histo(snap, swapped.histo, pending, spill,
+                                    quantiles, phases)
+            finally:
+                # an upload or fold failure must not leak the C++ planes
+                _free_staged_planes(pending)
+        else:
+            _free_staged_planes(pending)
+            if spill is not None and len(spill[0]):
+                self.overload_dropped += len(spill[0])
+                self.overload_dropped_total += len(spill[0])
         if swapped.directory.num_set_rows:
             t0 = time.perf_counter()
             self._extract_sets(snap, swapped, phases)
@@ -816,15 +1213,30 @@ class DeviceWorker:
         return snap
 
     def _extract_histo(self, snap: FlushSnapshot, histo: HistoDeviceState,
-                       pending: list, quantiles: np.ndarray,
-                       phases: dict) -> None:
+                       pending: list, spill: Optional[tuple],
+                       quantiles: np.ndarray, phases: dict) -> None:
         n = snap.directory.num_histo_rows
+        full = histo.fields()
+        t0 = time.perf_counter()
+        if spill is not None and len(spill[0]):
+            # the hot-row spill backlog swap deferred, folded in bounded
+            # chunks at the full pool's shape; the measured rate sizes the
+            # next swap's shed budget
+            sp_rows, sp_vals, sp_wts = spill
+            for i in range(0, len(sp_rows), _FOLD_CHUNK):
+                full = self._fold_spill_chunk(
+                    full, sp_rows[i:i + _FOLD_CHUNK],
+                    sp_vals[i:i + _FOLD_CHUNK], sp_wts[i:i + _FOLD_CHUNK])
+            self._sync()
+            t_fold = time.perf_counter() - t0
+            if t_fold > 0.01:
+                self._fold_rate_ewma = (0.5 * self._fold_rate_ewma
+                                        + 0.5 * len(sp_rows) / t_fold)
         # fold + extract over the used rows only (pow2-bucketed, as the
         # reference does): the pool is up to 2x oversized from growth
         s_eff = min(histo.num_rows, _next_pow2(n, 1024))
         fields = tuple(a if a.shape[0] == s_eff else a[:s_eff]
-                       for a in histo.fields())
-        t0 = time.perf_counter()
+                       for a in full)
         while pending:
             fields = self._fold_one_plane(fields, pending, s_eff)
         self._sync()

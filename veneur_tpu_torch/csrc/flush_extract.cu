@@ -31,12 +31,13 @@
 //
 // Denormals: XLA on the CPU runs with denormals-are-zero and flush-to-zero,
 // so an f32 denormal that arithmetic or a comparison reads counts as a zero
-// of its sign, and a denormal result is written as one; a copy passes the
-// bits. The kernel flushes each value where its arithmetic loads it (one
-// compare and select, in registers, no extra pass over memory) and each
-// arithmetic output column before it is stored; dmin, dmax, lmin and lmax
-// leave as loaded. A denormal arising inside the arithmetic from normal
-// inputs is not flushed, as in the plain version (ops/extract_kernel.py).
+// of its sign, and every denormal result, inside the arithmetic as in the
+// outputs, is written as one; a copy passes the bits. This source is built
+// with -ftz=true (ops/nvcc.py EXTRACT_FLAGS), which puts .ftz on every f32
+// add, mul, div, setp, min and max, and that is exactly this rule: no
+// select is needed at any load or store. dmin, dmax, lmin and lmax leave as
+// loaded (moves keep their bits), as in the plain version
+// (ops/extract_kernel.py, ops/tdigest.py).
 //
 // Bound: memory. Per row it reads 2 x 128 x 4 B of centroids plus 12
 // scalars and writes P + 10 floats; at S = 1,048,576 and P = 3 that is
@@ -166,11 +167,6 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src,
       "[%0], [%1], %2, [%3];" ::"r"(smem_addr(dst)),
       "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
-}
-
-// f32 denormal -> zero of the same sign; any other value as is
-__device__ __forceinline__ float ftz(float x) {
-  return fabsf(x) < 1.17549435e-38f ? copysignf(0.0f, x) : x;
 }
 
 // jnp.maximum(x, 1e-30): NaN propagates
@@ -320,10 +316,10 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
     for (int k = 0; k < E / 4; ++k) {
       const float4 t = reinterpret_cast<const float4*>(wrow + gl * E)[k];
-      w[4 * k] = ftz(t.x);
-      w[4 * k + 1] = ftz(t.y);
-      w[4 * k + 2] = ftz(t.z);
-      w[4 * k + 3] = ftz(t.w);
+      w[4 * k] = t.x;
+      w[4 * k + 1] = t.y;
+      w[4 * k + 2] = t.z;
+      w[4 * k + 3] = t.w;
     }
 
     // number of nonempty slots, on every lane of the row
@@ -343,7 +339,7 @@ __global__ void __launch_bounds__(kThreads)
 #pragma unroll
       for (int k = 0; k < E / 4; ++k) {
         const float4 t = reinterpret_cast<const float4*>(mrow + gl * E)[k];
-        const float m4[4] = {ftz(t.x), ftz(t.y), ftz(t.z), ftz(t.w)};
+        const float m4[4] = {t.x, t.y, t.z, t.w};
 #pragma unroll
         for (int i = 0; i < 4; ++i) {
           const float wi = w[4 * k + i];
@@ -366,20 +362,20 @@ __global__ void __launch_bounds__(kThreads)
       reinterpret_cast<float4*>(crow + gl * E)[k] =
           make_float4(w[4 * k], w[4 * k + 1], w[4 * k + 2], w[4 * k + 3]);
 
-    const float rmin = ftz(__shfl_sync(kFull, sc[0], g));
-    const float rmax = ftz(__shfl_sync(kFull, sc[1], g));
+    const float rmin = __shfl_sync(kFull, sc[0], g);
+    const float rmax = __shfl_sync(kFull, sc[1], g);
     float* orow = outs + g * ncol;
     if (gl == 0) {
       orow[P + 0] = sc[0];
       orow[P + 1] = sc[1];
-      orow[P + 2] = ftz(vs);
-      orow[P + 3] = ftz(vc);
-      orow[P + 4] = ftz(ftz(sc[2]) + ftz(sc[3]));
+      orow[P + 2] = vs;
+      orow[P + 3] = vc;
+      orow[P + 4] = sc[2] + sc[3];
       orow[P + 5] = sc[4];
       orow[P + 6] = sc[5];
-      orow[P + 7] = ftz(ftz(sc[6]) + ftz(sc[7]));
-      orow[P + 8] = ftz(ftz(sc[8]) + ftz(sc[9]));
-      orow[P + 9] = ftz(ftz(sc[10]) + ftz(sc[11]));
+      orow[P + 7] = sc[6] + sc[7];
+      orow[P + 8] = sc[8] + sc[9];
+      orow[P + 9] = sc[10] + sc[11];
     }
     __syncwarp();
 
@@ -387,7 +383,7 @@ __global__ void __launch_bounds__(kThreads)
     const bool live = total > 0.0f && count > 0;
     const int last = count - 1;
     for (int j = gl; j < P; j += L) {
-      float target = ftz(__ldg(f.qs + j)) * total;
+      float target = __ldg(f.qs + j) * total;
       target = (target == target) ? target : 0.0f;
       int lo = 0, hi = kCap;
 #pragma unroll
@@ -401,12 +397,12 @@ __global__ void __launch_bounds__(kThreads)
         }
       }
       const int idx = lo < kCap - 1 ? lo : kCap - 1;
-      const float w_at = ftz(wrow[idx]);
+      const float w_at = wrow[idx];
       const float cw_at = crow[idx];
-      const float m_at = ftz(mrow[idx]);
+      const float m_at = mrow[idx];
       // ub = midpoint to the next mean (+inf past the end), dmax at the
       // last nonempty slot; lb = the previous slot's ub, dmin at slot 0
-      const float m_next = idx < kCap - 1 ? ftz(mrow[idx + 1]) : inf;
+      const float m_next = idx < kCap - 1 ? mrow[idx + 1] : inf;
       const float ub_at = idx == last ? rmax : (m_at + m_next) / 2.0f;
       float lb_at;
       if (idx == 0)
@@ -414,13 +410,13 @@ __global__ void __launch_bounds__(kThreads)
       else if (idx - 1 == last)
         lb_at = rmax;
       else
-        lb_at = (ftz(mrow[idx - 1]) + m_at) / 2.0f;
+        lb_at = (mrow[idx - 1] + m_at) / 2.0f;
       const float w_before = cw_at - w_at;
       const float proportion = (target - w_before) / max_tiny(w_at);
       float step = proportion * (ub_at - lb_at);
       step = (step == step) ? step : 0.0f;
       const float q = lb_at + step;
-      orow[j] = live ? ftz(q) : qnan;
+      orow[j] = live ? q : qnan;
     }
     __syncwarp();
 

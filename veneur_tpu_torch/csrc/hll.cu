@@ -8,15 +8,39 @@
 // adjacent-pair halving tree, zero count, linear counting). Neither was a
 // Pallas kernel; both are the set path's only device work.
 //
-// hll_insert. One thread per update: flat = row * m + idx in 64 bits, the
-// update dropped when flat is outside [0, S * m) (the reference's
-// mode="drop"), else the byte raised to max(old, rank) as a signed int8 by
-// an atomicCAS loop on the aligned 32-bit word that holds it (the pool is a
-// multiple of 16 bytes for every p >= 4). Integer max is order-independent,
-// so the result is the plain version's bit for bit whatever order the
-// updates land in. Bound: the N updates' 9 bytes each and one read and
-// write of each register they touch; a 16,384-update batch is a few
-// microseconds of launch latency on this card.
+// hll_insert. Each update is one packed 8-byte record, int32 row and
+// uint32 register | (uint8) rank << 24 (register < 2^24; p <= 18 needs
+// 18 bits). flat = row * m + register in 64 bits; a flat slot in
+// [-S * m, -1] wraps once to flat + S * m, as the reference's device
+// program indexes (jnp), and every other slot outside [0, S * m) is
+// dropped (its mode="drop"). The byte is raised to max(old, rank) as a
+// signed int8 (a rank-0 update still lifts a negative register to 0).
+//
+// Bound: at the main path's 16,384 updates the kernel moves 8 B per
+// record and a read and a write of each register it touches, about
+// 0.16 MB, which the card's memory moves in 0.05 us; what it costs is
+// latency: the launch, the record load, then a dependent load and an
+// atomicCAS on a random word of a pool far larger than the 50 MB L2.
+// So the design cuts the number and the depth of those round trips:
+//   * One record load per update (8 B, coalesced), not three.
+//   * Warp aggregation. Lanes whose updates fall in the same 32-bit word
+//     find each other with __match_any_sync. Each lane builds a word with
+//     its rank in its byte and 0x80 (-128, the identity of signed max) in
+//     the other three; the lowest lane of each group (its leader) takes
+//     the others' words by shuffles and combines them with __vmaxs4, the
+//     per-byte signed max. One leader per distinct word then loads the
+//     word and runs the CAS loop on __vmaxs4(old, mine), skipping it when
+//     that equals old. Registers only grow, so even a stale old makes the
+//     skip safe.
+//   * One update a thread, every block queued. Several updates per
+//     thread with their word loads issued before any CAS, and first
+//     attempts as CASes that guess a zero word, were built and measured
+//     slower on the H100 at 1,048,576 updates and level at 16,384
+//     (tools/port_probe_hll.py, PERF.md), so neither is kept.
+//   * 128-thread blocks, so 16,384 updates spread over 128 blocks, one
+//     per SM, where 256-thread blocks left half the SMs idle.
+// Signed max is order-free and associative, so whatever order the
+// updates land in the pool is bytewise the plain version's.
 //
 // hll_estimate. Per row: inv_sum = the sum of 2^-register in the
 // reference's association (exactnum.tsum: adjacent pairs, then pairs of
@@ -56,32 +80,65 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kInsertThreads = 128;
 constexpr unsigned kFull = 0xffffffffu;
 
-__global__ void __launch_bounds__(kThreads)
-    hll_insert_kernel(unsigned char* regs, const int* rows, const int* idx,
-                      const signed char* rank, long long n, long long total,
-                      int m) {
-  const long long step = (long long)gridDim.x * blockDim.x;
-  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += step) {
-    const long long flat = (long long)__ldg(rows + i) * m + __ldg(idx + i);
-    if (flat < 0 || flat >= total) continue;
-    const int r = rank[i];
-    unsigned int* word = reinterpret_cast<unsigned int*>(regs + (flat & ~3LL));
-    const int shift = (int)(flat & 3) * 8;
-    unsigned int old = *reinterpret_cast<volatile unsigned int*>(word);
-    for (;;) {
-      const int cur = (int)(signed char)((old >> shift) & 0xffu);
-      if (cur >= r) break;
-      const unsigned int want = (old & ~(0xffu << shift)) |
-                                ((unsigned int)(unsigned char)r << shift);
-      const unsigned int seen = atomicCAS(word, old, want);
-      if (seen == old) break;
-      old = seen;
-    }
+// one record: its word index and its word (the rank in its byte, 0x80 in
+// the other three); false when the update is dropped
+__device__ __forceinline__ bool decode(const int2 rec, long long total,
+                                       int m, long long& word,
+                                       unsigned& mine) {
+  const unsigned hi = (unsigned)rec.y;
+  long long flat = (long long)rec.x * m + (long long)(hi & 0xffffffu);
+  if (flat < 0) flat += total;
+  if (flat < 0 || flat >= total) return false;
+  const int sh = (int)(flat & 3) * 8;
+  word = flat >> 2;
+  mine = (0x80808080u & ~(0xffu << sh)) | ((hi >> 24) << sh);
+  return true;
+}
+
+__global__ void __launch_bounds__(kInsertThreads)
+    hll_insert_kernel(unsigned* words, const int2* recs, long long n,
+                      long long total, int m) {
+  const long long i = (long long)blockIdx.x * kInsertThreads + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  // a whole warp past n leaves together; the warp that straddles n keeps
+  // its idle lanes for the full-mask collectives below
+  if (i - lane >= n) return;
+  unsigned mine = 0x80808080u;
+  long long word = 0;
+  const bool valid = i < n && decode(__ldg(recs + i), total, m, word, mine);
+  // a dropped update keys on a value no word index takes, distinct per
+  // lane, so it matches no one
+  const unsigned long long key =
+      valid ? (unsigned long long)word : ~0ull - (unsigned)lane;
+  const unsigned peers = __match_any_sync(kFull, key);
+  // the leader (lowest lane) takes each other peer's word in turn; the
+  // warp runs as many rounds as its largest group needs
+  unsigned agg = mine;
+  unsigned rest = peers & (peers - 1);
+  const int rounds = (int)__reduce_max_sync(kFull, __popc(peers)) - 1;
+  for (int t = 0; t < rounds; ++t) {
+    const int src = rest ? __ffs(rest) - 1 : lane;
+    rest &= rest - 1;
+    agg = __vmaxs4(agg, __shfl_sync(kFull, mine, src));
+  }
+  if (!valid || lane != __ffs(peers) - 1) return;
+  // one leader per distinct word: load it and, unless max leaves it as
+  // it is, CAS until the word holds the max
+  unsigned cur = *reinterpret_cast<volatile unsigned*>(words + word);
+  for (;;) {
+    const unsigned want = __vmaxs4(cur, agg);
+    if (want == cur) break;
+    const unsigned seen = atomicCAS(words + word, cur, want);
+    if (seen == cur) break;
+    cur = seen;
   }
 }
+
+// an empty kernel: the launch floor the insert is measured against
+__global__ void hll_noop_kernel() {}
 
 // adjacent-pair halving tree over N values (N a power of two), unrolled
 // at compile time so the values stay in registers
@@ -234,21 +291,31 @@ cudaError_t launch_estimate(const void* regs, const void* ept65,
 
 }  // namespace
 
-// Scatter-max N updates (int32 rows, int32 register indices, int8 ranks)
-// into the int8 pool of `total` = S * m bytes on `stream`; returns
-// cudaGetLastError(). The wrapper has checked types, contiguity, the
-// pool's 16-byte alignment and m = 2^p, 4 <= p <= 18.
-extern "C" int hll_insert_launch(void* regs, const void* rows,
-                                 const void* idx, const void* rank,
-                                 long long n, long long total, int m,
-                                 int grid, void* stream) {
+// Scatter-max the n packed records (int2: row, register | rank << 24)
+// into the int8 pool of `total` = S * m bytes on `stream`, one update a
+// thread; returns cudaGetLastError(). The wrapper has checked types,
+// contiguity, the pool's 16-byte alignment, the records' 8-byte
+// alignment and m = 2^p, 4 <= p <= 18.
+extern "C" int hll_insert_launch(void* regs, const void* recs, long long n,
+                                 long long total, int m, void* stream) {
   if (n <= 0) return 0;
-  if (grid < 1 || m < 16 || (m & (m - 1))) return (int)cudaErrorInvalidValue;
-  hll_insert_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (unsigned char*)regs, (const int*)rows, (const int*)idx,
-      (const signed char*)rank, n, total, m);
+  if (m < 16 || (m & (m - 1))) return (int)cudaErrorInvalidValue;
+  const long long blocks = (n + kInsertThreads - 1) / kInsertThreads;
+  if (blocks >= (1LL << 31)) return (int)cudaErrorInvalidValue;
+  hll_insert_kernel<<<(unsigned)blocks, kInsertThreads, 0,
+                      (cudaStream_t)stream>>>(
+      (unsigned*)regs, (const int2*)recs, n, total, m);
   return (int)cudaGetLastError();
 }
+
+// The empty kernel at `grid` blocks of the insert's block size.
+extern "C" int hll_noop_launch(int grid, void* stream) {
+  if (grid < 1) return (int)cudaErrorInvalidValue;
+  hll_noop_kernel<<<grid, kInsertThreads, 0, (cudaStream_t)stream>>>();
+  return (int)cudaGetLastError();
+}
+
+extern "C" int hll_insert_threads_per_block() { return kInsertThreads; }
 
 // Estimate every row of the int8[S, 2^p] pool into f32[S] on `stream`;
 // `ept65` is f32[65] (exp2(-r)), `linear` f32[2^p + 1] (m ln(m / z)), both

@@ -1,0 +1,447 @@
+"""ctypes binding for the native C++ ingest pipeline (native/dogstatsd.cpp).
+
+The port's own copy of the parts of veneur_tpu/native.py that DogStatsD
+ingest needs: the library loader, ``NativeIngest`` (one epoch's parser,
+series directory, raw-sample staging plane and drain buffers in C++),
+``NativeRouter`` (lines committed to shard digest % N, and C++ reader
+threads on bound UDP sockets), ``available`` and ``source_hash``. The
+emit, codec, forward, SSF, reader-shard and loadgen entry points wait for
+their slices.
+
+The library is built from the sources in ``native/`` at first use, by
+g++ with the flags of native/Makefile, into ``build/native/`` at the
+repository root (a directory .gitignore lists), under a name hashed from
+the sources, the flags and the host's CPU (the flags hold -march=native).
+It never runs ``make`` in ``native/``, whose library belongs to the JAX
+package. A failed build raises with the compiler's message: nothing here
+falls back to the Python parser.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import logging
+import os
+import platform
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import numpy as np
+
+log = logging.getLogger("veneur_tpu_torch.native")
+
+ROOT = Path(__file__).resolve().parents[1]
+NATIVE_DIR = ROOT / "native"
+BUILD_DIR = ROOT / "build" / "native"
+# the library's sources, in native/Makefile's order (its source stamp is
+# the sha256 of their concatenation)
+SOURCES = ("dogstatsd.cpp", "emit.cpp", "forward_codec.cpp")
+# native/Makefile's CXXFLAGS, the shared-object link and zlib
+CXXFLAGS = ("-O3", "-std=c++17", "-fPIC", "-Wall", "-Wextra",
+            "-march=native", "-pthread")
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def source_stamp() -> str:
+    """The Makefile's SRC_HASH: the first 16 hex digits of the sha256 of
+    the sources concatenated; the built library reports it back through
+    ``source_hash``."""
+    h = hashlib.sha256()
+    for name in SOURCES:
+        h.update((NATIVE_DIR / name).read_bytes())
+    return h.hexdigest()[:16]
+
+
+def _cpu_model() -> str:
+    try:
+        with open("/proc/cpuinfo") as f:
+            for line in f:
+                if line.startswith(("model name", "flags")):
+                    return line
+    except OSError:
+        pass
+    return platform.processor()
+
+
+def library_path() -> Path:
+    """Where the library built from this checkout's sources lives."""
+    h = hashlib.sha256(source_stamp().encode())
+    h.update(" ".join(CXXFLAGS).encode())
+    h.update(_cpu_model().encode())
+    return BUILD_DIR / f"libveneur_native-{h.hexdigest()[:12]}.so"
+
+
+def build() -> Path:
+    """Compile native/ with g++ unless this exact build exists; returns
+    the library path. Raises RuntimeError with the compiler's message."""
+    out = library_path()
+    if out.exists():
+        return out
+    cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
+    out.parent.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [cxx, *CXXFLAGS, f'-DVN_SOURCE_HASH="{source_stamp()}"', "-shared",
+           "-o", str(tmp), *(str(NATIVE_DIR / s) for s in SOURCES), "-lz"]
+    try:
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+    except OSError as e:
+        raise RuntimeError(f"native build: {cxx} could not run: {e}") from e
+    if proc.returncode != 0:
+        raise RuntimeError(f"native build failed ({proc.returncode}): "
+                           f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
+    os.replace(tmp, out)
+    return out
+
+
+def load_library() -> ctypes.CDLL:
+    """The ctypes handle of the built library (built on first call)."""
+    global _lib
+    with _lib_lock:
+        if _lib is not None:
+            return _lib
+        lib = ctypes.CDLL(str(build()))
+        c = ctypes
+        vp, ci, ll = c.c_void_p, c.c_int, c.c_longlong
+        lib.vn_source_hash.restype = c.c_char_p
+        lib.vn_source_hash.argtypes = []
+        lib.vn_ctx_new.restype = vp
+        lib.vn_ctx_new.argtypes = [ci]
+        lib.vn_ctx_free.argtypes = [vp]
+        lib.vn_ctx_reset.argtypes = [vp]
+        lib.vn_ctx_set_metro.argtypes = [vp, ci]
+        lib.vn_lock.argtypes = [vp]
+        lib.vn_unlock.argtypes = [vp]
+        lib.vn_ingest.restype = ci
+        lib.vn_ingest.argtypes = [vp, c.c_char_p, ci]
+        lib.vn_ingest_routed.restype = ci
+        lib.vn_ingest_routed.argtypes = [c.POINTER(vp), ci, c.c_char_p, ci]
+        for name in ("vn_pending_histo", "vn_pending_set",
+                     "vn_pending_counter", "vn_pending_gauge",
+                     "vn_pending_new_series"):
+            fn = getattr(lib, name)
+            fn.restype = ci
+            fn.argtypes = [vp]
+        for name in ("vn_processed", "vn_errors", "vn_overload_dropped"):
+            fn = getattr(lib, name)
+            fn.restype = ll
+            fn.argtypes = [vp]
+        lib.vn_set_spill_cap.restype = None
+        lib.vn_set_spill_cap.argtypes = [vp, ll]
+        lib.vn_drain_histo.restype = ci
+        lib.vn_drain_histo.argtypes = [vp, vp, vp, vp, ci]
+        lib.vn_drain_set.restype = ci
+        lib.vn_drain_set.argtypes = [vp, vp, vp, vp, ci]
+        lib.vn_drain_counter.restype = ci
+        lib.vn_drain_counter.argtypes = [vp, vp, vp, ci]
+        lib.vn_drain_gauge.restype = ci
+        lib.vn_drain_gauge.argtypes = [vp, vp, vp, ci]
+        lib.vn_drain_new_series.restype = ci
+        lib.vn_drain_new_series.argtypes = [
+            vp, vp, vp, vp, vp, c.c_char_p, ci, c.POINTER(ci), ci]
+        lib.vn_drain_other.restype = ci
+        lib.vn_drain_other.argtypes = [vp, c.c_char_p, ci]
+        lib.vn_upsert.restype = ci
+        lib.vn_upsert.argtypes = [vp, c.c_char_p, ci, ci, c.c_char_p, ci, ci]
+        lib.vn_set_stage_depth.argtypes = [vp, ci]
+        lib.vn_stage_detach.restype = vp
+        lib.vn_stage_detach.argtypes = [
+            vp, c.POINTER(c.POINTER(c.c_float)),
+            c.POINTER(c.POINTER(c.c_float)),
+            c.POINTER(c.POINTER(c.c_int32)),
+            c.POINTER(c.c_int32), c.POINTER(c.c_int32)]
+        lib.vn_stage_free.argtypes = [vp]
+        lib.vn_stage_unit_wts.restype = ci
+        lib.vn_stage_unit_wts.argtypes = [vp]
+        lib.vn_reader_start2.restype = vp
+        lib.vn_reader_start2.argtypes = [c.POINTER(vp), ci, ci, ci, ci]
+        lib.vn_reader_packets.restype = ll
+        lib.vn_reader_packets.argtypes = [vp]
+        lib.vn_reader_stop.restype = ll
+        lib.vn_reader_stop.argtypes = [vp]
+        _lib = lib
+        return _lib
+
+
+def _ptr(arr: np.ndarray):
+    return arr.ctypes.data_as(ctypes.c_void_p)
+
+
+class NativeIngest:
+    """One epoch-scoped native parser + directory context."""
+
+    KIND_BY_TYPE = {"counter": 0, "gauge": 1, "histogram": 2, "timer": 3,
+                    "set": 4}
+    TYPE_BY_KIND = {v: k for k, v in KIND_BY_TYPE.items()}
+
+    def __init__(self, hll_precision: int = 14,
+                 set_hash: str = "fnv") -> None:
+        lib = load_library()
+        self._lib = lib
+        self._ctx = lib.vn_ctx_new(hll_precision)
+        if not self._ctx:
+            raise RuntimeError("vn_ctx_new failed")
+        if set_hash == "metro":
+            lib.vn_ctx_set_metro(self._ctx, 1)
+        # drain_new_series scratch, allocated once
+        self._ns_pools = np.empty(4096, np.int32)
+        self._ns_rows = np.empty(4096, np.int32)
+        self._ns_kinds = np.empty(4096, np.int32)
+        self._ns_scopes = np.empty(4096, np.int32)
+        self._ns_strcap = 1 << 20
+        self._ns_strbuf = ctypes.create_string_buffer(self._ns_strcap)
+        self._drain_tl = threading.local()
+
+    def __del__(self):
+        if getattr(self, "_ctx", None):
+            self._lib.vn_ctx_free(self._ctx)
+            self._ctx = None
+
+    def reset(self) -> None:
+        self._lib.vn_ctx_reset(self._ctx)
+
+    def lock(self) -> None:
+        """Hold the context's (recursive) lock across a multi-call
+        sequence, excluding routed commits from other threads."""
+        self._lib.vn_lock(self._ctx)
+
+    def unlock(self) -> None:
+        self._lib.vn_unlock(self._ctx)
+
+    def ingest(self, datagram: bytes) -> int:
+        return self._lib.vn_ingest(self._ctx, datagram, len(datagram))
+
+    # pending counts ---------------------------------------------------------
+
+    @property
+    def pending_histo(self) -> int:
+        return self._lib.vn_pending_histo(self._ctx)
+
+    @property
+    def pending_set(self) -> int:
+        return self._lib.vn_pending_set(self._ctx)
+
+    @property
+    def pending_counter(self) -> int:
+        return self._lib.vn_pending_counter(self._ctx)
+
+    @property
+    def pending_gauge(self) -> int:
+        return self._lib.vn_pending_gauge(self._ctx)
+
+    @property
+    def processed(self) -> int:
+        return self._lib.vn_processed(self._ctx)
+
+    @property
+    def errors(self) -> int:
+        return self._lib.vn_errors(self._ctx)
+
+    @property
+    def overload_dropped(self) -> int:
+        """Samples shed at the pending-batch spill caps (overload)."""
+        return int(self._lib.vn_overload_dropped(self._ctx))
+
+    def set_spill_cap(self, cap: int) -> None:
+        """Entries per pending SoA batch before samples shed."""
+        self._lib.vn_set_spill_cap(self._ctx, int(cap))
+
+    # staging plane ----------------------------------------------------------
+
+    def set_stage_depth(self, depth: int) -> None:
+        """Enable the C++ raw-sample staging plane with B slots per
+        histogram row (0 disables); detach_stage() pulls it at flush."""
+        self._lib.vn_set_stage_depth(self._ctx, depth)
+
+    def detach_stage(self):
+        """Detach the staged plane: (vals[rows, depth], wts[rows, depth],
+        counts[rows], unit_wts, free), the arrays aliasing C++ memory
+        owned by the detached plane (call free() once they are copied),
+        or None when nothing is staged. unit_wts: every weight is 1.0, so
+        the weights plane can be rebuilt from the counts. A fresh plane
+        takes the following samples."""
+        c = ctypes
+        pv = c.POINTER(c.c_float)()
+        pw = c.POINTER(c.c_float)()
+        pc = c.POINTER(c.c_int32)()
+        rows = c.c_int32()
+        depth = c.c_int32()
+        handle = self._lib.vn_stage_detach(
+            self._ctx, c.byref(pv), c.byref(pw), c.byref(pc),
+            c.byref(rows), c.byref(depth))
+        if not handle:
+            return None
+        r, d = rows.value, depth.value
+        vals = np.ctypeslib.as_array(pv, shape=(r, d))
+        wts = np.ctypeslib.as_array(pw, shape=(r, d))
+        counts = np.ctypeslib.as_array(pc, shape=(r,))
+        unit = bool(self._lib.vn_stage_unit_wts(handle))
+        lib = self._lib
+
+        def free(_h=handle, _lib=lib):
+            _lib.vn_stage_free(_h)
+
+        return vals, wts, counts, unit, free
+
+    # drains -----------------------------------------------------------------
+
+    def drain_histo(self, cap: int):
+        rows = np.empty(cap, np.int32)
+        vals = np.empty(cap, np.float32)
+        wts = np.empty(cap, np.float32)
+        n = self._lib.vn_drain_histo(
+            self._ctx, _ptr(rows), _ptr(vals), _ptr(wts), cap)
+        return rows[:n], vals[:n], wts[:n]
+
+    def drain_set(self, cap: int):
+        rows = np.empty(cap, np.int32)
+        idx = np.empty(cap, np.int32)
+        rank = np.empty(cap, np.int8)
+        n = self._lib.vn_drain_set(
+            self._ctx, _ptr(rows), _ptr(idx), _ptr(rank), cap)
+        return rows[:n], idx[:n], rank[:n]
+
+    def drain_counter(self, cap: int):
+        rows = np.empty(cap, np.int32)
+        contribs = np.empty(cap, np.float64)
+        n = self._lib.vn_drain_counter(
+            self._ctx, _ptr(rows), _ptr(contribs), cap)
+        return rows[:n], contribs[:n]
+
+    def drain_gauge(self, cap: int):
+        rows = np.empty(cap, np.int32)
+        vals = np.empty(cap, np.float64)
+        n = self._lib.vn_drain_gauge(self._ctx, _ptr(rows), _ptr(vals), cap)
+        return rows[:n], vals[:n]
+
+    @property
+    def pending_new_series(self) -> int:
+        """Count of undrained new-series records (a cheap C call)."""
+        return self._lib.vn_pending_new_series(self._ctx)
+
+    def drain_new_series(self, max_records: int = 4096):
+        """[(pool, row, kind, scope_class, name, joined_tags)]; pool: 0
+        histo, 1 set, 2 counter, 3 gauge; kind: KIND_BY_TYPE's int."""
+        max_records = min(max_records, 4096)
+        strlen = ctypes.c_int(0)
+        out = []
+        while True:
+            n = self._lib.vn_drain_new_series(
+                self._ctx, _ptr(self._ns_pools), _ptr(self._ns_rows),
+                _ptr(self._ns_kinds), _ptr(self._ns_scopes),
+                self._ns_strbuf, self._ns_strcap, ctypes.byref(strlen),
+                max_records)
+            if n == 0:
+                stranded = self._lib.vn_pending_new_series(self._ctx)
+                if stranded:
+                    # one record larger than the 1 MiB scratch cannot
+                    # make progress: drop the drain rather than spin
+                    log.error("new-series record exceeds drain buffer; "
+                              "%d records stranded until reset", stranded)
+                break
+            packed = ctypes.string_at(self._ns_strbuf, strlen.value)
+            for i, rec in enumerate(packed.split(b"\x1e")[:n]):
+                name, _, joined = rec.partition(b"\x1f")
+                out.append((int(self._ns_pools[i]), int(self._ns_rows[i]),
+                            int(self._ns_kinds[i]), int(self._ns_scopes[i]),
+                            name.decode("utf-8", "replace"),
+                            joined.decode("utf-8", "replace")))
+            # n < max_records can mean the string buffer filled mid-batch:
+            # keep draining until the queue reports empty
+            if self._lib.vn_pending_new_series(self._ctx) == 0:
+                break
+        return out
+
+    def upsert(self, name: str, mtype: str, joined_tags: str,
+               scope_class: int) -> int:
+        """Directory upsert for Python-side ingest (shares the row space
+        with parsed traffic). The new-series drain frames records with the
+        \\x1e/\\x1f separators, so those bytes are replaced by '_'."""
+        if "\x1e" in name or "\x1f" in name:
+            name = name.replace("\x1e", "_").replace("\x1f", "_")
+        if "\x1e" in joined_tags or "\x1f" in joined_tags:
+            joined_tags = joined_tags.replace(
+                "\x1e", "_").replace("\x1f", "_")
+        nb = name.encode("utf-8")
+        tb = joined_tags.encode("utf-8")
+        return self._lib.vn_upsert(
+            self._ctx, nb, len(nb), self.KIND_BY_TYPE[mtype], tb, len(tb),
+            scope_class)
+
+    def _drain_buf(self) -> ctypes.Array:
+        """Per-thread 1 MiB drain scratch (the C++ side serializes each
+        cut on the context mutex)."""
+        buf = getattr(self._drain_tl, "buf", None)
+        if buf is None:
+            buf = self._drain_tl.buf = ctypes.create_string_buffer(1 << 20)
+        return buf
+
+    def drain_other(self) -> list[bytes]:
+        """Event and service-check lines the parser handed back for the
+        Python path."""
+        buf = self._drain_buf()
+        out = []
+        while True:
+            # chunks are cut on line boundaries (n < cap does not mean
+            # drained): loop until the buffer reports empty
+            n = self._lib.vn_drain_other(self._ctx, buf, len(buf))
+            if n == 0:
+                break
+            out.extend(ln for ln in buf.raw[:n].split(b"\n") if ln)
+        return out
+
+
+def available() -> bool:
+    """True when the library builds and loads here."""
+    try:
+        load_library()
+    except (RuntimeError, OSError) as e:
+        log.info("native library unavailable: %s", e)
+        return False
+    return True
+
+
+def source_hash() -> str:
+    """The source stamp compiled into the loaded library."""
+    return load_library().vn_source_hash().decode()
+
+
+class NativeRouter:
+    """Ingest over several workers' native contexts: lines are parsed
+    lock-free in C++ and committed to shard digest % N under that shard's
+    own mutex. ctypes releases the GIL, so callers parse in parallel."""
+
+    def __init__(self, contexts: list[NativeIngest]) -> None:
+        if not contexts:
+            raise ValueError("router needs at least one context")
+        self._lib = contexts[0]._lib
+        self._contexts = contexts  # keep alive
+        self._arr = (ctypes.c_void_p * len(contexts))(
+            *[c._ctx for c in contexts])
+        self._n = len(contexts)
+
+    def ingest(self, datagram: bytes) -> int:
+        return self._lib.vn_ingest_routed(
+            self._arr, self._n, datagram, len(datagram))
+
+    def start_reader(self, fd: int, max_len: int, home: int = 0):
+        """Spawn a C++ reader thread on an already-bound datagram fd (the
+        caller keeps the socket object alive; stop_reader joins without
+        closing it). ``home`` picks the shard that takes this reader's
+        events, service checks and parse errors."""
+        h = self._lib.vn_reader_start2(self._arr, self._n, fd, max_len,
+                                       home % self._n)
+        if not h:
+            raise RuntimeError("vn_reader_start failed")
+        return h
+
+    def reader_packets(self, handle) -> int:
+        return int(self._lib.vn_reader_packets(handle))
+
+    def stop_reader(self, handle) -> int:
+        """Join the reader; its final packet count."""
+        return int(self._lib.vn_reader_stop(handle))

@@ -43,21 +43,27 @@ def _shift_right(x: torch.Tensor, k: int, fill) -> torch.Tensor:
     return torch.cat([pad, x[..., :x.shape[-1] - k]], dim=-1)
 
 
-def cumsum(x: torch.Tensor) -> torch.Tensor:
+def cumsum(x: torch.Tensor, flush: bool = False) -> torch.Tensor:
     """Inclusive prefix sum along the last axis as a Hillis-Steele
     doubling scan: ``x + pad(x, shift)[..., :n]`` for shift = 1, 2, 4, ...
-    (the padded lanes add 0.0, as in the reference)."""
+    (the padded lanes add 0.0, as in the reference).
+
+    ``flush`` flushes every step's denormal sums, as XLA on the CPU
+    does. Callers whose values are all of one sign leave it off: a sum of
+    zeros and normal values of one sign is never denormal."""
     n = x.shape[-1]
     shift = 1
     while shift < n:
         x = x + _shift_right(x, min(shift, n), 0)
+        if flush:
+            x = flush_denormals(x)
         shift *= 2
     return x
 
 
-def tsum(x: torch.Tensor) -> torch.Tensor:
+def tsum(x: torch.Tensor, flush: bool = False) -> torch.Tensor:
     """Sum along the last axis as an adjacent-pair halving tree,
-    zero-padded to a power of two."""
+    zero-padded to a power of two; ``flush`` as in ``cumsum``."""
     n = x.shape[-1]
     p = next_pow2(n)
     if p != n:
@@ -66,6 +72,8 @@ def tsum(x: torch.Tensor) -> torch.Tensor:
         x = torch.cat([x, pad], dim=-1)
     while p > 1:
         x = x[..., 0::2] + x[..., 1::2]
+        if flush:
+            x = flush_denormals(x)
         p //= 2
     return x[..., 0]
 
@@ -138,8 +146,9 @@ def flush_denormals(x: torch.Tensor) -> torch.Tensor:
     """f32 denormals → zero of the same sign; every other value as is.
 
     XLA on the CPU runs with denormals-are-zero and flush-to-zero: an
-    arithmetic op or a comparison reads a denormal input as ±0 and writes
-    a denormal result as ±0, while a copy or a select passes the bits
-    through. The port applies this where such an op reads a function's
-    inputs and where it writes the function's outputs."""
+    arithmetic op or a comparison (a sort's included) reads a denormal
+    input as ±0 and writes a denormal result as ±0, while a copy, a
+    gather or a select passes the bits through. The port applies this
+    where such an op reads a function's inputs and to every arithmetic
+    result that can come out denormal."""
     return torch.where(torch.abs(x) < _F32_TINY, x * 0.0, x)

@@ -9,8 +9,9 @@ TPU kernel ``_extract_kernel`` of veneur_tpu/ops/pallas_kernels.py.
 * On a CUDA tensor it launches ``csrc/flush_extract.cu`` (R rows per
   warp fed by a ring of bulk copies; see the source for the design and
   its memory bound) or raises. The library is built with nvcc for sm_90a
-  at first use, into ``build/kernels/`` at the repository root, and
-  loaded with ctypes; ptxas's report of the build is kept beside it.
+  at first use (with ``-ftz=true``, ops/nvcc.py), into
+  ``build/kernels/`` at the repository root, and loaded with ctypes;
+  ptxas's report of the build is kept beside it.
 * On a CPU tensor it runs ``flush_extract_plain``: the same function as
   PyTorch ops (ops/tdigest.quantile, row_sum, row_count and the pack).
 
@@ -57,14 +58,14 @@ variant_launches = {r: 0 for r in VARIANTS}
 def library_path() -> Path:
     """Where the built library lives (named by the source's and flags'
     hash, ops/nvcc.py)."""
-    return nvcc.library_path(_SRC, nvcc.FLAGS)
+    return nvcc.library_path(_SRC, nvcc.EXTRACT_FLAGS)
 
 
 def build() -> Path:
     """Compile csrc/flush_extract.cu with nvcc unless this exact build
     exists; returns the library path. ptxas's report (``-Xptxas -v``)
     goes to the same name with ``.ptxas.txt``."""
-    return nvcc.build(_SRC, nvcc.FLAGS)
+    return nvcc.build(_SRC, nvcc.EXTRACT_FLAGS)
 
 
 def parse_ptxas(text: str) -> dict[int, dict[str, int]]:
@@ -75,7 +76,7 @@ def parse_ptxas(text: str) -> dict[int, dict[str, int]]:
 
 def build_report() -> dict[int, dict[str, int]]:
     """ptxas's report of the current build, per variant R."""
-    return parse_ptxas(nvcc.ptxas_report(_SRC, nvcc.FLAGS))
+    return parse_ptxas(nvcc.ptxas_report(_SRC, nvcc.EXTRACT_FLAGS))
 
 
 def load():
@@ -120,17 +121,15 @@ def histo_flush_extract(means, weights, dmin, dmax, drecip, drecip_c,
     (gather form), tree-summed dsum/dcount, compensated accumulators
     resolved (s + c).
 
-    Denormals as XLA on the CPU treats them: flushed to ±0 where
-    arithmetic or a comparison reads an input and where arithmetic writes
-    an output column; dmin, dmax, lmin and lmax are copied out bit for
-    bit. A denormal that arises inside the arithmetic from normal inputs
-    (a product m·w, a prefix, a midpoint) is not flushed (ROADMAP.md,
-    section 3)."""
+    Denormals as XLA on the CPU treats them: read as ±0 where arithmetic
+    or a comparison reads an input, and flushed to ±0 wherever arithmetic
+    writes one, inside the quantile arithmetic (products, prefixes,
+    midpoints, differences) as in the output columns (ops/tdigest.py);
+    dmin, dmax, lmin and lmax are copied out bit for bit."""
     z = exn.flush_denormals
-    m, w = z(means), z(weights)
-    quantiles = z(td.quantile(m, w, z(dmin), z(dmax), z(qs)))
-    dsum = z(td.row_sum(m, w))
-    dcount = z(td.row_count(w))
+    quantiles = td.quantile(means, weights, dmin, dmax, qs)
+    dsum = td.row_sum(means, weights)
+    dcount = td.row_count(weights)
 
     def resolved(s, c):
         return z(z(s) + z(c))

@@ -3,9 +3,11 @@
 ``csrc/hll.cu`` holds two hand-written CUDA C++ kernels for sm_90a (see
 the source for their design and bounds):
 
-* ``hll_insert`` — the batched scatter-max of (row, register, rank)
-  updates into an int8[S, m] register pool, in place. It replaces
-  ``insert_batch`` of veneur_tpu/ops/hll.py.
+* ``hll_insert`` — the batched scatter-max of packed (row, register,
+  rank) update records (``ops/hll.pack_updates``) into an int8[S, m]
+  register pool, in place. It replaces ``insert_batch`` of
+  veneur_tpu/ops/hll.py. ``noop`` launches an empty kernel at the
+  insert's block size: the launch floor the insert is measured against.
 * ``hll_estimate`` — the per-row cardinality estimate, int8[S, m] →
   f32[S], in the reference's association. It replaces ``estimate`` of
   veneur_tpu/ops/hll.py.
@@ -60,9 +62,11 @@ def load():
         if _lib is None:
             lib = ctypes.CDLL(str(build()))
             vp, ci, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.hll_insert_launch.argtypes = [vp, vp, vp, vp, ll, ll, ci,
-                                              ci, vp]
+            lib.hll_insert_launch.argtypes = [vp, vp, ll, ll, ci, vp]
             lib.hll_insert_launch.restype = ci
+            lib.hll_noop_launch.argtypes = [ci, vp]
+            lib.hll_noop_launch.restype = ci
+            lib.hll_insert_threads_per_block.restype = ci
             lib.hll_estimate_launch.argtypes = [vp, vp, vp, vp, ci, ci,
                                                 ctypes.c_float,
                                                 ctypes.c_float, vp]
@@ -100,34 +104,37 @@ def _check_pool(registers: torch.Tensor) -> int:
     return m
 
 
-def insert(registers: torch.Tensor, rows: torch.Tensor,
-           reg_idx: torch.Tensor, rank: torch.Tensor) -> torch.Tensor:
-    """Launch hll_insert: scatter-max the updates into ``registers`` in
-    place (int32 rows and indices, int8 ranks, all on its card)."""
+def insert(registers: torch.Tensor, recs: torch.Tensor) -> torch.Tensor:
+    """Launch hll_insert: scatter-max the int32[N, 2] records (row,
+    register | rank << 24) into ``registers`` in place, both on one
+    card, one update a thread."""
     m = _check_pool(registers)
-    n = rows.shape[0]
-    for t, dt, name in ((rows, torch.int32, "rows"),
-                        (reg_idx, torch.int32, "reg_idx"),
-                        (rank, torch.int8, "rank")):
-        if t.device != registers.device or t.dtype != dt or t.dim() != 1 \
-                or t.shape[0] != n or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous {dt} vector of "
-                             f"{n} on {registers.device}")
+    if recs.device != registers.device or recs.dtype != torch.int32 \
+            or recs.dim() != 2 or recs.shape[1] != 2 \
+            or not recs.is_contiguous() or recs.data_ptr() % 8:
+        raise ValueError(f"the records must be a contiguous, 8-byte aligned "
+                         f"int32[N, 2] on {registers.device}")
+    n = recs.shape[0]
     if n == 0:
         return registers
     lib = load()
     with torch.cuda.device(registers.device):
-        threads = lib.hll_threads_per_block()
-        sms = torch.cuda.get_device_properties(
-            registers.device).multi_processor_count
-        grid = max(1, min(-(-n // threads), 32 * sms))
         stream = torch.cuda.current_stream(registers.device).cuda_stream
-        rc = lib.hll_insert_launch(
-            registers.data_ptr(), rows.data_ptr(), reg_idx.data_ptr(),
-            rank.data_ptr(), n, registers.numel(), m, grid, stream)
+        rc = lib.hll_insert_launch(registers.data_ptr(), recs.data_ptr(), n,
+                                   registers.numel(), m, stream)
     if rc != 0:
         raise RuntimeError(f"hll_insert launch failed: CUDA error {rc}")
     return registers
+
+
+def noop(grid: int, device: torch.device) -> None:
+    """Launch the empty kernel at ``grid`` blocks of the insert's size."""
+    lib = load()
+    with torch.cuda.device(device):
+        rc = lib.hll_noop_launch(
+            grid, torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"hll_noop launch failed: CUDA error {rc}")
 
 
 def estimate(registers: torch.Tensor, precision: int) -> torch.Tensor:

@@ -23,6 +23,10 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 # contract), no fast math, ptxas's report, a shared object for ctypes
 FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
          "-fmad=false", "-Xptxas", "-v", "-shared", "-Xcompiler", "-fPIC")
+# the flush extract's: f32 add, mul, div, setp, min and max with .ftz,
+# which is what XLA on the CPU does (denormal inputs read as zero,
+# denormal results flushed; moves and selects pass the bits)
+EXTRACT_FLAGS = FLAGS + ("-ftz=true",)
 
 
 def nvcc() -> str:

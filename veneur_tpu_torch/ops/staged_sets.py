@@ -7,7 +7,7 @@ rank) triples; compaction lexsorts by (row, idx) and keeps the max rank
 per pair — exactly the register content, at ~9 bytes per distinct
 register. A row crossing ``promote_entries`` distinct registers replays
 its triples into a dense int8 row on the worker's device through the same
-scatter-max insert (ops/hll.insert_batch, the hll_insert kernel on the
+scatter-max insert (ops/hll.HostInserter, the hll_insert kernel on the
 card); later inserts route straight to the device. Imported full-register
 rows are dense by nature and promote at the next flush.
 
@@ -57,6 +57,7 @@ class StagedSetStore:
         # vectorized row→slot lookup (-1 = sparse); grows with max row
         self._slot_lut = np.full(64, -1, np.int32)
         self._dense: Optional[torch.Tensor] = None  # int8 [slots, m]
+        self._inserter = hll_ops.HostInserter()
         # imported full-register rows max-merge host-side and batch onto
         # the device once per flush
         self._imp_dense: dict[int, np.ndarray] = {}
@@ -117,12 +118,7 @@ class StagedSetStore:
     def _dense_insert(self, slots: np.ndarray, idx: np.ndarray,
                       rank: np.ndarray) -> None:
         assert self._dense is not None
-        dev = self._dense.device
-        hll_ops.insert_batch(
-            self._dense,
-            torch.from_numpy(slots.astype(np.int32)).to(dev),
-            torch.from_numpy(idx.astype(np.int32)).to(dev),
-            torch.from_numpy(rank.astype(np.int8)).to(dev))
+        self._inserter.insert(self._dense, slots, idx, rank)
 
     def _compact(self) -> None:
         self._compact_no_promote()

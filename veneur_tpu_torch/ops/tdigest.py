@@ -12,6 +12,13 @@ order. Sorts are ``torch.sort(..., stable=True)`` (``lax.sort`` is stable;
 tie order decides the bits), and the reference's two-key sort is two
 stable sorts, secondary key first. Scans and sums go through
 ``ops/exactnum.py``.
+
+Denormals as XLA on the CPU treats them (``exactnum.flush_denormals``):
+arithmetic, comparisons and sorts read a denormal input as a zero of its
+sign, every arithmetic result that can come out denormal is flushed, and
+a gather or select passes the raw bits (the batch min and max of
+``add_batch``). Sums of values of one sign need no flush: a sum of zeros
+and normal values of one sign is zero or normal.
 """
 
 from __future__ import annotations
@@ -92,28 +99,32 @@ def _compress_rows(means: torch.Tensor, weights: torch.Tensor,
     Empty candidate slots must have weight 0 (their mean is ignored).
     Output rows are sorted by mean with +inf padding."""
     s, _ = means.shape
-    # 1. sort each row by mean; zero-weight slots keyed +inf sort last
-    sort_keys = torch.where(weights > 0, means, _INF)
+    z = exn.flush_denormals
+    # 1. sort each row by mean; zero-weight slots keyed +inf sort last.
+    #    The sort and every use below read the flushed values
+    weights = z(weights)
+    sort_keys = torch.where(weights > 0, z(means), _INF)
     sorted_means, sorted_w = _stable_sort_pair(sort_keys, weights)
-    # 2. per-row cumulative weight and left-edge quantile
+    # 2. per-row cumulative weight (weights >= 0) and left-edge quantile
     w_cum = exn.cumsum(sorted_w)
     total = w_cum[:, -1:]
-    q_left = (w_cum - sorted_w) / torch.clamp_min(total, _TINY)
+    q_left = z(z(w_cum - sorted_w) / torch.clamp_min(total, _TINY))
     # 3. k-function buckets
     bucket = _k_bucket(q_left, compression, capacity)
     # 4. bucket runs are contiguous along a sorted row: each run's sum is
     #    a difference of row-prefix sums at the run ends
     mw_cum = exn.cumsum(
-        torch.where(sorted_w > 0, sorted_means * sorted_w, 0.0))
+        torch.where(sorted_w > 0, z(sorted_means * sorted_w), 0.0),
+        flush=True)
     nxt = torch.cat([bucket[:, 1:],
                      torch.full((s, 1), -1, dtype=bucket.dtype,
                                 device=bucket.device)], dim=-1)
     is_end = bucket != nxt
     w_before, mw_before = segments.last_marked_carry(is_end, w_cum, mw_cum)
-    seg_w = w_cum - w_before
-    seg_mw = mw_cum - mw_before
+    seg_w = z(w_cum - w_before)
+    seg_mw = z(mw_cum - mw_before)
     live = is_end & (seg_w > 0)
-    new_means = torch.where(live, seg_mw / torch.clamp_min(seg_w, _TINY),
+    new_means = torch.where(live, z(seg_mw / torch.clamp_min(seg_w, _TINY)),
                             _INF)
     new_w = torch.where(live, seg_w, 0.0)
     # 5. sort by mean and keep the first `capacity` slots (contiguous:
@@ -140,12 +151,15 @@ class BatchStats(NamedTuple):
 
 def _prefix_scans(srows, svals, sw):
     """The reference's scan stack: three prefix sums and the forward/
-    backward segmented sums, in its order."""
+    backward segmented sums, in its order (sw >= 0, both flushed)."""
+    z = exn.flush_denormals
     zero1 = torch.zeros((1,), dtype=sw.dtype, device=sw.device)
     pre_w = torch.cat([zero1, exn.cumsum(sw)])
-    pre_vw = torch.cat([zero1, exn.cumsum(exn.block(svals * sw))])
+    pre_vw = torch.cat([zero1, exn.cumsum(exn.block(z(svals * sw)),
+                                          flush=True)])
     pre_recip = torch.cat(
-        [zero1, exn.cumsum(torch.where(sw > 0, sw / svals, 0.0))])
+        [zero1, exn.cumsum(torch.where(sw > 0, z(sw / svals), 0.0),
+                           flush=True)])
     one = torch.ones((1,), dtype=torch.bool, device=sw.device)
     row_starts = torch.cat([one, srows[1:] != srows[:-1]])
     seg_cum = segments.segmented_cumsum(sw, row_starts)
@@ -166,15 +180,21 @@ def add_batch(means, weights, dmin, dmax, drecip, rows, values,
     k, c = means.shape
     n = rows.shape[0]
     dev = means.device
-    live = sample_weights > 0
+    z = exn.flush_denormals
+    wts = z(sample_weights)
+    live = wts > 0
     rows = torch.where(live, rows.to(torch.int64), k)
-    safe_vals = torch.where(live, values, 1.0)
+    # the raw values, for the min/max gathers; the sort and the
+    # arithmetic read them flushed
+    raw_vals = torch.where(live, values, 1.0)
+    safe_vals = z(raw_vals)
 
     # 1. sort the batch by (row, value): two stable sorts, secondary first
     o1 = torch.sort(safe_vals, stable=True).indices
     o2 = torch.sort(rows[o1], stable=True).indices
     order = o1[o2]
-    srows, svals, sw = rows[order], safe_vals[order], sample_weights[order]
+    srows, svals, sw = rows[order], safe_vals[order], wts[order]
+    raw_svals = raw_vals[order]
 
     # 2. per-row stats from prefix-sum differences and boundary gathers
     pre_w, pre_vw, pre_recip, seg_cum, suffix = _prefix_scans(
@@ -183,18 +203,19 @@ def add_batch(means, weights, dmin, dmax, drecip, rows, values,
     row_upper = torch.searchsorted(srows.contiguous(), kbins, right=True)
     row_lower = torch.cat([torch.zeros((1,), dtype=torch.int64, device=dev),
                            row_upper[:-1]])
-    seg_w = pre_w[row_upper] - pre_w[row_lower]
-    seg_sum = pre_vw[row_upper] - pre_vw[row_lower]
-    seg_recip = pre_recip[row_upper] - pre_recip[row_lower]
+    seg_w = z(pre_w[row_upper] - pre_w[row_lower])
+    seg_sum = z(pre_vw[row_upper] - pre_vw[row_lower])
+    seg_recip = z(pre_recip[row_upper] - pre_recip[row_lower])
     has = seg_w > 0
-    seg_min = torch.where(has, svals[row_lower.clamp(max=n - 1)], _INF)
-    seg_max = torch.where(has, svals[torch.clamp_min(row_upper - 1, 0)],
+    seg_min = torch.where(has, raw_svals[row_lower.clamp(max=n - 1)], _INF)
+    seg_max = torch.where(has, raw_svals[torch.clamp_min(row_upper - 1, 0)],
                           -_INF)
     stats = BatchStats(seg_w, seg_min, seg_max, seg_sum, seg_recip)
 
     # 3. batch digest: k-bucket per sample, per-(row, bucket) run sums
-    row_total = seg_cum + suffix - sw
-    q_left = (seg_cum - sw) / torch.clamp_min(row_total, _TINY)
+    # (seg_cum, suffix >= 0: sums of weights)
+    row_total = z(z(seg_cum + suffix) - sw)
+    q_left = z(z(seg_cum - sw) / torch.clamp_min(row_total, _TINY))
     bucket = _k_bucket(q_left, compression, c)
     seg_id = srows * c + bucket
     one = torch.ones((1,), dtype=torch.bool, device=dev)
@@ -218,21 +239,21 @@ def add_batch(means, weights, dmin, dmax, drecip, rows, values,
         [at_start[:, 1:, :],
          torch.zeros((k, 1, 2), dtype=at_start.dtype, device=dev)], dim=1)
     at_end = torch.where(last[:, :, None], at_row_end[:, None, :], at_next)
-    diff = at_end - at_start
+    diff = z(at_end - at_start)
     bd_w = torch.where(valid, diff[..., 0], 0.0)
     bd_mw = torch.where(valid, diff[..., 1], 0.0)
-    bd_means = torch.where(bd_w > 0, bd_mw / torch.clamp_min(bd_w, _TINY),
-                           _INF)
+    bd_means = torch.where(bd_w > 0,
+                           z(bd_mw / torch.clamp_min(bd_w, _TINY)), _INF)
 
     # 4. merge with the existing rows and recompress
     cat_means = torch.cat([means, bd_means], dim=-1)
     cat_w = torch.cat([weights, bd_w], dim=-1)
     new_means, new_w = _compress_rows(cat_means, cat_w, compression, c)
 
-    # 5. digest scalars
-    new_min = torch.minimum(dmin, seg_min)
-    new_max = torch.maximum(dmax, seg_max)
-    new_recip = drecip + seg_recip
+    # 5. digest scalars (the min and max of flushed values are flushed)
+    new_min = torch.minimum(z(dmin), z(seg_min))
+    new_max = torch.maximum(z(dmax), z(seg_max))
+    new_recip = z(z(drecip) + seg_recip)
     return new_means, new_w, new_min, new_max, new_recip, stats
 
 
@@ -241,12 +262,13 @@ def _row_bounds(means: torch.Tensor, weights: torch.Tensor,
     """Per-slot upper value bounds under the uniform-centroid assumption
     (midpoints of adjacent means, dmax at the last nonempty slot)."""
     s, c = means.shape
+    z = exn.flush_denormals
     count = (weights > 0).sum(dim=-1)
     idx = torch.arange(c, device=means.device)
     next_means = torch.cat(
         [means[:, 1:], torch.full((s, 1), _INF, dtype=means.dtype,
                                   device=means.device)], dim=-1)
-    mid = (means + next_means) / 2.0
+    mid = z(z(means + next_means) / 2.0)
     is_last = idx[None, :] == (count - 1)[:, None]
     ub = torch.where(is_last, dmax[:, None], mid)
     return ub, count
@@ -255,12 +277,15 @@ def _row_bounds(means: torch.Tensor, weights: torch.Tensor,
 def quantile(means, weights, dmin, dmax, qs) -> torch.Tensor:
     """Batched quantile extraction: [S, C] digests × [P] f32 quantiles →
     [S, P] (the reference's gather form). Empty digests yield NaN."""
+    z = exn.flush_denormals
+    means, weights, dmin, dmax, qs = (z(a) for a in (means, weights, dmin,
+                                                      dmax, qs))
     c = means.shape[1]
     ub, count = _row_bounds(means, weights, dmax)
-    w_cum = exn.cumsum(weights)
+    w_cum = exn.cumsum(weights, flush=True)
     total = w_cum[:, -1]
     lb = torch.cat([dmin[:, None], ub[:, :-1]], dim=-1)
-    target = exn.block(qs[None, :] * total[:, None])  # [S, P]
+    target = exn.block(z(qs[None, :] * total[:, None]))  # [S, P]
     # first slot whose cumulative weight reaches the target
     first_idx = torch.searchsorted(w_cum, target.contiguous(), right=False)
     first_idx = torch.clamp_max(first_idx, c - 1)
@@ -269,20 +294,23 @@ def quantile(means, weights, dmin, dmax, qs) -> torch.Tensor:
         return torch.gather(x, 1, first_idx)
 
     w_at = _at(weights)
-    w_before = _at(w_cum) - w_at
+    w_before = z(_at(w_cum) - w_at)
     lb_at = _at(lb)
     ub_at = _at(ub)
-    proportion = (target - w_before) / torch.clamp_min(w_at, _TINY)
-    out = lb_at + exn.block(proportion * (ub_at - lb_at))
+    proportion = z(z(target - w_before) / torch.clamp_min(w_at, _TINY))
+    out = z(lb_at + exn.block(z(proportion * z(ub_at - lb_at))))
     ok = (total[:, None] > 0) & (count[:, None] > 0)
     return torch.where(ok, out, float("nan"))
 
 
 def row_sum(means, weights) -> torch.Tensor:
     """Σ mean·weight per row, tree-summed."""
-    return exn.tsum(torch.where(weights > 0, means * weights, 0.0))
+    z = exn.flush_denormals
+    weights = z(weights)
+    return exn.tsum(torch.where(weights > 0, z(z(means) * weights), 0.0),
+                    flush=True)
 
 
 def row_count(weights) -> torch.Tensor:
     """Total weight per row, tree-summed."""
-    return exn.tsum(weights)
+    return exn.tsum(exn.flush_denormals(weights), flush=True)
