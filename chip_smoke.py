@@ -63,19 +63,50 @@ script exits non-zero:
    port 0, a channel sink and count_unique_timeseries answers a few
    hundred real datagrams (set lines among them); one flush; its
    InterMetrics and its unique-timeseries tally equal a CPU server's over
-   the same datagrams.
-5b. the same datagrams through a server with tpu_native_ingest and
+   the same datagrams. Two runs: the default configuration on traffic
+   with no series past the staging depth, and micro_fold off on traffic
+   whose two untagged series take 300 samples each, past the 64-deep
+   staging plane, so the spill folds run (with micro-folds on, the
+   native server's scheduler drains spill at times of its own, and spill
+   cut at other points folds to other bits: ROADMAP.md section 3).
+5b. each run's datagrams through a server with tpu_native_ingest and
    tpu_native_readers on: a C++ reader thread reads the socket (the
    script fails if a Python reader runs or native mode is off); its
    InterMetrics and tally equal the CPU server's of phase 5.
-6. on the line before the last two, the card's name and power limit;
+   Phases 4 to 5b run the configuration's defaults, micro-folds and the
+   device guard on (the workers' flush streams the staging plane through
+   the mirror; the servers run the micro-fold scheduler; phase 5's spill
+   run turns micro-folds off), and each fails on any guard fault, trip
+   or degraded flush.
+6. micro-folds at full width: phase 4's interval with micro_fold_once
+   every 16 staging batches, on the card and on the CPU, and with
+   micro-folds off on both; phase 4c's native interval with a micro-fold
+   after every fourth drain, on the card. Every snapshot bitwise equal to
+   phase 4's; micro-folds, mirror chunks and bytes, fold_s and the
+   guarded calls of each run printed.
+7. the guard on the card: phase 4's interval with faults injected at the
+   dispatch seam (utils/faults.py): the first pool-growth pre-flight,
+   spill fold, micro-fold scatter and set op each fault once (retried,
+   replayed or dropped to the staging plane) and every extract faults;
+   two faults in a row trip the breaker, the epoch goes on and flushes
+   on the CPU: phase 4's snapshot, degraded. A first probe faults, a
+   second re-admits the card, and a smaller interval runs on it,
+   launching K1, K4 and K5 again. Then tools/port_guard_faults.py:
+   a real allocator OOM through the HBM valve, and a device-side assert
+   in a child process (classified lost, the probe fails, the CPU flushes
+   on). The guard's host cost per call: a one-kernel op called directly
+   and through the guard, in turns.
+8. on the line before the last two, the card's name and power limit;
    then a ``kernels`` JSON line: every kernel with its launches on the
-   main path (phases 4, 4b, 4c, 5 and 5b, counts reset just before, read
-   just after), its agreement with the plain version, its time, the plain
-   time and its bound; the probe's variants beside it, with their build
-   report and launches on the main path (only the variant flush_extract
+   main path (phases 4 to 5b: counts reset just before, read just
+   after), its agreement with the plain version, its time, the plain
+   time and its bound; its launches in phase 6 (``launches_micro``), in
+   phase 7's intervals (``launches_guard``) and in the real-OOM run of
+   tools/port_guard_faults.py (``launches_guard_oom``), each counted
+   from 0 just before its run; the probe's variants beside it, with
+   their build report and launches (only the variant flush_extract
    launches has any).
-7. the last line: {"ok": true, "device": {...}}.
+9. the last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the veneur_tpu_torch package beside it, the
 script prints no result and exits 2. It imports nothing of JAX.
@@ -107,6 +138,14 @@ EDGE_ROWS = 4099
 DEVICE = "cuda"
 probe = None  # tools/port_probe_extract.py, imported by main()
 probe_hll = None  # tools/port_probe_hll.py, imported by main()
+guard_faults = None  # tools/port_guard_faults.py, imported by main()
+# micro-folds in phase 6: one every this many 16,384-sample staging
+# batches (Python path) or drains (native path)
+MICRO_EVERY, MICRO_EVERY_NATIVE = 16, 4
+# phase 7's interval after re-admission: the big sets' first members,
+# four of the staged store's 65,536-update compactions, past which they
+# promote to its dense tier (hll_insert, then hll_estimate at the flush)
+READMIT_SET_SAMPLES = 262_144
 
 
 def log(msg: str) -> None:
@@ -297,11 +336,14 @@ def set_plan(rng):
     return lines, rows, idx, rank, ids
 
 
-def run_interval(worker, plan, parse, qs, step=contextlib.nullcontext):
+def run_interval(worker, plan, parse, qs, step=contextlib.nullcontext,
+                 micro_every: int = 0):
     """Drive one interval through a worker; returns (snapshot, seconds
     by step: lines through process_metric, bulk staging with its spill
     folds, and the flush with its staged fold and extract). ``step(name)``
-    wraps each step (a profiler range in tools/port_profile_interval.py)."""
+    wraps each step (a profiler range in tools/port_profile_interval.py);
+    with ``micro_every`` a micro-fold runs after every that many staging
+    batches."""
     series, scalars, rows, vals, wts, (set_lines, srows, sidx, srank,
                                        _ids) = plan
     t0 = time.perf_counter()
@@ -319,9 +361,11 @@ def run_interval(worker, plan, parse, qs, step=contextlib.nullcontext):
     with step("staging"):
         # series lines registered rows 0..N-1 in order (one per line)
         b = worker.batch_size
-        for i in range(0, len(rows), b):
+        for k, i in enumerate(range(0, len(rows), b)):
             worker._device_histo_step(rows[i:i + b], vals[i:i + b],
                                       wts[i:i + b])
+            if micro_every and k % micro_every == micro_every - 1:
+                worker.micro_fold_once()
         worker._sync()
     t2 = time.perf_counter()
     set_insert_s = insert_sets(worker, srows, sidx, srank, step)
@@ -331,7 +375,23 @@ def run_interval(worker, plan, parse, qs, step=contextlib.nullcontext):
     t4 = time.perf_counter()
     return snap, {"process_metric_s": t1 - t0, "staging_s": t2 - t1,
                   "set_insert_s": set_insert_s, "flush_s": t4 - t3,
-                  **worker.last_extract_phases}
+                  **worker.last_extract_phases, **micro_stats(worker)}
+
+
+def micro_stats(worker) -> dict:
+    """The flushed epoch's micro-folds and the mirror's uploads."""
+    return {"micro_folds": worker.micro_folds_swapped,
+            "mirror_chunks": worker.last_micro_chunks,
+            "mirror_bytes": worker.last_micro_bytes}
+
+
+def check_guard_clean(worker, snap, what: str) -> None:
+    """No guard fault, trip or degraded flush where none was injected."""
+    c = worker.guard.counters()
+    if c or worker.guard.quarantined or snap.degraded \
+            or worker.host_fallback_flushes:
+        raise AssertionError(f"{what}: guard counters {c}, degraded "
+                             f"{snap.degraded}")
 
 
 def insert_sets(worker, rows, idx, rank, step=contextlib.nullcontext
@@ -400,11 +460,15 @@ def check_set_estimates(est) -> None:
                              f"{small.max()}")
 
 
-# the worker configuration of phases 4 and 4c, and of 4b
+# the worker configuration of phases 4 and 4c, and of 4b, with the
+# config's defaults micro_fold and device_guard on (micro_fold_rows 1:
+# phase 6's micro_fold_once calls always find their drain due)
 INTERVAL_KW = dict(compression=100.0, stage_depth=64, batch_size=16384,
-                   initial_histo_rows=4096, count_unique_timeseries=True)
+                   initial_histo_rows=4096, count_unique_timeseries=True,
+                   micro_fold=True, micro_fold_rows=1, device_guard=True)
 DENSE_KW = dict(batch_size=16384, set_store="dense",
-                count_unique_timeseries=True)
+                count_unique_timeseries=True, micro_fold=True,
+                device_guard=True)
 
 
 def phase_worker(tw, generate, parse, qs):
@@ -417,9 +481,11 @@ def phase_worker(tw, generate, parse, qs):
     spilled = int(np.maximum(per_row - INTERVAL_KW["stage_depth"], 0).sum())
     gpu = tw.DeviceWorker(**INTERVAL_KW, device=DEVICE)
     snap_g, t_g = run_interval(gpu, plan, parse, qs)
+    check_guard_clean(gpu, snap_g, "phase 4, card")
     del gpu
     cpu = tw.DeviceWorker(**INTERVAL_KW, device="cpu")
     snap_c, t_c = run_interval(cpu, plan, parse, qs)
+    check_guard_clean(cpu, snap_c, "phase 4, CPU")
     del cpu
     compare_snapshots(snap_g, snap_c, "phase 4, card against CPU")
     del snap_c
@@ -447,7 +513,8 @@ def phase_worker(tw, generate, parse, qs):
         f"InterMetrics; CUDA snapshot bitwise equal to CPU snapshot")
     for where, t in (("card", t_g), ("cpu", t_c)):
         log(f"[worker] {where}: " + ", ".join(
-            f"{k} {v:.4f}" for k, v in t.items()))
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in t.items()))
     return {"card": t_g, "cpu": t_c, "series": n, "samples": samples,
             "spilled": spilled, "set_series": N_SETS,
             "set_samples": set_samples}, plan, snap_g
@@ -514,18 +581,22 @@ def render_datagrams(plan, lines_per_datagram: int = 100):
     return steps, n
 
 
-def run_native_interval(worker, steps, qs):
+def run_native_interval(worker, steps, qs, micro_every: int = 0):
     """The datagrams through a worker with attach_native(): each step's
     datagrams, then a drain (the spill of a 16,384-sample batch folds as
-    one batch, as run_interval's staging folds it), then the flush.
-    Returns (snapshot, seconds by step)."""
+    one batch, as run_interval's staging folds it), then the flush; with
+    ``micro_every`` a micro-fold after every that many drains (it finds
+    the batches drained, so the spill batches stay the same). Returns
+    (snapshot, seconds by step)."""
     t_ingest = t_drain = 0.0
-    for _kind, grams in steps:
+    for k, (_kind, grams) in enumerate(steps):
         t0 = time.perf_counter()
         for d in grams:
             worker.ingest_datagram(d)
         t1 = time.perf_counter()
         worker.drain_native()
+        if micro_every and k % micro_every == micro_every - 1:
+            worker.micro_fold_once()
         worker._sync()
         t_drain += time.perf_counter() - t1
         t_ingest += t1 - t0
@@ -539,7 +610,8 @@ def run_native_interval(worker, steps, qs):
     return snap, {"native_ingest_s": t_ingest + t_drain,
                   "ingest_datagram_s": t_ingest, "drain_s": t_drain,
                   "flush_s": t2 - t1, **worker.last_extract_phases,
-                  "plane_upload_bytes": worker.last_plane_upload_bytes}
+                  "plane_upload_bytes": worker.last_plane_upload_bytes,
+                  **micro_stats(worker)}
 
 
 def phase_native(tw, ek, hll, qs, plan, python_snap):
@@ -558,6 +630,7 @@ def phase_native(tw, ek, hll, qs, plan, python_snap):
         "flush_extract_launches": ek.flush_extract.launches - k1,
         "hll_insert_launches": hll.insert_batch.launches - k4,
         "hll_estimate_launches": hll.estimate.launches - k5})
+    check_guard_clean(w, snap, "phase 4c, card")
     del w
     compare_snapshots(snap, python_snap, "phase 4c, native against phase 4")
     check_set_estimates(snap.set_estimates)
@@ -567,6 +640,7 @@ def phase_native(tw, ek, hll, qs, plan, python_snap):
     w = tw.DeviceWorker(**INTERVAL_KW, device="cpu")
     w.attach_native()
     snap_c, cpu = run_native_interval(w, steps, qs)
+    check_guard_clean(w, snap_c, "phase 4c, CPU")
     del w
     compare_snapshots(snap, snap_c, "phase 4c, card against CPU")
     del snap_c
@@ -586,7 +660,7 @@ def phase_native(tw, ek, hll, qs, plan, python_snap):
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
             for k, v in t.items()))
     return {"card": card, "cpu": cpu, "render_s": render_s,
-            "datagrams": grams, "bytes": n_bytes}
+            "datagrams": grams, "bytes": n_bytes}, steps
 
 
 def dense_interval(worker, parse):
@@ -622,9 +696,11 @@ def phase_dense_sets(tw, parse, hll):
     snap, card, pool_rows, samples = dense_interval(w, parse)
     card.update({"hll_insert_launches": hll.insert_batch.launches - k0,
                  "hll_estimate_launches": hll.estimate.launches - e0})
+    check_guard_clean(w, snap, "phase 4b, card")
     del w
     w = tw.DeviceWorker(**DENSE_KW, device="cpu")
     snap_c, cpu, _rows, _n = dense_interval(w, parse)
+    check_guard_clean(w, snap_c, "phase 4b, CPU")
     del w
     compare_snapshots(snap, snap_c, "phase 4b, card against CPU")
     del snap_c
@@ -644,23 +720,224 @@ def phase_dense_sets(tw, parse, hll):
     return out
 
 
+# -- phases 6 and 7 -----------------------------------------------------------
+
+
+def counting_guard():
+    """A fault injector with an empty plan: it injects nothing and counts
+    the guarded dispatches (utils/faults.DeviceFaultInjector)."""
+    from veneur_tpu_torch.utils import faults as fl
+
+    return fl.DeviceFaultInjector(fl.DeviceFaultPlan())
+
+
+def phase_micro(tw, parse, qs, plan, steps, python_snap, phase4):
+    """Phase 4's interval with micro-folds every MICRO_EVERY staging
+    batches, card and CPU, and with micro-folds off, card and CPU; phase
+    4c's native interval with a micro-fold every MICRO_EVERY_NATIVE
+    drains on the card. Every snapshot bitwise phase 4's."""
+    out = {}
+    off = {**INTERVAL_KW, "micro_fold": False}
+    for name, dev, kw, every in (("card_on", DEVICE, INTERVAL_KW, MICRO_EVERY),
+                                 ("card_off", DEVICE, off, 0),
+                                 ("cpu_on", "cpu", INTERVAL_KW, MICRO_EVERY),
+                                 ("cpu_off", "cpu", off, 0)):
+        w = tw.DeviceWorker(**kw, device=dev)
+        with counting_guard() as inj:
+            snap, t = run_interval(w, plan, parse, qs, micro_every=every)
+        t["guarded_calls"] = inj.calls
+        check_guard_clean(w, snap, f"phase 6 {name}")
+        compare_snapshots(snap, python_snap, f"phase 6 {name} against "
+                          f"phase 4")
+        if every and (t["micro_folds"] < 2 or not t["mirror_chunks"]):
+            raise AssertionError(f"phase 6 {name}: {t}")
+        out[name] = t
+        del w, snap
+    w = tw.DeviceWorker(**INTERVAL_KW, device=DEVICE)
+    w.attach_native()
+    with counting_guard() as inj:
+        snap, t = run_native_interval(w, steps, qs,
+                                      micro_every=MICRO_EVERY_NATIVE)
+    t["guarded_calls"] = inj.calls
+    check_guard_clean(w, snap, "phase 6 native")
+    compare_snapshots(snap, python_snap, "phase 6 native against phase 4")
+    if t["micro_folds"] < 2 or t["plane_upload_bytes"]:
+        raise AssertionError(f"phase 6 native: {t}")
+    out["card_native_on"] = t
+    del w, snap
+    keys = ("micro_folds", "mirror_chunks", "mirror_bytes", "fold_s",
+            "flush_s", "guarded_calls")
+    for name, t in [("phase 4 card (residual only)", phase4["card"]),
+                    ("phase 4 cpu (residual only)", phase4["cpu"])] + \
+            list(out.items()):
+        log(f"[micro] {name}: " + ", ".join(
+            f"{k} {t[k]:.4f}" if isinstance(t.get(k), float)
+            else f"{k} {t.get(k)}" for k in keys))
+    log("[micro] every snapshot bitwise equal to phase 4's")
+    return out
+
+
+def guard_cost(n: int = 20_000) -> dict:
+    """The guard's host cost per call on the card: one tiny kernel
+    launched n times directly and n times through DeviceGuard.call, in
+    turns (direct, guarded, guarded, direct), each run ended by a
+    sync."""
+    import torch
+
+    from veneur_tpu_torch.ops import device_guard as dg
+
+    g = dg.DeviceGuard()
+    x = torch.zeros(1, device=DEVICE)
+
+    def op():
+        x.add_(1.0)
+
+    def run(guarded):
+        sync()
+        t0 = time.perf_counter()
+        if guarded:
+            for _ in range(n):
+                g.call("extract", op)
+        else:
+            for _ in range(n):
+                op()
+        sync()
+        return (time.perf_counter() - t0) / n * 1e9
+
+    run(False), run(True)  # warm up
+    t = [run(False), run(True), run(True), run(False)]
+    direct, guarded = (t[0] + t[3]) / 2, (t[1] + t[2]) / 2
+    out = {"direct_ns": direct, "guarded_ns": guarded,
+           "cost_ns": guarded - direct, "calls": n, "turns_ns": t}
+    log(f"[guard] one kernel launch {direct:.0f} ns direct, {guarded:.0f} "
+        f"ns through the guard: {guarded - direct:.0f} ns a guarded call "
+        f"(turns {', '.join(f'{v:.0f}' for v in t)})")
+    return out
+
+
+# phase 7's faults: the first dispatch of each ingest op and of the probe,
+# and every extract; two faults in a row trip the breaker. At phase 4's
+# size the growth pre-flight's fault is retried, the micro-fold's drops
+# the mirror and the spill fold's right after it trips the breaker, so
+# the rest of the interval and its flush run on the CPU. Where no two
+# ingest faults meet (smaller intervals), the extract and its retry trip
+# it at the flush. tests/test_torch_guard.py faults every op on the CPU.
+PHASE7_ONCE = ("grow", "fold", "micro", "sets", "probe")
+
+
+def phase_guard(tw, ek, hll, parse, qs, plan, python_snap):
+    """Phase 4's interval with faults in the guarded ops; the probe's
+    re-admission and a smaller interval on the card; the real OOM and the
+    child's sticky fault (tools/port_guard_faults.py)."""
+    from veneur_tpu_torch.utils import faults as fl
+
+    w = tw.DeviceWorker(**INTERVAL_KW, device=DEVICE, device_fault_streak=2)
+    windows = {op: [(0, 1, "lost")] for op in PHASE7_ONCE}
+    windows["extract"] = [(0, 10**6, "lost")]
+    with fl.DeviceFaultInjector(fl.DeviceFaultPlan(
+            seed=7, op_windows=windows)) as inj:
+        snap, t = run_interval(w, plan, parse, qs, micro_every=MICRO_EVERY)
+        w.guard.probe_interval_s = 0.0
+        w.device_guard_tick()  # quarantines the live epoch; the probe faults
+        failed_probe = w.guard.quarantined and w._host_live
+        w.device_guard_tick()  # the probe passes: re-admission
+    c = w.guard.counters()
+    fired = dict(inj.op_injected)
+    if not (snap.degraded and failed_probe and c.get("device.guard.trips")
+            == 1 and c.get("device.guard.quarantines") == 1
+            and c.get("device.guard.readmissions") == 1
+            and len(set(fired) - {"probe"}) >= 3):
+        raise AssertionError(f"phase 7: degraded {snap.degraded}, faults "
+                             f"by op {fired}, counters {c}")
+    compare_snapshots(snap, python_snap, "phase 7 faulted interval against "
+                      "phase 4")
+    faulted = {"faults_by_op": fired, "counters": c, **t}
+    del snap
+    if w.guard.quarantined or w._host_live:
+        raise AssertionError(f"phase 7: not re-admitted {c}")
+    # a smaller interval on the readmitted card: timers, and the bulk
+    # members of the 64 big sets (they promote past the staged store's
+    # compaction, so hll_insert runs, and hll_estimate at the flush)
+    series, _sc, _r, _v, _w, (set_lines, srows, sidx, srank, _i) = plan
+    big = srows < N_SETS_BIG
+    k1, k4, k5 = (ek.flush_extract.launches, hll.insert_batch.launches,
+                  hll.estimate.launches)
+    for line in series[:20_000] + set_lines[:N_SETS_BIG]:
+        w.process_metric(parse(line))
+    w._flush_pending_sets()
+    insert_sets(w, srows[big][:READMIT_SET_SAMPLES],
+                sidx[big][:READMIT_SET_SAMPLES],
+                srank[big][:READMIT_SET_SAMPLES])
+    after = w.flush(qs)
+    launched = {"flush_extract": ek.flush_extract.launches - k1,
+                "hll_insert": hll.insert_batch.launches - k4,
+                "hll_estimate": hll.estimate.launches - k5}
+    if after.degraded or min(launched.values()) < 1:
+        raise AssertionError(f"phase 7 after re-admission: degraded "
+                             f"{after.degraded}, launches {launched}")
+    ref = tw.DeviceWorker(**INTERVAL_KW, device="cpu")
+    for line in series[:20_000] + set_lines[:N_SETS_BIG]:
+        ref.process_metric(parse(line))
+    ref._flush_pending_sets()
+    insert_sets(ref, srows[big][:READMIT_SET_SAMPLES],
+                sidx[big][:READMIT_SET_SAMPLES],
+                srank[big][:READMIT_SET_SAMPLES])
+    compare_snapshots(after, ref.flush(qs), "phase 7 after re-admission "
+                      "against the CPU")
+    del w, ref, after
+    log(f"[guard] phase 4's interval under faults by op {fired}: counters "
+        f"{c}; the flush equals phase 4's, degraded; a failed probe, then "
+        f"re-admission; a smaller interval on the card equal to the CPU's, "
+        f"launches {launched}")
+    log("[guard] faulted interval: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in t.items() if isinstance(v, float)))
+    return {"faulted": faulted, "readmitted_launches": launched}
+
+
+def phase_real_faults() -> dict:
+    """tools/port_guard_faults.py: the real OOM here, the sticky fault in
+    a child process."""
+    oom = guard_faults.run_grow_oom()
+    log(f"[guard] real OOM through the valve: growth to {oom['rows']} "
+        f"rows, pre-flight {oom['preflight_bytes']} bytes with "
+        f"{oom['headroom']} free: counters {oom['counters']}; degraded "
+        f"flush equal to the CPU's, re-admitted, next flush on the card "
+        f"equal too")
+    sticky = guard_faults.run_sticky_fault()
+    log(f"[guard] sticky fault in a child: kind {sticky['kind']}, CUDA "
+        f"error {sticky['error_code']}, counters {sticky['counters']}, the "
+        f"next interval on the CPU equal to a CPU worker's "
+        f"({sticky['wall_s']:.1f} s)")
+    return {"grow_oom": oom, "sticky_fault": sticky}
+
+
 # -- phase 5 ------------------------------------------------------------------
 
 
-def server_datagrams(seed: int, n: int = 300) -> list[bytes]:
+def server_datagrams(seed: int, spill: bool, n: int = 300) -> list[bytes]:
+    """Phase 5's traffic. spill=False: no series passes the staging depth
+    (at most 60 samples a series), so the interval is bitwise the same on
+    every path whenever the micro-fold scheduler drains. spill=True: the
+    histograms api.payload and api.slow carry no tags and take all 300
+    samples each, past the 64-deep staging plane, so the spill folds run;
+    such an interval is bitwise the same only with matching batch cuts
+    (micro_fold off)."""
     import numpy as np
 
     rng = np.random.default_rng(seed)
+    route = "" if spill else "|#route:r{}"
     out = []
     for i in range(n):
         k = i % 37
+        tag = route.format(i % 5)
         lines = [
             f"api.requests:{1 + k % 3}|c|#route:r{k % 5}",
             f"api.sampled:{1 + k % 2}|c|@0.5",
             f"api.inflight:{rng.normal(20.0, 4.0):.4f}|g|#pod:p{k % 4}",
-            f"api.latency:{rng.gamma(2.0, 12.0):.4f}|ms|#route:r{k % 5}",
-            f"api.payload:{rng.lognormal(6.0, 1.0):.3f}|h",
-            f"api.slow:{rng.exponential(200.0):.3f}|ms|@0.25",
+            f"api.latency:{rng.gamma(2.0, 12.0):.4f}|ms|"
+            f"#route:r{(k if spill else i) % 5}",
+            f"api.payload:{rng.lognormal(6.0, 1.0):.3f}|h{tag}",
+            f"api.slow:{rng.exponential(200.0):.3f}|ms|@0.25{tag}",
             f"api.users:u{int(rng.integers(0, 5000))}|s",
             f"api.users:u{k}|s|#veneurlocalonly",
         ]
@@ -678,13 +955,35 @@ def canonical(metrics) -> list[tuple]:
         for m in metrics)
 
 
-def server_config(native: bool) -> dict:
-    return {"statsd_listen_addresses": ["udp://127.0.0.1:0"],
-            "interval": "1h", "percentiles": [0.5, 0.9, 0.99],
-            "aggregates": ["min", "max", "count", "sum", "avg", "median"],
-            "hostname": "chip-smoke", "tpu_native_ingest": native,
-            "tpu_native_readers": native, "flush_emit_native": False,
-            "device_guard": False, "count_unique_timeseries": True}
+def server_config(native: bool, spill: bool) -> dict:
+    cfg = {"statsd_listen_addresses": ["udp://127.0.0.1:0"],
+           "interval": "1h", "percentiles": [0.5, 0.9, 0.99],
+           "aggregates": ["min", "max", "count", "sum", "avg", "median"],
+           "hostname": "chip-smoke", "tpu_native_ingest": native,
+           "tpu_native_readers": native, "flush_emit_native": False,
+           "count_unique_timeseries": True}
+    if spill:
+        # the spill run's batch cuts are the datagrams' on every path
+        cfg["micro_fold"] = False
+    else:
+        # the scheduler drains the native staging plane while the
+        # datagrams arrive (the Python path stages at the flush)
+        cfg["micro_fold_max_age_s"] = 0.02
+    return cfg
+
+
+def check_server_guard_clean(server, what: str, micro: bool = True) -> None:
+    """The guard on, micro-folds as asked, no fault, trip or degraded
+    flush."""
+    w = server.workers[0]
+    if not (w.micro_fold == micro and w.guard.enabled):
+        raise AssertionError(f"{what}: micro_fold {w.micro_fold}, guard "
+                             f"{w.guard.enabled}: not the defaults")
+    if server.guard_counters() or server.host_fallbacks \
+            or server.quarantined_workers:
+        raise AssertionError(f"{what}: guard counters "
+                             f"{server.guard_counters()}, host fallbacks "
+                             f"{server.host_fallbacks}")
 
 
 def serve_once(data: dict, grams: list, now: int):
@@ -735,22 +1034,25 @@ def serve_once(data: dict, grams: list, now: int):
     return server, got, delivered
 
 
-def phase_server(ek):
-
+def phase_server(ek, spill: bool):
     from veneur_tpu_torch.core.config import load_config
     from veneur_tpu_torch.core.factory import build_server
 
-    data = server_config(native=False)
-    grams = server_datagrams(seed=9)
+    data = server_config(native=False, spill=spill)
+    grams = server_datagrams(seed=9, spill=spill)
+    what = "phase 5 (spill, micro_fold off)" if spill else "phase 5"
     before = ek.flush_extract.launches
     now = 1_700_000_000
     server, got, delivered = serve_once(data, grams, now)
+    check_server_guard_clean(server, what, micro=not spill)
     launched = ek.flush_extract.launches - before
     ref_server = build_server(load_config(data={
         **data, "statsd_listen_addresses": []}), device="cpu")
     for d in grams:
         ref_server.process_metric_packet(d)
     ref = ref_server.flush(now=now)
+    check_server_guard_clean(ref_server, f"{what}, CPU server",
+                             micro=not spill)
     if canonical(got) != canonical(ref) or \
             canonical(delivered) != canonical(got):
         raise AssertionError("CUDA server InterMetrics != CPU server's")
@@ -767,21 +1069,29 @@ def phase_server(ek):
     vals = [m.value for m in got]
     if not vals or any(v != v for v in vals):
         raise AssertionError("server emitted no or non-finite values")
-    log(f"[server] {len(grams)} UDP datagrams -> {len(got)} InterMetrics "
+    log(f"[server{' spill' if spill else ''}] {len(grams)} UDP datagrams -> "
+        f"{len(got)} InterMetrics "
         f"on {server.device}, equal to the CPU server's; set gauges "
         f"api.users {sorted(users)}; unique timeseries {tally} on both; "
-        f"flush_extract launches during the flush: {launched}")
+        f"flush_extract launches during the flush: {launched}; micro-folds "
+        f"{server.workers[0].micro_folds_total}")
     return grams, canonical(ref), ref_server.last_unique_timeseries
 
 
-def phase_native_server(grams, ref, ref_tally):
+def phase_native_server(grams, ref, ref_tally, spill: bool):
     """Phase 5's datagrams through a server with tpu_native_ingest and
     tpu_native_readers on (a C++ reader thread on the UDP socket): its
     InterMetrics equal the Python-path CPU server's of phase 5."""
     t0 = time.perf_counter()
-    server, got, delivered = serve_once(server_config(native=True), grams,
-                                        1_700_000_000)
+    server, got, delivered = serve_once(
+        server_config(native=True, spill=spill), grams, 1_700_000_000)
     wall = time.perf_counter() - t0
+    check_server_guard_clean(
+        server, "phase 5b (spill, micro_fold off)" if spill else "phase 5b",
+        micro=not spill)
+    if not spill and server.workers[0].micro_folds_total < 1:
+        raise AssertionError("the native server's scheduler ran no "
+                             "micro-fold")
     if canonical(got) != ref or canonical(delivered) != ref:
         raise AssertionError("native server InterMetrics != the Python-path "
                              "CPU server's")
@@ -790,13 +1100,31 @@ def phase_native_server(grams, ref, ref_tally):
                              f"{server.last_unique_timeseries} != {ref_tally}")
     if server.native_reader_threads != 0:
         raise AssertionError("a C++ reader outlived shutdown")
-    log(f"[native server] {len(grams)} UDP datagrams read by a C++ reader "
+    log(f"[native server{' spill' if spill else ''}] {len(grams)} UDP "
+        f"datagrams read by a C++ reader "
         f"thread (native_mode on, no Python reader) -> {len(got)} "
         f"InterMetrics on {server.device}, equal to the Python-path CPU "
-        f"server's; unique timeseries {ref_tally}; {wall:.2f} s")
+        f"server's; unique timeseries {ref_tally}; micro-folds "
+        f"{server.workers[0].micro_folds_total}; {wall:.2f} s")
 
 
 # -- main ---------------------------------------------------------------------
+
+
+def reset_launches(ek, hll) -> None:
+    ek.flush_extract.launches = 0
+    for r in ek.variant_launches:
+        ek.variant_launches[r] = 0
+    hll.insert_batch.launches = hll.estimate.launches = 0
+
+
+def read_launches(ek, hll) -> dict:
+    """Each kernel's launches since reset_launches, by kernels-line name."""
+    return {"flush_extract": ek.flush_extract.launches,
+            **{f"flush_extract_r{r}": n
+               for r, n in ek.variant_launches.items()},
+            "hll_insert": hll.insert_batch.launches,
+            "hll_estimate": hll.estimate.launches}
 
 
 def main() -> int:
@@ -818,7 +1146,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tools"))
-    global probe, probe_hll
+    global probe, probe_hll, guard_faults
+    import port_guard_faults as guard_faults
     import port_probe_extract as probe
     import port_probe_hll as probe_hll
 
@@ -887,10 +1216,7 @@ def main() -> int:
         """A standalone server's InterMetrics for the snapshot."""
         return generate_inter_metrics(snap, False, QS, aggs, now=0)
 
-    ek.flush_extract.launches = 0
-    for r in ek.variant_launches:
-        ek.variant_launches[r] = 0
-    hll.insert_batch.launches = hll.estimate.launches = 0
+    reset_launches(ek, hll)
     t0 = time.perf_counter()
     phases, plan, python_snap = phase_worker(tw, generate, parse_metric, qs)
     wall["worker_s"] = time.perf_counter() - t0
@@ -898,32 +1224,53 @@ def main() -> int:
     phases["dense_sets"] = phase_dense_sets(tw, parse_metric, hll)
     wall["dense_sets_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
-    phases["native"] = phase_native(tw, ek, hll, qs, plan, python_snap)
-    del plan, python_snap
+    phases["native"], steps = phase_native(tw, ek, hll, qs, plan,
+                                           python_snap)
     wall["native_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    server_grams, server_ref, server_tally = phase_server(ek)
-    wall["server_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    phase_native_server(server_grams, server_ref, server_tally)
-    wall["native_server_s"] = time.perf_counter() - t0
-    launches = ek.flush_extract.launches
-    by_variant = dict(ek.variant_launches)
-    hll_launches = {"hll_insert": hll.insert_batch.launches,
-                    "hll_estimate": hll.estimate.launches}
-    if launches < 1:
-        raise AssertionError("flush_extract was not launched on the main "
-                             "path")
-    for name, n in hll_launches.items():
-        if n < 1:
+    wall["server_s"] = wall["native_server_s"] = 0.0
+    for spill in (False, True):
+        t0 = time.perf_counter()
+        server_grams, server_ref, server_tally = phase_server(ek, spill)
+        wall["server_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        phase_native_server(server_grams, server_ref, server_tally, spill)
+        wall["native_server_s"] += time.perf_counter() - t0
+    launches = read_launches(ek, hll)
+    for name in ("flush_extract", "hll_insert", "hll_estimate"):
+        if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the main "
                                  f"path")
+    # this slice's own paths, each counted from 0 just before its run
+    reset_launches(ek, hll)
+    t0 = time.perf_counter()
+    phases["micro"] = phase_micro(tw, parse_metric, qs, plan, steps,
+                                  python_snap, phases)
+    del steps
+    wall["micro_s"] = time.perf_counter() - t0
+    launches_micro = read_launches(ek, hll)
+    reset_launches(ek, hll)
+    t0 = time.perf_counter()
+    phases["guard"] = phase_guard(tw, ek, hll, parse_metric, qs, plan,
+                                  python_snap)
+    del plan, python_snap
+    launches_guard = read_launches(ek, hll)
+    reset_launches(ek, hll)
+    phases["guard"].update(phase_real_faults())
+    launches_guard_oom = read_launches(ek, hll)
+    phases["guard"]["guard_cost"] = guard_cost()
+    wall["guard_s"] = time.perf_counter() - t0
+
+    def counts(name: str) -> dict:
+        return {"launches": launches[name],
+                "launches_micro": launches_micro[name],
+                "launches_guard": launches_guard[name],
+                "launches_guard_oom": launches_guard_oom[name]}
 
     source = "veneur_tpu_torch/csrc/flush_extract.cu"
     kernels = {"kernels": [{
         "name": "flush_extract", "route": "cuda", "source": source,
         "replaces": "veneur_tpu/ops/pallas_kernels.py:36",
-        "launches": launches, "max_abs_err": kres["max_abs_err"],
+        **counts("flush_extract"), "max_abs_err": kres["max_abs_err"],
         "ms": kres["ms"], "plain_ms": kres["plain_ms"],
         "bound_ms": kres["bound_ms"], "bound_by": kres["bound_by"],
         "library_ms": None, "rows_per_warp": ek.ROWS_PER_WARP,
@@ -934,7 +1281,8 @@ def main() -> int:
             "name": f"flush_extract_r{r}", "route": "cuda",
             "source": source,
             "replaces": "tools/probe_pallas_variants.py:130",
-            "launches": by_variant[r], "max_abs_err": v["max_abs_err"],
+            **counts(f"flush_extract_r{r}"),
+            "max_abs_err": v["max_abs_err"],
             "ms": v["ms"], "plain_ms": kres["plain_ms"],
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None, "rows_per_warp": r,
@@ -949,7 +1297,7 @@ def main() -> int:
             "name": name, "route": "cuda",
             "source": "veneur_tpu_torch/csrc/hll.cu",
             "replaces": f"veneur_tpu/ops/hll.py:{line}",
-            "launches": hll_launches[name],
+            **counts(name),
             "max_abs_err": hll_checks[name]["max_abs_err"],
             "ms": t["ms"], "plain_ms": t["plain_ms"],
             "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],

@@ -10,7 +10,12 @@ the rank range, row counts around each block round; for the insert
 negative rows, duplicate words within a warp, odd negative registers, n
 not a multiple of 32, n = 1,048,576 and the host inserter's pinned
 uploads); the CUDA worker, with and without sets, against its CPU twin;
-and the native ingest path on the card against the CPU.
+the native ingest path on the card against the CPU; the micro-fold
+mirror on the card, and micro-folded intervals against batch-folded ones
+on the card and the CPU; and the device guard under real faults
+(tools/port_guard_faults.py): an allocator OOM through the HBM valve,
+a device-side assert in a child process, an OOM among a spill fold's
+writes, and a set fault that moves the dense set pool alone.
 
 Every test here is marked ``cuda`` and skips without a card. On a card
 machine (no JAX needed) run them with
@@ -35,6 +40,7 @@ from veneur_tpu_torch.ops import hll, hll_kernel
 from veneur_tpu_torch.protocol.dogstatsd import parse_metric
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+import port_guard_faults as guard_faults  # noqa: E402
 import port_probe_extract as probe  # noqa: E402
 import port_probe_hll as probe_hll  # noqa: E402
 
@@ -413,3 +419,160 @@ def test_native_worker_cuda_equals_cpu(card, store):
             pa, pb = getattr(a.scalars, pool), getattr(b.scalars, pool)
             assert pa.values[:pa.used].tobytes() == \
                 pb.values[:pb.used].tobytes(), pool
+
+
+# -- micro-folds and the device guard ------------------------------------------
+
+
+def test_mirror_on_the_card(card):
+    """The mirror on the card is the dense plane of its COO entries,
+    through growth, many chunk dispatches (both pinned record blocks in
+    turns) and the padded last chunk."""
+    from veneur_tpu_torch.ops import microfold as mf
+
+    rng = np.random.default_rng(17)
+    depth, rows_n = 32, 3000
+    counts = rng.integers(0, depth + 1, rows_n)
+    rows = np.repeat(np.arange(rows_n), counts).astype(np.int32)
+    slots = np.concatenate([np.arange(c) for c in counts]).astype(np.int32)
+    order = rng.permutation(len(rows))
+    rows, slots = rows[order], slots[order]
+    vals = rng.normal(size=len(rows)).astype(np.float32)
+    wts = rng.uniform(0.5, 2.0, len(rows)).astype(np.float32)
+    m = mf.MicroFoldMirror(depth, card, initial_rows=64, chunk=1000)
+    for a in range(0, len(rows), 777):
+        m.feed(rows[a:a + 777], slots[a:a + 777], vals[a:a + 777],
+               wts[a:a + 777])
+    st = m.finish()
+    dense_v = np.zeros((st.vals.shape[0], depth), np.float32)
+    dense_w = np.zeros_like(dense_v)
+    dense_v[rows, slots] = vals
+    dense_w[rows, slots] = wts
+    assert st.chunks == -(-len(rows) // 1000)
+    assert st.vals.device.type == "cuda"
+    assert st.vals.cpu().numpy().tobytes() == dense_v.tobytes()
+    assert st.wts.cpu().numpy().tobytes() == dense_w.tobytes()
+
+
+def _micro_lines(seed: int) -> list[bytes]:
+    """300 timer series of 8 samples (under the staging depth: the
+    native drains cut no spill), counters, gauges and sets."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(2400):
+        k = i % 300
+        out.append(f"t{k}:{rng.gamma(2.0, 9.0):.4f}|ms|#k:{k % 7}".encode())
+        out.append(f"c{k % 11}:{k % 4 + 1}|c".encode())
+        out.append(f"u{k % 9}:m{int(rng.integers(0, 1 << 20))}|s".encode())
+    return out
+
+
+@pytest.mark.parametrize("native", [False, True], ids=["python", "native"])
+def test_micro_fold_on_the_card(card, native):
+    """Micro-folded on the card == batch-folded on the card == batch-
+    folded on the CPU, bitwise, over two intervals; no guard fault."""
+    kw = dict(stage_depth=16, batch_size=512, initial_histo_rows=64,
+              micro_fold_rows=1, micro_fold_max_age_s=1e9)
+    workers = [tw.DeviceWorker(**kw, micro_fold=True, device=card),
+               tw.DeviceWorker(**kw, device=card),
+               tw.DeviceWorker(**kw, device="cpu")]
+    qs = np.array([0.5, 0.9, 0.99])
+    for rnd in range(2):
+        lines = _micro_lines(40 + rnd)
+        grams = [b"\n".join(lines[i:i + 60])
+                 for i in range(0, len(lines), 60)]
+        snaps = []
+        for w in workers:
+            if native and rnd == 0:
+                w.attach_native()
+            for j, d in enumerate(grams):
+                if native:
+                    w.ingest_datagram(d)
+                else:
+                    for line in d.split(b"\n"):
+                        w.process_metric(parse_metric(line))
+                if j % 10 == 9 and w.micro_fold_due():
+                    w.micro_fold_once()
+            snaps.append(w.flush(qs))
+        assert workers[0].micro_folds_swapped >= 3
+        assert workers[0].last_micro_chunks >= 1
+        for other in snaps[1:]:
+            assert guard_faults.same_snapshots(snaps[0], other) == []
+        assert not any(s.degraded for s in snaps)
+    assert all(w.guard.counters() == {} for w in workers)
+
+
+def test_real_oom_through_the_grow_valve(card):
+    res = guard_faults.run_grow_oom()
+    assert res["counters"]["device.guard.readmissions"] == 1
+    assert res["degraded_then"] and not res["degraded_after"]
+
+
+def test_real_sticky_fault_in_a_child_process(card):
+    res = guard_faults.run_sticky_fault()
+    assert res["kind"] == "lost" and res["error_code"] == 710
+    assert res["differs"] == [] and res["degraded"]
+
+
+def test_fault_among_the_spill_writes_on_the_card(card, monkeypatch):
+    """An OutOfMemoryError raised among a card spill fold's writes (the
+    pool partly written), twice: the held update's writes are repeated on
+    the card until they land, and the interval equals a CPU worker's
+    that saw no fault, bitwise and not degraded."""
+    kw = dict(guard_faults.KW, device_fault_streak=10)
+    gpu = tw.DeviceWorker(**kw, device=card)
+    cpu = tw.DeviceWorker(**kw, device="cpu")
+    left = {"n": 2}
+    real = torch.Tensor.scatter_reduce_
+
+    def flaky(self, dim, index, src, reduce, **k):
+        if reduce == "amin" and self.is_cuda and left["n"]:
+            left["n"] -= 1
+            raise torch.OutOfMemoryError("CUDA out of memory (test)")
+        return real(self, dim, index, src, reduce, **k)
+
+    monkeypatch.setattr(torch.Tensor, "scatter_reduce_", flaky)
+    batch = guard_faults.lines(23)
+    for w in (gpu, cpu):
+        guard_faults.feed(w, batch)
+    qs = np.array(guard_faults.QS)
+    a, b = gpu.flush(qs), cpu.flush(qs)
+    monkeypatch.undo()
+    assert left["n"] == 0
+    assert gpu.guard.counters()["device.fault.oom"] == 2
+    assert not gpu.guard.quarantined and not a.degraded
+    assert guard_faults.same_snapshots(a, b) == []
+
+
+def test_dense_set_pool_fails_over_alone_on_the_card(card):
+    """A set fault that does not trip the breaker moves the dense set
+    pool alone to the CPU (the digest pool stays on the card): the flush
+    is degraded and equal to a CPU worker's; the next epoch's set pool
+    is on the card again."""
+    from veneur_tpu_torch.utils import faults as fl
+
+    kw = dict(batch_size=1024, set_store="dense", initial_set_rows=16,
+              device_fault_streak=50)
+    gpu = tw.DeviceWorker(**kw, device=card)
+    cpu = tw.DeviceWorker(**kw, device="cpu")
+    qs = np.array([0.5])
+    with fl.DeviceFaultInjector(fl.DeviceFaultPlan(
+            seed=12, op_windows={"sets": [(1, 3, "lost")]})) as inj:
+        for line in _set_lines(4):
+            gpu.process_metric(parse_metric(line))
+        assert gpu._sets.device.type == "cpu"
+        assert gpu._histo.means.device.type == "cuda"
+        a = gpu.flush(qs)
+    for line in _set_lines(4):
+        cpu.process_metric(parse_metric(line))
+    b = cpu.flush(qs)
+    assert inj.injected["lost"] == 2 and not gpu.guard.quarantined
+    assert a.degraded and not b.degraded
+    assert guard_faults.same_snapshots(a, b) == []
+    for w in (gpu, cpu):
+        for line in _set_lines(5):
+            w.process_metric(parse_metric(line))
+    assert gpu._sets.device.type == "cuda"
+    a2, b2 = gpu.flush(qs), cpu.flush(qs)
+    assert not a2.degraded
+    assert guard_faults.same_snapshots(a2, b2) == []

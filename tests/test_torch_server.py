@@ -146,7 +146,7 @@ def test_udp_round_trip():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("micro_fold", True),
+    ("stats_address", "127.0.0.1:8125"),
     ("flush_pipeline", True),
     ("series_shards", 2),
     ("reader_shards", 2),
@@ -163,13 +163,15 @@ def test_unported_key_refused_by_name(key, value):
 
 
 def test_same_yaml_loads_in_both():
-    """example.yaml loads into field-for-field equal configs; the one
-    difference is the micro_fold default, which the port keeps off."""
+    """example.yaml, and a config with no keys, load into field-for-field
+    equal configs: the micro-fold and the device guard are on by default
+    in both."""
     example = str(Path(__file__).resolve().parent.parent / "example.yaml")
     jc, tc = jload(example), tload(example)
     jd, td = dataclasses.asdict(jc), dataclasses.asdict(tc)
     assert jd.keys() == td.keys()
-    diff = {k for k in jd if jd[k] != td[k]}
-    assert diff <= {"micro_fold"}, diff
-    assert dataclasses.asdict(jload(data={})).keys() == jd.keys()
-    assert tload(data={}).micro_fold is False
+    assert {k for k in jd if jd[k] != td[k]} == set()
+    assert dataclasses.asdict(jload(data={})) == dataclasses.asdict(
+        tload(data={}))
+    assert tload(data={}).micro_fold is True
+    assert tload(data={}).device_guard is True

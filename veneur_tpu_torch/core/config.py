@@ -295,11 +295,10 @@ class Config:
     # backlog crosses micro_fold_rows samples or ages past
     # micro_fold_max_age_s, so the flush tick's fold collapses to a
     # residual drain. Bit-identical to the batch fold per metric class
-    # (tests/test_microfold.py); VENEUR_MICRO_FOLD=0 is the env escape
-    # hatch. Inert when staging is off (tpu_stage_depth 0) or a device
-    # mesh is attached. The PyTorch port has no micro-fold yet, so the key
-    # defaults off here and the factory refuses `micro_fold: true`.
-    micro_fold: bool = False
+    # (tests/test_torch_microfold.py). Inert when staging is off
+    # (tpu_stage_depth 0), and while the device guard has quarantined the
+    # worker.
+    micro_fold: bool = True
     micro_fold_rows: int = 8192
     micro_fold_max_age_s: float = 0.25
     # device-sharded series axis (ops/series_shard.py): >1 partitions
@@ -333,7 +332,7 @@ class Config:
     # retries once where operands are not donated, and — after
     # device_fault_streak CONSECUTIVE faults — trips a per-worker
     # breaker that quarantines the device path and fails over to the
-    # host engine (ops/host_engine.py), bit-identical per metric class.
+    # CPU (the same torch programs), bit-identical per metric class.
     # While quarantined, a compile+fold+extract probe runs every
     # device_probe_interval_s; success re-admits the device path and
     # re-uploads the host state. VENEUR_DEVICE_GUARD=0 is the env

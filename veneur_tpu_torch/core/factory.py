@@ -3,9 +3,16 @@
 The counterpart of veneur_tpu/core/factory.py for this slice: the same
 YAML loads (core/config.py is a copy), and every key that turns on a
 feature the port does not have yet is refused by name, so no deployment
-silently runs without something it asked for. Two keys are on by
-default and do not change results (the JAX package's own parity tests
-show it); the port logs one warning that it runs without them.
+silently runs without something it asked for. One key is on by default
+and does not change results (the JAX package's own parity tests show
+it), ``flush_emit_native``; the port logs one warning that it runs
+without it.
+
+The micro-fold (``micro_fold``, ``micro_fold_rows``,
+``micro_fold_max_age_s``) and the device fault domain (``device_guard``,
+``device_fault_streak``, ``device_probe_interval_s``, and the
+``VENEUR_DEVICE_GUARD=0`` escape hatch) are ported and on by default, as
+in the JAX package.
 
 The native C++ ingest path is ported: ``tpu_native_ingest`` and
 ``tpu_native_readers`` (both on by default) load as they do in the JAX
@@ -39,7 +46,6 @@ def _on(v) -> bool:
 # key → predicate: the config turns an unported feature on
 REFUSED_KEYS = {
     # device-side schedulers and layouts
-    "micro_fold": _on,
     "series_shards": lambda v: v not in (0, 1),
     "reader_shards": lambda v: v > 0,
     "tpu_mesh_devices": lambda v: v > 1,
@@ -90,7 +96,7 @@ REFUSED_KEYS = {
 }
 
 # on by default, result-neutral: the port runs without them
-RUNS_WITHOUT_KEYS = ("device_guard", "flush_emit_native")
+RUNS_WITHOUT_KEYS = ("flush_emit_native",)
 
 
 def check_config(cfg: Config) -> None:

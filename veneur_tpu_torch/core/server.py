@@ -11,6 +11,13 @@ sinks. With ``count_unique_timeseries`` the workers' unique-timeseries
 HLLs merge and are estimated on the device at each flush
 (``last_unique_timeseries``).
 
+With ``micro_fold`` a scheduler thread (``_micro_fold_loop``) streams
+each worker's staging plane to its device mirror during the interval.
+After each worker's extraction the flush runs its ``device_guard_tick``
+under the worker's lock (quarantine, probe, re-admission); the guard's
+counters, the quarantined workers and the flushes completed on the CPU
+are ``guard_counters``, ``quarantined_workers`` and ``host_fallbacks``.
+
 With ``tpu_native_ingest`` every worker attaches a C++ ingest context
 (veneur_tpu_torch/native.py) and datagrams go through a ``NativeRouter``:
 parsed in C++ and committed to the context of worker digest % N. With
@@ -23,7 +30,7 @@ Python path behind the configuration's back.
 Not in this slice (the factory refuses their config keys): SSF/TCP/TLS/
 unixgram listeners, reader shards, forwarding, imports, proxies, query
 listeners, tenancy, the flush pipeline, plugins, self-telemetry (so the
-unique-timeseries tally is kept, not sent).
+unique-timeseries tally and the guard's counters are kept, not sent).
 """
 
 from __future__ import annotations
@@ -45,6 +52,9 @@ from veneur_tpu_torch.core.metrics import HistogramAggregates, InterMetric
 from veneur_tpu_torch.core.worker import DeviceWorker, FlushSnapshot
 from veneur_tpu_torch.device import resolve
 from veneur_tpu_torch.ops import hll as hll_ops
+from veneur_tpu_torch.ops.device_guard import (DeviceFaultError,
+                                               DeviceGuard,
+                                               guard_enabled_default)
 from veneur_tpu_torch.protocol import dogstatsd
 from veneur_tpu_torch.sinks import (MetricSink, filter_routed,
                                     strip_excluded_tags)
@@ -96,6 +106,12 @@ class Server:
                 set_hash=cfg.set_hash,
                 set_store=cfg.tpu_set_store,
                 spill_cap=cfg.tpu_spill_cap,
+                micro_fold=cfg.micro_fold,
+                micro_fold_rows=cfg.micro_fold_rows,
+                micro_fold_max_age_s=cfg.micro_fold_max_age_s,
+                device_guard=cfg.device_guard,
+                device_fault_streak=cfg.device_fault_streak,
+                device_probe_interval_s=cfg.device_probe_interval_s,
                 device=self.device,
             )
             for _ in range(cfg.num_workers)
@@ -105,6 +121,12 @@ class Server:
         for w in self.workers:
             w.fold_budget_s = 0.5 * self.interval
         self._worker_locks = [threading.Lock() for _ in self.workers]
+        # the unique-timeseries tally's own guard: its faults count apart
+        # from every worker's streak, and each flush tries the card again
+        self._tally_guard = DeviceGuard(
+            streak_limit=cfg.device_fault_streak,
+            probe_interval_s=cfg.device_probe_interval_s,
+            enabled=cfg.device_guard and guard_enabled_default())
         self.event_worker = EventWorker()
         self.metric_sinks: list[MetricSink] = list(metric_sinks or [])
         self.sink_excluded_tags: dict[str, set[str]] = {}
@@ -167,6 +189,26 @@ class Server:
             if w._native is not None:
                 n += int(w._native.errors) - w._native_errs_seen
         return n
+
+    @property
+    def host_fallbacks(self) -> int:
+        """Flushes, summed over the workers, that ran some of their
+        device work on the CPU failover engine (degraded snapshots)."""
+        return sum(w.host_fallback_flushes for w in self.workers)
+
+    @property
+    def quarantined_workers(self) -> int:
+        """Workers whose device path is quarantined now."""
+        return sum(1 for w in self.workers if w.guard.quarantined)
+
+    def guard_counters(self) -> dict[str, int]:
+        """The device-guard counters (device.fault.*, device.guard.*,
+        device.valve.*) of the workers and the tally, summed."""
+        out: dict[str, int] = {}
+        for g in [w.guard for w in self.workers] + [self._tally_guard]:
+            for k, v in g.counters().items():
+                out[k] = out.get(k, 0) + v
+        return out
 
     @property
     def native_reader_threads(self) -> int:
@@ -325,6 +367,26 @@ class Server:
         while not self._shutdown.wait(cadence):
             self.sync_native_series_once()
 
+    def _micro_fold_loop(self) -> None:
+        """The micro-fold scheduler: poll each worker's staged backlog
+        and stream it to the device mirror when the row or age threshold
+        trips. The due check takes no lock; a drain takes the worker's
+        ingest lock briefly."""
+        cadence = max(0.01, min(1.0, self.config.micro_fold_max_age_s / 2.0,
+                                self.interval / 20.0))
+        while not self._shutdown.wait(cadence):
+            for i, worker in enumerate(self.workers):
+                try:
+                    if worker.micro_fold_due():
+                        with self._worker_locks[i]:
+                            worker.micro_fold_once()
+                except Exception:
+                    if self._shutdown.is_set():
+                        return
+                    # the staging plane keeps every sample, so the flush
+                    # still folds the epoch; the error must be seen
+                    log.exception("micro-fold drain failed (worker %d)", i)
+
     def _read_metric_socket(self, sock: socket.socket) -> None:
         """Tight recv loop (reference ReadMetricSocket, server.go:1123);
         reads max_length+1 so overlong datagrams are detectable."""
@@ -360,6 +422,8 @@ class Server:
             sink.start()
         ports = self.start_listeners()
         self._spawn(self._flush_loop, "flush-ticker")
+        if self.config.micro_fold:
+            self._spawn(self._micro_fold_loop, "micro-fold")
         if self.native_mode:
             self._spawn(self._series_sync_loop, "series-sync")
         return ports
@@ -420,6 +484,10 @@ class Server:
                 snaps.append(worker.extract_snapshot(sw, qs, self.interval))
             except Exception:
                 log.exception("flush extraction failed for worker %d", i)
+            # guard maintenance mutates the live epoch (quarantine to the
+            # CPU, probe, re-admission): under the ingest lock
+            with self._worker_locks[i]:
+                worker.device_guard_tick()
         phases["extract_s"] = time.perf_counter() - _t
         _t = time.perf_counter()
         final: list[InterMetric] = []
@@ -445,7 +513,9 @@ class Server:
 
     def _tally_timeseries(self, snaps: list[FlushSnapshot]) -> int:
         """Merge per-worker unique-timeseries HLLs and estimate on the
-        device (reference Server.tallyTimeseries, flusher.go:134-143)."""
+        device (reference Server.tallyTimeseries, flusher.go:134-143),
+        under the tally's own guard; after a fault, on the CPU, bitwise
+        the same."""
         regs = [s.unique_timeseries_registers for s in snaps
                 if s.unique_timeseries_registers is not None]
         if not regs:
@@ -454,10 +524,18 @@ class Server:
         for r in regs[1:]:
             merged = np.maximum(merged, r)
         precision = int(math.log2(merged.shape[-1]))
-        est = hll_ops.estimate(hll_ops.pool_from_numpy(merged[None, :],
-                                                       self.device),
-                               precision=precision)
-        return int(float(est.cpu()[0]))
+
+        def tally(device) -> int:
+            est = hll_ops.estimate(
+                hll_ops.pool_from_numpy(merged[None, :], device),
+                precision=precision)
+            return int(float(est.cpu()[0]))
+
+        try:
+            return self._tally_guard.call("extract", tally, self.device,
+                                          retryable=True)
+        except DeviceFaultError:
+            return tally("cpu")
 
     # -- lifecycle ----------------------------------------------------------
 

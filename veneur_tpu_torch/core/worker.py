@@ -29,18 +29,34 @@ flat and rebuilt on the device (``_expand_flat_planes``) before the
 staged fold. The Python-side paths share the native directory through
 its upsert.
 
+With ``micro_fold`` on, a scheduler calls ``micro_fold_once`` during the
+interval: the staged samples drained since the last call stream as COO
+deltas into a device mirror of the staging plane (ops/microfold.py), and
+the flush folds the mirror instead of uploading the plane, bitwise the
+same fold.
+
+The device fault domain (ops/device_guard.py): every device entry point
+runs under ``self.guard`` with the reference's op names, its sync or
+readback inside the guarded call. A classified fault during a flush
+completes that flush on the CPU from the last good state and the
+retained host inputs (``FlushSnapshot.degraded``); a tripped breaker
+moves the live epoch's pools to the CPU (``_quarantine_live``), where
+the same torch programs run their plain versions, until a probe
+re-admits the card (``device_guard_tick``). The CPU programs are bitwise
+the card's, so a degraded flush equals a healthy one.
+
 The device steps keep the reference's names and argument order. Where
 the reference donates its pool buffers, the port may update the pool
 tensors in place; a swapped epoch owns its tensors outright (the live
 epoch starts a fresh pool), so no swapped epoch aliases the live pool.
 
-Not in this slice (config refuses them, see core/factory.py):
-micro-folds, series sharding, reader shards, the device guard, tenancy,
-the query view, imports, the mesh.
+Not in this slice (config refuses them, see core/factory.py): series
+sharding, reader shards, tenancy, the query view, imports, the mesh.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from array import array
 from dataclasses import dataclass, field
@@ -54,19 +70,28 @@ from veneur_tpu_torch.core.directory import (RowMeta, ScopeClass,
                                              SeriesDirectory, classify)
 from veneur_tpu_torch.core.metrics import MetricKey, UDPMetric, route_info
 from veneur_tpu_torch.device import resolve
+from veneur_tpu_torch.ops import device_guard as dg
 from veneur_tpu_torch.ops import exactnum as exn
 from veneur_tpu_torch.ops import extract_kernel as ek
 from veneur_tpu_torch.ops import hll as hll_ops
+from veneur_tpu_torch.ops import hll_kernel
+from veneur_tpu_torch.ops import microfold as mf
 from veneur_tpu_torch.ops import tdigest as td
 from veneur_tpu_torch.ops.staged_sets import StagedSetStore
 from veneur_tpu_torch.utils.hashing import (fmix64, hll_hash, metric_digest,
                                            metro_hash64)
+
+log = logging.getLogger("veneur_tpu_torch.worker")
 
 _INF = float("inf")
 # samples per spill fold: a native drain after a stall can hold millions
 # of spilled samples; folding them in bounded chunks keeps the padded
 # per-fold arrays small (the reference's _FOLD_CHUNK)
 _FOLD_CHUNK = 1 << 18
+# HBM valve (_ensure_histo): pool growths whose device footprint stays
+# under this skip the allocation pre-flight, which a kB-scale grow cannot
+# need
+_GROW_PREFLIGHT_MIN_BYTES = 4 << 20
 
 
 def _next_pow2(n: int, floor: int = 1) -> int:
@@ -86,6 +111,19 @@ def _to_device(a: np.ndarray, device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _sync_on(t: torch.Tensor) -> None:
+    """Wait for the work queued on ``t``'s device (a CPU tensor has
+    none). Inside a guarded call it surfaces that work's CUDA errors."""
+    if t.device.type == "cuda":
+        torch.cuda.synchronize(t.device)
+
+
+def _unguarded(op: str, fn, *args, retryable: bool = False, **kwargs):
+    """DeviceGuard.call's signature without the guard: the failover
+    engine's programs run on the CPU and are never injected into."""
+    return fn(*args, **kwargs)
+
+
 # ---------------------------------------------------------------------------
 # Device steps
 
@@ -102,18 +140,17 @@ def _comp_add(s, c, x):
     return t, c + resid
 
 
-def _histo_ingest_step(
+def _histo_ingest_rows(
     means, weights, dmin, dmax, drecip, drecip_c,
     lmin, lmax, lsum, lsum_c, lweight, lweight_c, lrecip, lrecip_c,
     active, lids, values, wts,
     compression: float = td.DEFAULT_COMPRESSION,
 ):
-    """Gather the active digest rows, fold one sample batch in, scatter
-    back; also updates the sampler-local scalars of those rows.
-
-    Updates the 14 pool tensors IN PLACE and returns them. `active`
-    (int64[K]) is padded with the scratch row; every duplicate writes an
-    identical value, as in the reference's scatter."""
+    """The new values of the active digest rows after one sample batch:
+    gather, fold the batch in, and the sampler-local scalars of those
+    rows. Reads the pool and writes none of it, so a fault here (an
+    allocation that fails) leaves the pool as it was. Returns the update
+    ``_write_ingest_rows`` lands: ``active`` and the rows' new values."""
     g_means = means[active]
     g_w = weights[active]
     g_min = dmin[active]
@@ -123,29 +160,53 @@ def _histo_ingest_step(
     n_means, n_w, n_min, n_max, _, stats = td.add_batch(
         g_means, g_w, g_min, g_max, g_recip, lids, values, wts,
         compression=compression)
+    n_recip, n_recip_c = _comp_add(g_recip, drecip_c[active], stats.recip)
+    n_lsum, n_lsum_c = _comp_add(lsum[active], lsum_c[active], stats.sum)
+    n_lw, n_lw_c = _comp_add(lweight[active], lweight_c[active],
+                             stats.weight)
+    n_lr, n_lr_c = _comp_add(lrecip[active], lrecip_c[active], stats.recip)
+    return (active, n_means, n_w, n_min, n_max, n_recip, n_recip_c,
+            stats.min, stats.max, n_lsum, n_lsum_c, n_lw, n_lw_c, n_lr,
+            n_lr_c)
 
+
+def _write_ingest_rows(fields, update) -> None:
+    """Land ``_histo_ingest_rows``'s update in the 14 pool tensors, in
+    place. Idempotent: every write is an assignment of a computed value
+    or a min/max, so writing an update again after a fault partway
+    through gives the pool one write gives. `active` is padded with the
+    scratch row; every duplicate writes an identical value, as in the
+    reference's scatter."""
+    (means, weights, dmin, dmax, drecip, drecip_c, lmin, lmax, lsum, lsum_c,
+     lweight, lweight_c, lrecip, lrecip_c) = fields
+    (active, n_means, n_w, n_min, n_max, n_recip, n_recip_c, s_min, s_max,
+     n_lsum, n_lsum_c, n_lw, n_lw_c, n_lr, n_lr_c) = update
     means[active] = n_means
     weights[active] = n_w
     dmin[active] = n_min
     dmax[active] = n_max
-    n_recip, n_recip_c = _comp_add(g_recip, drecip_c[active], stats.recip)
     drecip[active] = n_recip
     drecip_c[active] = n_recip_c
-
-    lmin.scatter_reduce_(0, active, stats.min, reduce="amin")
-    lmax.scatter_reduce_(0, active, stats.max, reduce="amax")
-    n_lsum, n_lsum_c = _comp_add(lsum[active], lsum_c[active], stats.sum)
+    lmin.scatter_reduce_(0, active, s_min, reduce="amin")
+    lmax.scatter_reduce_(0, active, s_max, reduce="amax")
     lsum[active] = n_lsum
     lsum_c[active] = n_lsum_c
-    n_lw, n_lw_c = _comp_add(lweight[active], lweight_c[active],
-                             stats.weight)
     lweight[active] = n_lw
     lweight_c[active] = n_lw_c
-    n_lr, n_lr_c = _comp_add(lrecip[active], lrecip_c[active], stats.recip)
     lrecip[active] = n_lr
     lrecip_c[active] = n_lr_c
-    return (means, weights, dmin, dmax, drecip, drecip_c,
-            lmin, lmax, lsum, lsum_c, lweight, lweight_c, lrecip, lrecip_c)
+
+
+def _histo_ingest_step(*args, compression: float = td.DEFAULT_COMPRESSION):
+    """Gather the active digest rows, fold one sample batch in, scatter
+    back; also updates the sampler-local scalars of those rows. Takes
+    the 14 pool tensors, then active, lids, values and weights; updates
+    the pool IN PLACE, every new value computed before the first write,
+    and returns it."""
+    fields = args[:14]
+    _write_ingest_rows(fields, _histo_ingest_rows(
+        *args, compression=compression))
+    return fields
 
 
 class StagedPlane(NamedTuple):
@@ -167,6 +228,17 @@ def _free_staged_planes(planes) -> None:
     for p in planes or ():
         if p.free is not None:
             p.free()
+
+
+def _compact_plane(vals, wts, counts, rows: int) -> StagedPlane:
+    """A native plane's first ``rows`` rows as host copies: the filled
+    slots row-major (flat values, and weights unless ``wts`` is None)
+    and the per-row counts."""
+    depth = vals.shape[1]
+    counts_np = np.minimum(counts[:rows], depth).astype(np.int32)
+    mask = np.arange(depth, dtype=np.int32)[None, :] < counts_np[:, None]
+    flat_w = None if wts is None else wts[:rows][mask]
+    return StagedPlane(vals[:rows][mask], flat_w, counts_np, None)
 
 
 def _expand_flat_planes(flat_v, flat_w, counts, depth: int, unit: bool):
@@ -345,8 +417,8 @@ class HistoDeviceState:
     lrecip_c: torch.Tensor
 
     @classmethod
-    def create(cls, rows: int, capacity: int,
-               device=None) -> "HistoDeviceState":
+    def create(cls, rows: int, capacity: int, device=None
+               ) -> "HistoDeviceState":
         """An empty state on ``device`` (none asked for: the card)."""
         device = resolve(device)
         # every field its own tensor: the ingest step updates in place
@@ -390,6 +462,11 @@ class HistoDeviceState:
          self.drecip_c, self.lmin, self.lmax, self.lsum, self.lsum_c,
          self.lweight, self.lweight_c, self.lrecip, self.lrecip_c) = fields
 
+    def to(self, device) -> "HistoDeviceState":
+        """The state copied to ``device`` (a copy-free view where it
+        already lives there)."""
+        return HistoDeviceState(*(t.to(device) for t in self.fields()))
+
     def grow(self, new_rows: int) -> "HistoDeviceState":
         # zero-filled new mean rows are safe: every kernel keys empty
         # slots off weight == 0, never the stored mean
@@ -416,8 +493,9 @@ class HistoDeviceState:
 class FlushSnapshot:
     """Everything one interval produced, in host memory: the input to
     InterMetric generation (core/flusher.py). Field for field the
-    reference's; ``degraded`` stays False in this slice (no device
-    guard)."""
+    reference's. ``degraded`` is True when some of the interval's device
+    work ran on the CPU failover engine (a fault during the flush, or a
+    quarantined epoch): bitwise the same numbers, flagged."""
 
     directory: SeriesDirectory
     scalars: HostScalars
@@ -449,8 +527,16 @@ class FlushSnapshot:
 class SwappedEpoch:
     """A closed interval's state, detached from the live worker by
     DeviceWorker.swap(); extract_snapshot() turns it into a
-    FlushSnapshot. Field for field the reference's; the fields of
-    features outside this slice stay None."""
+    FlushSnapshot. Field for field the reference's (the fields of
+    features outside this slice stay None), and ``host``: the epoch
+    closed quarantined, so its pools are the failover engine's.
+
+    With micro-folds the staging plane travels as ``micro_residual``
+    (the epoch's mirror and the COO deltas not yet fed to it, fed at
+    extraction) and ``micro_replay`` (the plane's host content the
+    mirror duplicates, folded on the CPU if the mirror's device state is
+    lost to a fault); extraction turns the residual into
+    ``device_stage``, the finished mirror."""
 
     directory: SeriesDirectory
     scalars: HostScalars
@@ -466,6 +552,7 @@ class SwappedEpoch:
     micro_residual: Optional[tuple] = None
     reader_planes: Optional[list] = None
     micro_replay: Optional[object] = None
+    host: bool = False
 
 
 class DeviceWorker:
@@ -486,9 +573,20 @@ class DeviceWorker:
         set_store: str = "staged",
         stage_depth: int = 64,
         spill_cap: int = 1 << 22,
+        micro_fold: bool = False,
+        micro_fold_rows: int = 8192,
+        micro_fold_max_age_s: float = 0.25,
+        device_guard: bool = True,
+        device_fault_streak: int = dg.DEFAULT_STREAK_LIMIT,
+        device_probe_interval_s: float = dg.DEFAULT_PROBE_INTERVAL_S,
         device=None,
     ) -> None:
         self.device = resolve(device)
+        if self.device.type == "cuda":
+            # both kernel libraries build here: a broken build raises at
+            # startup, never as a fault the guard would fail over
+            ek.load()
+            hll_kernel.load()
         self.batch_size = batch_size
         # native pending-batch bound; beyond it samples shed, counted in
         # overload_dropped (drop-don't-block under overload)
@@ -540,6 +638,37 @@ class DeviceWorker:
         self.last_extract_phases: dict[str, float] = {}
         # the dense set pool's uploads (its pinned buffers outlive epochs)
         self._set_inserter = hll_ops.HostInserter()
+        # micro-folds (ops/microfold.py): a scheduler calls
+        # micro_fold_once() whenever micro_fold_rows samples are staged or
+        # the oldest is micro_fold_max_age_s old, streaming the staging
+        # plane to a device mirror during the interval
+        self.micro_fold = bool(micro_fold)
+        self.micro_fold_rows = int(micro_fold_rows)
+        self.micro_fold_max_age_s = float(micro_fold_max_age_s)
+        self._micro: Optional[mf.MicroFoldMirror] = None
+        self._micro_last_drain = time.monotonic()
+        # drains: lifetime, this epoch, the epoch the last swap closed
+        self.micro_folds_total = 0
+        self.micro_folds_epoch = 0
+        self.micro_folds_swapped = 0
+        # the last extract_snapshot's mirror: upload chunks and bytes
+        self.last_micro_chunks = 0
+        self.last_micro_bytes = 0
+        # the device fault domain (ops/device_guard.py): one breaker over
+        # every device entry point. While quarantined (_host_live) the
+        # live pools are CPU tensors the same programs run on;
+        # device_guard_tick(), run by the server after each extraction
+        # under the ingest lock, quarantines, probes and re-admits.
+        self.guard = dg.DeviceGuard(
+            streak_limit=device_fault_streak,
+            probe_interval_s=device_probe_interval_s,
+            enabled=bool(device_guard) and dg.guard_enabled_default())
+        self._host_live = False
+        # a fault voided this epoch's mirror: the staging plane keeps
+        # every sample and the epoch folds it as if micro-folds were off
+        self._micro_fault_epoch = False
+        # flushes that ran some of their device work on the CPU
+        self.host_fallback_flushes = 0
         self._reset_epoch()
 
     @property
@@ -574,17 +703,25 @@ class DeviceWorker:
         self._processed_py = 0
         self.directory = SeriesDirectory()
         self.scalars = HostScalars()
+        self._micro_fault_epoch = False
         self._histo: Optional[HistoDeviceState] = None
         # dense set pool (set_store="dense"); the staged store (the
         # default) keeps its own dense tier
         self._sets: Optional[torch.Tensor] = None
         self._staged_sets = (StagedSetStore(self.hll_precision,
-                                            device=self.device)
+                                            device=self.device,
+                                            guard=self.guard,
+                                            host=self._host_live)
                              if self.set_store == "staged" else None)
         # host raw-sample staging planes (see _device_histo_step)
         self._stage_vals: Optional[np.ndarray] = None
         self._stage_wts: Optional[np.ndarray] = None
         self._stage_count: Optional[np.ndarray] = None
+        # micro-fold watermark of the Python plane: slots
+        # [mark[r], count[r]) are staged but not yet mirrored
+        self._ustage_mark: Optional[np.ndarray] = None
+        self.micro_folds_epoch = 0
+        self._micro_last_drain = time.monotonic()
         # pending SoA buffers (host)
         self._ph_rows: list[int] = []
         self._ph_vals: list[float] = []
@@ -592,35 +729,93 @@ class DeviceWorker:
         self._ps_rows: list[int] = []
         self._ps_idx: list[int] = []
         self._ps_rank: list[int] = []
+        # spill batches whose device fold faulted, oldest first
+        self._fold_queue: list[tuple] = []
         # unique-timeseries HLL registers (host, tiny)
         m = hll_ops.num_registers(self.hll_precision)
         self._umts = (np.zeros(m, dtype=np.int8)
                       if self.count_unique_timeseries else None)
 
+    @property
+    def _live_device(self) -> torch.device:
+        """Where the live epoch's pools are: the CPU while quarantined."""
+        return torch.device("cpu") if self._host_live else self.device
+
     def _ensure_histo(self, needed_rows: int) -> None:
+        # a tripped breaker fails the live epoch over before any pool is
+        # made or grown on the failing device
+        if self.guard.quarantined and not self._host_live:
+            self._quarantine_live()
         # keep one scratch row free at the top for gather/scatter padding
         if self._histo is None:
             rows = _next_pow2(needed_rows + 1, self._initial_histo_rows)
             self._histo = HistoDeviceState.create(rows, self.capacity,
-                                                  self.device)
-        elif needed_rows + 1 > self._histo.num_rows:
-            self._flush_pending_histos()  # pending lids reference old layout
-            self._histo = self._histo.grow(
-                _next_pow2(needed_rows + 1, self._histo.num_rows * 2))
+                                                  self._live_device)
+            return
+        if needed_rows + 1 <= self._histo.num_rows:
+            return
+        self._flush_pending_histos()  # pending lids reference old layout
+        new_rows = _next_pow2(needed_rows + 1, self._histo.num_rows * 2)
+        if self._host_live:
+            self._histo = self._histo.grow(new_rows)
+            return
+        # HBM valve: growth holds the old pool and the new one at once.
+        # A throwaway allocation of the new means+weights pre-flights it,
+        # so an OOM is a clean fault with the old pool untouched; it trips
+        # the breaker at once and the epoch grows and goes on on the CPU.
+        try:
+            if (self.guard.enabled and new_rows * self.capacity * 12
+                    >= _GROW_PREFLIGHT_MIN_BYTES):
+                self.guard.call("grow", self._grow_preflight, new_rows,
+                                retryable=True)
+            self._histo = self.guard.call("grow", self._histo.grow,
+                                          new_rows)
+        except dg.DeviceFaultError as exc:
+            self.guard.bump("device.valve.grow_oom")
+            self.guard.trip(f"pool growth to {new_rows} rows faulted "
+                            f"[{exc.kind}]: HBM valve")
+            self._quarantine_live()
+            self._histo = self._histo.grow(new_rows)
+
+    def _grow_preflight(self, new_rows: int) -> None:
+        probe = torch.empty((new_rows, 2 * self.capacity),
+                            dtype=torch.float32, device=self.device)
+        del probe
+
+    def _sets_on_host(self) -> bool:
+        """The dense set pool runs on the failover engine: the live epoch
+        is quarantined, or a set fault moved the pool to the CPU on its
+        own (a CPU worker's pool has nowhere to move)."""
+        return self._host_live or (
+            self._sets is not None
+            and self._sets.device.type != self.device.type)
 
     def _ensure_sets(self, needed_rows: int) -> None:
+        if self.guard.quarantined and not self._host_live:
+            self._quarantine_live()
         if self._staged_sets is not None:
             return  # the staged store sizes itself
         # one scratch row at the top pads the insert batches
         if self._sets is None:
             rows = _next_pow2(needed_rows + 1, self._initial_set_rows)
             self._sets = hll_ops.init_pool(rows, self.hll_precision,
-                                           self.device)
-        elif needed_rows + 1 > self._sets.shape[0]:
-            self._flush_pending_sets()  # pending rows use the old scratch
-            self._sets = _grow_2d(
-                self._sets,
-                _next_pow2(needed_rows + 1, self._sets.shape[0] * 2))
+                                           self._live_device)
+            return
+        if needed_rows + 1 <= self._sets.shape[0]:
+            return
+        self._flush_pending_sets()  # pending rows use the old scratch
+        new_rows = _next_pow2(needed_rows + 1, self._sets.shape[0] * 2)
+        if self._sets_on_host():
+            self._sets = _grow_2d(self._sets, new_rows)
+            return
+        try:
+            self._sets = self.guard.call("grow", _grow_2d, self._sets,
+                                         new_rows)
+        except dg.DeviceFaultError as exc:
+            self.guard.trip(f"set pool growth to {new_rows} rows faulted "
+                            f"[{exc.kind}]")
+            self._quarantine_live()
+            self._sets = _grow_2d(self._sets, new_rows)
 
     # -- ingest -------------------------------------------------------------
 
@@ -926,6 +1121,243 @@ class DeviceWorker:
         self.overload_dropped_total += shed
         return tuple(a[-budget:] for a in spill_histo)
 
+    # -- micro-folds --------------------------------------------------------
+
+    def _micro_active(self) -> bool:
+        """Micro-folds run where the staged fold exists (staging on) and
+        the device path is healthy: a quarantined worker has no device
+        to mirror into, and an epoch whose mirror faulted keeps every
+        sample in its staging plane instead."""
+        return (self.micro_fold and self.stage_depth > 0
+                and not self._host_live and not self.guard.quarantined
+                and not self._micro_fault_epoch)
+
+    def _new_mirror(self) -> mf.MicroFoldMirror:
+        return mf.MicroFoldMirror(self.stage_depth, self.device,
+                                  initial_rows=self._initial_histo_rows,
+                                  guard=self.guard)
+
+    def _ensure_micro(self) -> mf.MicroFoldMirror:
+        if self._micro is None:
+            self._micro = self._new_mirror()
+        return self._micro
+
+    def micro_fold_pending(self) -> int:
+        """Staged samples not yet streamed to the mirror (the scheduler's
+        due check; lock-free on the native path)."""
+        if not self._micro_active():
+            return 0
+        if self._native is not None:
+            return self._native.stage_pending
+        if self._stage_count is None:
+            return 0
+        total = int(self._stage_count.sum())
+        mark = self._ustage_mark
+        if mark is not None:
+            total -= int(mark[:len(self._stage_count)].sum())
+        return total
+
+    def micro_fold_due(self) -> bool:
+        pending = self.micro_fold_pending()
+        if pending <= 0:
+            return False
+        if pending >= self.micro_fold_rows:
+            return True
+        return (time.monotonic() - self._micro_last_drain
+                >= self.micro_fold_max_age_s)
+
+    def micro_fold_once(self) -> int:
+        """One micro-fold: stream the samples staged since the last drain
+        into the mirror and, on the native path, drain the pending spill,
+        set and scalar batches too, so the swap inherits none of them.
+        Caller holds the worker's ingest lock. Returns samples streamed."""
+        if not self._micro_active():
+            return 0
+        self._micro_last_drain = time.monotonic()
+        try:
+            if self._native is not None:
+                # counters add in drain order and gauges keep the last
+                # write, so more frequent drains give the same result
+                self.drain_native()
+                fed = self._micro_drain_native()
+            else:
+                fed = self._micro_drain_python()
+        except dg.DeviceFaultError as exc:
+            # the mirror is a cache of the staging plane, which kept every
+            # sample (the drains advanced watermarks, not counts): drop it
+            # and fold the plane at the flush as if micro-folds were off
+            log.error("micro-fold device fault (%s); mirror dropped, the "
+                      "epoch folds its staging plane", exc)
+            self._micro = None
+            self._micro_fault_epoch = True
+            return 0
+        if fed:
+            self.micro_folds_total += 1
+            self.micro_folds_epoch += 1
+        return fed
+
+    def _micro_drain_native(self) -> int:
+        """COO-drain the C++ staging plane's undrained delta into the
+        mirror (the plane's watermark advances, its counts do not)."""
+        if self._native.stage_pending <= 0:
+            return 0
+        micro = self._ensure_micro()
+        fed = 0
+        cap = 1 << 18
+        while True:
+            rows, slots, vals, wts = self._native.drain_stage_delta(cap)
+            n = len(rows)
+            if n == 0:
+                break
+            micro.feed(rows, slots, vals, wts)
+            fed += n
+            if n < cap:
+                break
+        return fed
+
+    def _python_stage_delta(self) -> Optional[tuple]:
+        """The Python plane's [mark, count) delta per row as one COO
+        tuple (rows, slots, vals, wts, all copies), advancing the
+        watermark; None when nothing is undrained. It reads only what
+        _device_histo_step wrote, so the spill batches stay the batch
+        path's."""
+        counts = self._stage_count
+        if counts is None:
+            return None
+        rows_n = len(counts)
+        mark = self._ustage_mark
+        if mark is None or len(mark) < rows_n:
+            nm = np.zeros(rows_n, np.int32)
+            if mark is not None:
+                nm[:len(mark)] = mark
+            mark = self._ustage_mark = nm
+        delta = counts - mark[:rows_n]
+        live = np.flatnonzero(delta > 0)
+        if not len(live):
+            return None
+        reps = delta[live]
+        total = int(reps.sum())
+        rows = np.repeat(live.astype(np.int32), reps)
+        run_starts = np.cumsum(reps) - reps
+        intra = (np.arange(total, dtype=np.int32)
+                 - np.repeat(run_starts, reps).astype(np.int32))
+        slots = np.repeat(mark[live], reps).astype(np.int32) + intra
+        coo = (rows, slots, self._stage_vals[rows, slots],
+               self._stage_wts[rows, slots])
+        mark[live] = counts[live]
+        return coo
+
+    def _micro_drain_python(self) -> int:
+        coo = self._python_stage_delta()
+        if coo is None:
+            return 0
+        self._ensure_micro().feed(*coo)
+        return len(coo[0])
+
+    # -- the device fault domain --------------------------------------------
+
+    def _fields_to_host(self, fields) -> tuple:
+        """The 14 fold-state tensors on the CPU. Where the readback fails
+        (a sticky CUDA error took the state with it) an empty pool of
+        the same rows, logged: honest data loss, not a dead flush."""
+        try:
+            return tuple(t.cpu() for t in fields)
+        except Exception:
+            log.exception("device fold state unreadable during failover; "
+                          "restarting from an empty pool on the CPU")
+            return HistoDeviceState.create(int(fields[0].shape[0]),
+                                           self.capacity, "cpu").fields()
+
+    def _quarantine_live(self) -> None:
+        """Move the LIVE epoch's pools to the CPU, where the same torch
+        programs run their plain versions. Caller holds the ingest lock.
+        Idempotent. A pool whose readback fails restarts empty; the
+        staging plane and the pending batches still hold their samples."""
+        if self._host_live:
+            return
+        self._host_live = True
+        if self._histo is not None:
+            self._histo = HistoDeviceState(
+                *self._fields_to_host(self._histo.fields()))
+        if self._sets is not None:
+            self._sets = dg.host_copy(self._sets, "set pool")
+        if self._staged_sets is not None:
+            self._staged_sets.to_host()
+        # the mirror is device memory; the staging plane kept every
+        # sample it mirrored, so the swap folds the plane
+        self._micro = None
+        self._micro_fault_epoch = True
+        self.guard.bump("device.guard.quarantines")
+        log.error("live epoch quarantined to the CPU (%s)",
+                  self.guard.trip_reason)
+
+    def _readmit_device(self) -> bool:
+        """Move the live pools back to the card and leave host mode (the
+        probe succeeded; caller holds the ingest lock). The uploads run
+        as one guarded op; if it faults, nothing changes and the worker
+        stays quarantined."""
+        if not self._host_live:
+            return True
+
+        def upload():
+            h = None if self._histo is None else self._histo.to(self.device)
+            sets = None if self._sets is None else self._sets.to(self.device)
+            _sync_on(torch.empty(0, device=self.device))
+            if self._staged_sets is not None:
+                self._staged_sets.to_device()  # last: it commits itself
+            return h, sets
+
+        try:
+            self._histo, self._sets = self.guard.call("probe", upload)
+        except dg.DeviceFaultError:
+            return False
+        self._host_live = False
+        self.guard.readmit()
+        return True
+
+    def _device_probe(self) -> bool:
+        """A tiny fold and extract on throwaway tensors through the guard
+        (op "probe"): the half-open breaker's health check. After a
+        sticky CUDA error it fails at its first CUDA call."""
+        def probe():
+            st = HistoDeviceState.create(64, self.capacity, self.device)
+            out = self._fold_spill_chunk(
+                st.fields(), np.array([1, 2, 3], np.int32),
+                np.array([1.0, 2.0, 3.0], np.float32),
+                np.ones(3, np.float32))
+            qs = _to_device(np.array([0.25, 0.5, 0.75, 0.99], np.float32),
+                            self.device)
+            ext = self._extract(out, qs).cpu()
+            return bool(torch.isfinite(ext[1:4, 0]).all())
+
+        try:
+            return bool(self.guard.call("probe", probe))
+        except dg.DeviceFaultError:
+            return False
+        except Exception:
+            log.exception("device probe raised a non-device error")
+            return False
+
+    def device_guard_tick(self) -> None:
+        """Per-flush guard maintenance, run by the server after each
+        extraction with this worker's ingest lock held: quarantine the
+        live epoch if the breaker tripped during the flush, and while
+        quarantined run the re-admission probe when it is due."""
+        if not self.guard.enabled:
+            return
+        if self.guard.quarantined and not self._host_live:
+            self._quarantine_live()
+        if self._host_live and self.guard.quarantined \
+                and self.guard.probe_due():
+            ok = self._device_probe() and self._readmit_device()
+            self.guard.note_probe(ok)
+            if ok:
+                log.warning("device path re-admitted after a probe; the "
+                            "live pools are back on %s", self.device)
+            else:
+                log.error("device probe failed; the worker stays on the "
+                          "CPU")
+
     # -- pending-batch device steps ----------------------------------------
 
     def _flush_pending_histos(self) -> None:
@@ -955,7 +1387,20 @@ class DeviceWorker:
             self._staged_sets.insert(rows, idx, rank)
             return
         assert self._sets is not None
-        self._set_inserter.insert(self._sets, rows, idx, rank)
+        if self._sets_on_host():
+            self._set_inserter.insert(self._sets, rows, idx, rank)
+            return
+        try:
+            self.guard.call("sets", self._set_inserter.insert, self._sets,
+                            rows, idx, rank, retryable=True)
+        except dg.DeviceFaultError:
+            # max-merges: a partly applied update applied again on the
+            # CPU only re-asserts ranks
+            if self.guard.quarantined:
+                self._quarantine_live()
+            else:
+                self._sets = dg.host_copy(self._sets, "set pool")
+            self._device_set_step(rows, idx, rank)
 
     def _ensure_stage(self) -> None:
         """Size the host staging planes to the digest pool's row count."""
@@ -1033,11 +1478,64 @@ class DeviceWorker:
 
     def _fold_batch_direct(self, rows: np.ndarray, vals: np.ndarray,
                            wts: np.ndarray) -> None:
-        """Gather→add_batch→scatter device fold of one sample batch — the
-        spill path for rows whose staging plane is full (in place)."""
-        h = self._histo
-        assert h is not None
-        h.set_fields(self._fold_spill_chunk(h.fields(), rows, vals, wts))
+        """Gather→add_batch→scatter device fold of one sample batch, the
+        spill path for rows whose staging plane is full (in place), as
+        guarded op "fold" with its sync. The batch joins the queue of
+        batches whose fold faulted, which fold first, in order, each as
+        its own batch."""
+        self._fold_queue.append((rows, vals, wts))
+        self._drain_fold_queue()
+
+    def _drain_fold_queue(self) -> None:
+        """Fold the queued spill batches in order. A fault that trips the
+        breaker quarantines the epoch and the batches fold on the CPU;
+        any other fault before the batch's first write leaves it at the
+        head of the queue for the next fold or the swap. The reference
+        puts a faulted batch back into the pending batch instead, which
+        joins it to the next one; keeping it whole keeps the healthy
+        run's batch cuts, so the faulted interval's bits are the healthy
+        interval's. A fault among the writes is finished at once: the
+        writes are repeated, under the guard, until they land or the
+        breaker trips, and then they land on the CPU copy of the pool."""
+        while self._fold_queue:
+            h = self._histo
+            batch = self._fold_queue[0]
+            if self._host_live:
+                self._fold_spill_chunk(h.fields(), *batch)
+                self._fold_queue.pop(0)
+                continue
+            held: dict = {}
+            try:
+                self.guard.call("fold", self._fold_spill_chunk, h.fields(),
+                                *batch, sync=True, held=held)
+            except dg.DeviceFaultError:
+                update = held.get("update")
+                if update is not None:
+                    self._finish_writes(update, batch)
+                elif not self.guard.quarantined:
+                    return
+                else:
+                    self._quarantine_live()
+                    continue
+            self._fold_queue.pop(0)
+
+    def _finish_writes(self, update: tuple, batch: tuple) -> None:
+        """Repeat a spill fold's faulted writes on the live pool until
+        they land; once the breaker trips, land them on the CPU."""
+        while not self.guard.quarantined:
+            try:
+                self.guard.call("fold", self._write_synced,
+                                self._histo.fields(), update)
+                return
+            except dg.DeviceFaultError:
+                pass
+        self._quarantine_live()
+        self._land_held_update(self._histo.fields(), update, batch)
+
+    @staticmethod
+    def _write_synced(fields: tuple, update: tuple) -> None:
+        _write_ingest_rows(fields, update)
+        _sync_on(fields[0])
 
     def _sync(self) -> None:
         if self.device.type == "cuda":
@@ -1053,16 +1551,36 @@ class DeviceWorker:
     def swap(self, quantiles: np.ndarray) -> SwappedEpoch:
         """Close the current epoch and return the old-interval state (the
         map-swap analog of worker.go:498-517). The new epoch starts with
-        no pool, so nothing of the swapped epoch is shared with it."""
+        no pool, so nothing of the swapped epoch is shared with it.
+
+        With micro-folds the epoch's mirror is handed over with the COO
+        deltas not yet fed to it (collected here, under the ingest lock,
+        so nothing lands twice or not at all; fed at extraction), and the
+        plane it mirrors is kept on the host as the fault replay."""
         self.processed_total += self.processed
         native_stage = None
         spill_histo = None
+        micro_coo: list = []
+        native_mirrored = False
         if self._native is not None:
             # drain, detach the staging plane and close the native epoch
             # under one lock hold: a routed commit could otherwise land
             # between the last drain and the reset and die with the epoch
             self._native.lock()
             try:
+                if self._micro_active():
+                    # the residual delta in the same critical section as
+                    # the detach (host copies only; the device feeds run
+                    # at extraction)
+                    cap = 1 << 18
+                    while True:
+                        coo = self._native.drain_stage_delta(cap)
+                        if not len(coo[0]):
+                            break
+                        micro_coo.append(coo)
+                        if len(coo[0]) < cap:
+                            break
+                    native_mirrored = self._native.stage_pending == 0
                 raw = self._drain_native_raw(detach_stage=True)
                 native_stage = raw[4]
                 # event and service-check lines caught at epoch close; the
@@ -1082,75 +1600,114 @@ class DeviceWorker:
                 # fold to land in
                 self._ensure_histo(self.directory.num_histo_rows)
         self._flush_pending_histos()
+        self._drain_fold_queue()
+        if self._fold_queue:
+            # folds still faulting: the epoch reset would drop their
+            # batches, so they lead the spill backlog the extraction folds
+            queued = [np.concatenate([b[k] for b in self._fold_queue])
+                      for k in range(3)]
+            self._fold_queue = []
+            spill_histo = tuple(queued if spill_histo is None else (
+                np.concatenate([queued[k], spill_histo[k]])
+                for k in range(3)))
         self._flush_pending_sets()
+        micro_residual = None
+        if self._micro_active():
+            if self._native is None:
+                coo = self._python_stage_delta()
+                if coo is not None:
+                    micro_coo.append(coo)
+            mirror, self._micro = self._micro, None
+            if (mirror is not None and mirror.samples > 0) or any(
+                    len(c[0]) for c in micro_coo):
+                micro_residual = (mirror or self._new_mirror(), micro_coo)
+        self.micro_folds_swapped = self.micro_folds_epoch
+        # exactly one of the mirror and a staged plane carries a sample;
+        # a mirrored plane stays as the host replay
+        micro_replay = None
         staged_histo = []
+        python_mirrored = micro_residual is not None and self._native is None
         if self._stage_count is not None and self._stage_count.any():
-            # hand the host staging plane to the closed epoch; the fold
-            # runs in extract_snapshot
-            self._ensure_stage()  # pool may have grown since staging
-            staged_histo.append(StagedPlane(self._stage_vals,
-                                            self._stage_wts))
+            if python_mirrored:
+                micro_replay = StagedPlane(self._stage_vals, self._stage_wts)
+            else:
+                # hand the host staging plane to the closed epoch; the
+                # fold runs in extract_snapshot
+                self._ensure_stage()  # pool may have grown since staging
+                staged_histo.append(StagedPlane(self._stage_vals,
+                                                self._stage_wts))
         if native_stage is not None:
             sv, sw, counts, unit, free = native_stage
-            # unit weights (no sampled metric this epoch): the weights
-            # plane is rebuilt from the counts, not uploaded
-            staged_histo.append(
-                StagedPlane(sv, None if unit else sw, counts, free))
+            if native_mirrored and micro_residual is not None:
+                # the mirror and the residual hold the plane: keep a
+                # compacted host copy for a fault, release the C++ memory
+                micro_replay = _compact_plane(sv, None if unit else sw,
+                                              counts, sv.shape[0])
+                free()
+            else:
+                # unit weights (no sampled metric this epoch): the weights
+                # plane is rebuilt from the counts, not uploaded
+                staged_histo.append(
+                    StagedPlane(sv, None if unit else sw, counts, free))
         swapped = SwappedEpoch(
             directory=self.directory, scalars=self.scalars,
             histo=self._histo, sets=self._sets,
             staged_sets=self._staged_sets, umts=self._umts,
             mesh_out=None, staged_histo=staged_histo or None,
-            spill_histo=spill_histo)
+            spill_histo=spill_histo, micro_residual=micro_residual,
+            micro_replay=micro_replay, host=self._host_live)
         self.processed = 0
         self._reset_epoch()
         return swapped
 
-    def _fold_one_plane(self, fields: tuple, pending: list, s_eff: int
-                        ) -> tuple:
-        """Upload pending[0], release its native memory, fold it into the
-        digest fields, and pop it. A dense Python plane uploads as it is;
-        a native plane is compacted on the host first (the filled slots,
-        row-major, and the per-row counts: O(samples) bytes where the
-        dense plane is O(S·B)) and rebuilt on the device by
-        ``_expand_flat_planes``."""
+    def _fold_one_plane(self, fields: tuple, pending: list, s_eff: int,
+                        call) -> tuple:
+        """Fold pending[0] into the digest fields and pop it. A native
+        plane is first compacted on the host (the filled slots row-major
+        and the per-row counts: O(samples) bytes where the dense plane is
+        O(S·B)), released, and re-staged as those host copies, so a fault
+        in the fold leaves it replayable; a compacted plane uploads flat
+        and is rebuilt on the device by ``_expand_flat_planes``, a dense
+        Python plane uploads as it is. The upload and the fold are one
+        ``call("staged", ...)``."""
         plane: StagedPlane = pending[0]
-        dev = self.device
         if plane.free is not None:
-            B = plane.vals.shape[1]
-            rows_avail = min(plane.vals.shape[0], s_eff)
-            counts_np = np.minimum(plane.counts[:rows_avail],
-                                   B).astype(np.int32)
-            mask = (np.arange(B, dtype=np.int32)[None, :]
-                    < counts_np[:, None])
-            flat_v = plane.vals[:rows_avail][mask]  # copies out of C++
-            if rows_avail < s_eff:
-                # the native plane grows on its own pow2 schedule and may
-                # trail the pool's; rows past its end are empty
-                counts_np = np.pad(counts_np, (0, s_eff - rows_avail))
+            # the native plane grows on its own pow2 schedule and may
+            # trail the pool's; rows past its end are empty
+            host = _compact_plane(plane.vals, plane.wts, plane.counts,
+                                  min(plane.vals.shape[0], s_eff))
+            plane.free()
+            plane = pending[0] = host
+        depth = self.stage_depth
+
+        def fold_flat(fl):
+            dev = fl[0].device
+            counts = plane.counts
+            if len(counts) < s_eff:
+                counts = np.pad(counts, (0, s_eff - len(counts)))
+            else:
+                counts = counts[:s_eff]
             unit = plane.wts is None
-            flat_w = None if unit else plane.wts[:rows_avail][mask]
-            n_pad = _next_pow2(max(len(flat_v), 1), 1024)
+            n_pad = _next_pow2(max(len(plane.vals), 1), 1024)
             fv = np.zeros(n_pad, np.float32)
-            fv[:len(flat_v)] = flat_v
+            fv[:len(plane.vals)] = plane.vals
             fvj = _to_device(fv, dev)
-            cj = _to_device(counts_np, dev)
-            nbytes = fv.nbytes + counts_np.nbytes
+            cj = _to_device(counts.astype(np.int32), dev)
+            nbytes = fv.nbytes + counts.size * 4
             if unit:
                 fwj = fvj  # ignored under unit=True
             else:
                 fw = np.zeros(n_pad, np.float32)
-                fw[:len(flat_w)] = flat_w
+                fw[:len(plane.wts)] = plane.wts
                 fwj = _to_device(fw, dev)
                 nbytes += fw.nbytes
             self.last_plane_upload_bytes += nbytes
-            # fv, fw and counts_np are copies: nothing uploaded aliases
-            # the C++ plane, so it can go now; the host copies are
-            # re-staged in its place (free None: never freed twice)
-            plane.free()
-            pending[0] = StagedPlane(flat_v, flat_w, counts_np, None)
-            svj, swj = _expand_flat_planes(fvj, fwj, cj, B, unit)
-        else:
+            svj, swj = _expand_flat_planes(fvj, fwj, cj, depth, unit)
+            return _histo_fold_staged(*fl, svj, swj,
+                                      compression=self.compression)
+
+        def fold_dense(fl):
+            dev = fl[0].device
             svj = _to_device(plane.vals[:s_eff], dev)
             swj = _to_device(plane.wts[:s_eff], dev)
             self.last_plane_upload_bytes += (svj.numel() + swj.numel()) * 4
@@ -1159,32 +1716,83 @@ class DeviceWorker:
                                   dtype=torch.float32, device=dev)
                 svj = torch.cat([svj, pad])
                 swj = torch.cat([swj, pad])
-        fields = _histo_fold_staged(*fields, svj, swj,
-                                    compression=self.compression)
+            return _histo_fold_staged(*fl, svj, swj,
+                                      compression=self.compression)
+
+        fields = call("staged", fold_flat if plane.counts is not None
+                      else fold_dense, fields)
         pending.pop(0)
         return fields
 
     def _fold_spill_chunk(self, fields: tuple, rows: np.ndarray,
-                          vals: np.ndarray, wts: np.ndarray) -> tuple:
+                          vals: np.ndarray, wts: np.ndarray,
+                          sync: bool = False,
+                          held: Optional[dict] = None) -> tuple:
         """Fold one spill batch into the full-pool ``fields`` (the live
-        pool's or a swapped epoch's; the top row is the padding
-        scratch)."""
+        pool's or a swapped epoch's, on their device; the top row is the
+        padding scratch), in place; ``sync`` waits for it. Every new value
+        is computed before the first write, and ``held["update"]`` keeps
+        them while the writes run: a fault among the writes leaves the
+        pool partly written, and ``_land_held_update`` finishes the
+        writes instead of folding the batch again."""
         active, lids, v, w = self._pad_spill_batch(
             rows, vals, wts, fields[0].shape[0] - 1)
-        dev = self.device
-        return _histo_ingest_step(
+        dev = fields[0].device
+        update = _histo_ingest_rows(
             *fields, _to_device(active, dev), _to_device(lids, dev),
             _to_device(v, dev), _to_device(w, dev),
             compression=self.compression)
+        if held is not None:
+            held["update"] = update
+        _write_ingest_rows(fields, update)
+        if sync:
+            _sync_on(fields[0])
+        if held is not None:
+            held["update"] = None
+        return fields
+
+    def _land_held_update(self, fields: tuple, update: tuple,
+                          batch: tuple) -> tuple:
+        """Finish, on the CPU pool ``fields``, a spill fold whose device
+        writes faulted partway: the held update, read back, is written
+        again (the writes are idempotent). Where it cannot be read back
+        (a sticky error took the context, and the pool restarted empty
+        with it) the batch folds again on the CPU."""
+        try:
+            update = tuple(t.cpu() for t in update)
+        except Exception:
+            log.exception("spill update unreadable during failover; folding "
+                          "the batch again on the CPU")
+            return self._fold_spill_chunk(fields, *batch)
+        _write_ingest_rows(fields, update)
+        return fields
+
+    def _fold_mirror(self, fields: tuple, dstage: mf.MirrorState,
+                     s_eff: int) -> tuple:
+        """The staged fold over the micro-fold mirror: the plane is
+        already on the device, and mirror_dense is bitwise the plane the
+        batch path would upload."""
+        return _histo_fold_staged(*fields, mf.mirror_dense(dstage.vals, s_eff),
+                                  mf.mirror_dense(dstage.wts, s_eff),
+                                  compression=self.compression)
 
     def extract_snapshot(self, swapped: SwappedEpoch,
                          quantiles: np.ndarray,
                          interval_s: float = 10.0) -> FlushSnapshot:
         """Fold and read back a swapped epoch. Touches only the swapped
-        objects, never the live epoch."""
+        objects, never the live epoch. A classified device fault finishes
+        the flush on the CPU (flagged ``degraded``)."""
         snap = FlushSnapshot(directory=swapped.directory,
                              scalars=swapped.scalars, interval_s=interval_s,
                              unique_timeseries_registers=swapped.umts)
+
+        def mark_degraded():
+            if not snap.degraded:
+                snap.degraded = True
+                self.host_fallback_flushes += 1
+                log.error("flush completed on the CPU failover engine "
+                          "(degraded)")
+
         pending = list(swapped.staged_histo or ())
         swapped.staged_histo = None
         # the deferred spill backlog is taken whatever happens below: with
@@ -1193,10 +1801,11 @@ class DeviceWorker:
         swapped.spill_histo = None
         phases: dict[str, float] = {}
         self.last_plane_upload_bytes = 0
+        self.last_micro_chunks = self.last_micro_bytes = 0
         if swapped.histo is not None and swapped.directory.num_histo_rows:
             try:
-                self._extract_histo(snap, swapped.histo, pending, spill,
-                                    quantiles, phases)
+                self._extract_histo(snap, swapped, pending, spill,
+                                    quantiles, phases, mark_degraded)
             finally:
                 # an upload or fold failure must not leak the C++ planes
                 _free_staged_planes(pending)
@@ -1205,46 +1814,129 @@ class DeviceWorker:
             if spill is not None and len(spill[0]):
                 self.overload_dropped += len(spill[0])
                 self.overload_dropped_total += len(spill[0])
+        # a mirror with no rows to fold into holds nothing to lose
+        swapped.device_stage = None
+        swapped.micro_residual = None
+        swapped.micro_replay = None
         if swapped.directory.num_set_rows:
             t0 = time.perf_counter()
-            self._extract_sets(snap, swapped, phases)
+            self._extract_sets(snap, swapped, phases, mark_degraded)
             phases["sets_s"] = time.perf_counter() - t0
         self.last_extract_phases = phases
         return snap
 
-    def _extract_histo(self, snap: FlushSnapshot, histo: HistoDeviceState,
+    def _extract_histo(self, snap: FlushSnapshot, swapped: SwappedEpoch,
                        pending: list, spill: Optional[tuple],
-                       quantiles: np.ndarray, phases: dict) -> None:
+                       quantiles: np.ndarray, phases: dict,
+                       mark_degraded) -> None:
+        """The histogram half of the extraction, on the device under the
+        guard. A classified fault moves the newest fold state to the CPU
+        and the same steps resume there from where the device stopped
+        (``progress``: the fold state and the spill samples in it), with
+        the mirror replaced by its host replay. A quarantined epoch runs
+        on the CPU throughout."""
+        progress = {"fields": swapped.histo.fields(), "spill_off": 0}
+        if swapped.host:
+            mark_degraded()
+            self._histo_steps(snap, swapped, pending, spill, quantiles,
+                              phases, progress, _unguarded)
+            return
+        try:
+            self._histo_steps(snap, swapped, pending, spill, quantiles,
+                              phases, progress, self.guard.call)
+        except dg.DeviceFaultError as exc:
+            log.error("device fault during extraction (%s); completing the "
+                      "flush on the CPU", exc)
+            mark_degraded()
+            progress["fields"] = self._fields_to_host(progress["fields"])
+            self._histo_steps(snap, swapped, pending, spill, quantiles,
+                              phases, progress, _unguarded)
+
+    def _histo_steps(self, snap: FlushSnapshot, swapped: SwappedEpoch,
+                     pending: list, spill: Optional[tuple],
+                     quantiles: np.ndarray, phases: dict, progress: dict,
+                     call) -> None:
+        """Spill fold, staged folds, mirror fold, extract and readbacks,
+        each device step through ``call`` (the guard, or a plain call on
+        the CPU), resuming from ``progress``."""
         n = snap.directory.num_histo_rows
-        full = histo.fields()
+        on_device = call is not _unguarded
+        full = progress["fields"]
         t0 = time.perf_counter()
-        if spill is not None and len(spill[0]):
+        if spill is not None and progress["spill_off"] < len(spill[0]):
             # the hot-row spill backlog swap deferred, folded in bounded
             # chunks at the full pool's shape; the measured rate sizes the
             # next swap's shed budget
             sp_rows, sp_vals, sp_wts = spill
-            for i in range(0, len(sp_rows), _FOLD_CHUNK):
-                full = self._fold_spill_chunk(
-                    full, sp_rows[i:i + _FOLD_CHUNK],
-                    sp_vals[i:i + _FOLD_CHUNK], sp_wts[i:i + _FOLD_CHUNK])
-            self._sync()
+            start = progress["spill_off"]
+
+            def chunk(i):
+                return (sp_rows[i:i + _FOLD_CHUNK], sp_vals[i:i + _FOLD_CHUNK],
+                        sp_wts[i:i + _FOLD_CHUNK])
+
+            if progress.get("update") is not None:
+                # the device's writes of this chunk faulted partway: they
+                # land on the CPU pool, not a second fold
+                full = self._land_held_update(full, progress["update"],
+                                              chunk(start))
+                progress["update"] = None
+                start = progress["spill_off"] = min(start + _FOLD_CHUNK,
+                                                    len(sp_rows))
+            for i in range(start, len(sp_rows), _FOLD_CHUNK):
+                full = call("spill", self._fold_spill_chunk, full, *chunk(i),
+                            held=progress)
+                progress["spill_off"] = min(i + _FOLD_CHUNK, len(sp_rows))
+            call("spill", _sync_on, full[0])
             t_fold = time.perf_counter() - t0
-            if t_fold > 0.01:
-                self._fold_rate_ewma = (0.5 * self._fold_rate_ewma
-                                        + 0.5 * len(sp_rows) / t_fold)
+            if on_device and t_fold > 0.01:
+                self._fold_rate_ewma = (0.5 * self._fold_rate_ewma + 0.5
+                                        * (len(sp_rows) - start) / t_fold)
         # fold + extract over the used rows only (pow2-bucketed, as the
         # reference does): the pool is up to 2x oversized from growth
-        s_eff = min(histo.num_rows, _next_pow2(n, 1024))
+        s_eff = min(swapped.histo.num_rows, _next_pow2(n, 1024))
         fields = tuple(a if a.shape[0] == s_eff else a[:s_eff]
                        for a in full)
+        progress["fields"] = fields
         while pending:
-            fields = self._fold_one_plane(fields, pending, s_eff)
-        self._sync()
+            fields = self._fold_one_plane(fields, pending, s_eff, call)
+            progress["fields"] = fields
+        if on_device:
+            if swapped.micro_residual is not None:
+                # the deltas the scheduler had not streamed by the swap
+                # land on the device here, as the batch path's upload would
+                mirror, coos = swapped.micro_residual
+                swapped.micro_residual = None
+                for coo in coos:
+                    mirror.feed(*coo)
+                swapped.device_stage = mirror.finish()
+            dstage = swapped.device_stage
+            swapped.device_stage = None
+            if dstage is not None:
+                self.last_micro_chunks = dstage.chunks
+                self.last_micro_bytes = dstage.nbytes
+                fields = call("staged", self._fold_mirror, fields, dstage,
+                              s_eff)
+                progress["fields"] = fields
+        else:
+            # the mirror is device state: its samples fold from the host
+            # replay swap kept
+            swapped.device_stage = swapped.micro_residual = None
+            if swapped.micro_replay is not None:
+                fields = self._fold_one_plane(
+                    fields, [swapped.micro_replay], s_eff, call)
+                progress["fields"] = fields
+        # the mirror's content is folded: its replay is not needed
+        swapped.micro_replay = None
+        call("staged", _sync_on, fields[0])
         t1 = time.perf_counter()
         # quantiles travel as f64 on the host; f32 at the device boundary
         qnp = np.asarray(quantiles, dtype=np.float32)
-        qs = _to_device(qnp, self.device)
-        packed = self._extract(fields, qs).cpu().numpy()
+
+        def extract(fl):
+            qs = _to_device(qnp, fl[0].device)
+            return self._extract(fl, qs).cpu().numpy()
+
+        packed = call("extract", extract, fields, retryable=True)
         phases["fold_s"] = t1 - t0
         phases["extract_s"] = time.perf_counter() - t1
         p = qnp.shape[0]
@@ -1259,14 +1951,17 @@ class DeviceWorker:
         # the centroid rows are read back only where forwarding could
         # consume them (a local tier), as in the reference
         if self.is_local:
-            snap.digest_means = fields[0].cpu().numpy()[:n]
-            snap.digest_weights = fields[1].cpu().numpy()[:n]
+            snap.digest_means, snap.digest_weights = call(
+                "extract", lambda fl: (fl[0].cpu().numpy()[:n],
+                                       fl[1].cpu().numpy()[:n]),
+                fields, retryable=True)
 
     def _extract_sets(self, snap: FlushSnapshot, swapped: SwappedEpoch,
-                      phases: dict) -> None:
+                      phases: dict, mark_degraded) -> None:
         """Set estimates (the hll_estimate kernel on the card) and, where
         the reference reads them back, the register rows (their wall time
-        is ``set_registers_s``, a part of ``sets_s``)."""
+        is ``set_registers_s``, a part of ``sets_s``). A fault, or a pool
+        already on the CPU, gives the CPU's bitwise-equal estimate."""
         n = snap.directory.num_set_rows
         staged = swapped.staged_sets
         if staged is not None:
@@ -1277,12 +1972,30 @@ class DeviceWorker:
                 t0 = time.perf_counter()
                 snap.set_registers = staged.registers(n)
                 phases["set_registers_s"] = time.perf_counter() - t0
-        elif swapped.sets is not None:
-            est = hll_ops.estimate(swapped.sets, self.hll_precision)
-            snap.set_estimates = est.cpu().numpy()[:n]
-            t0 = time.perf_counter()
-            snap.set_registers = swapped.sets[:n].cpu().numpy()
-            phases["set_registers_s"] = time.perf_counter() - t0
+            if staged.host_mode:
+                mark_degraded()
+            return
+        sets = swapped.sets
+        if sets is None:
+            return
+        p = self.hll_precision
+        if not swapped.host and sets.device.type == self.device.type:
+            try:
+                snap.set_estimates = self.guard.call(
+                    "extract",
+                    lambda: hll_ops.estimate(sets, p).cpu().numpy()[:n],
+                    retryable=True)
+                t0 = time.perf_counter()
+                snap.set_registers = self.guard.call(
+                    "extract", lambda: sets[:n].cpu().numpy(),
+                    retryable=True)
+                phases["set_registers_s"] = time.perf_counter() - t0
+                return
+            except dg.DeviceFaultError:
+                sets = dg.host_copy(sets, "set pool")
+        mark_degraded()
+        snap.set_estimates = hll_ops.estimate(sets, p).numpy()[:n]
+        snap.set_registers = sets[:n].numpy()
 
     def flush(self, quantiles: np.ndarray, interval_s: float = 10.0
               ) -> FlushSnapshot:

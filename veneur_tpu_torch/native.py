@@ -4,8 +4,9 @@ The port's own copy of the parts of veneur_tpu/native.py that DogStatsD
 ingest needs: the library loader, ``NativeIngest`` (one epoch's parser,
 series directory, raw-sample staging plane and drain buffers in C++),
 ``NativeRouter`` (lines committed to shard digest % N, and C++ reader
-threads on bound UDP sockets), ``available`` and ``source_hash``. The
-emit, codec, forward, SSF, reader-shard and loadgen entry points wait for
+threads on bound UDP sockets), ``available`` and ``source_hash``, and the
+staging plane's watermark drain the micro-fold reads
+(``stage_pending``, ``drain_stage_delta``). The emit, codec, forward, SSF, reader-shard and loadgen entry points wait for
 their slices.
 
 The library is built from the sources in ``native/`` at first use, by
@@ -155,6 +156,10 @@ def load_library() -> ctypes.CDLL:
             c.POINTER(c.POINTER(c.c_int32)),
             c.POINTER(c.c_int32), c.POINTER(c.c_int32)]
         lib.vn_stage_free.argtypes = [vp]
+        lib.vn_stage_pending.restype = ll
+        lib.vn_stage_pending.argtypes = [vp]
+        lib.vn_stage_drain_delta.restype = c.c_int64
+        lib.vn_stage_drain_delta.argtypes = [vp, vp, vp, vp, vp, c.c_int64]
         lib.vn_stage_unit_wts.restype = ci
         lib.vn_stage_unit_wts.argtypes = [vp]
         lib.vn_reader_start2.restype = vp
@@ -256,6 +261,26 @@ class NativeIngest:
         """Enable the C++ raw-sample staging plane with B slots per
         histogram row (0 disables); detach_stage() pulls it at flush."""
         self._lib.vn_set_stage_depth(self._ctx, depth)
+
+    @property
+    def stage_pending(self) -> int:
+        """Staged samples not yet copied out by drain_stage_delta (the
+        micro-fold's due check)."""
+        return int(self._lib.vn_stage_pending(self._ctx))
+
+    def drain_stage_delta(self, cap: int):
+        """Copy up to ``cap`` not yet drained staged samples out as COO
+        (rows, slots, vals, wts) with ABSOLUTE slot positions, advancing
+        the plane's per-row drained watermark. The plane's counts are
+        untouched, so the depth cap and the spill are those of a run with
+        no micro-folds."""
+        rows = np.empty(cap, np.int32)
+        slots = np.empty(cap, np.int32)
+        vals = np.empty(cap, np.float32)
+        wts = np.empty(cap, np.float32)
+        n = self._lib.vn_stage_drain_delta(
+            self._ctx, _ptr(rows), _ptr(slots), _ptr(vals), _ptr(wts), cap)
+        return rows[:n], slots[:n], vals[:n], wts[:n]
 
     def detach_stage(self):
         """Detach the staged plane: (vals[rows, depth], wts[rows, depth],

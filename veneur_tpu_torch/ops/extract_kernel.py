@@ -206,9 +206,7 @@ def _launch(r: int, fields, qs) -> torch.Tensor:
             *(t.data_ptr() for t in fields))
         rc = getattr(lib, f"flush_extract_launch_r{r}")(
             ptrs, qs.data_ptr(), out.data_ptr(), s, p, grid, stream)
-    if rc != 0:
-        raise RuntimeError(f"flush_extract r{r} launch failed: CUDA error "
-                           f"{rc}")
+    nvcc.check(rc, f"flush_extract r{r} launch failed")
     variant_launches[r] += 1
     return out
 

@@ -122,8 +122,7 @@ def insert(registers: torch.Tensor, recs: torch.Tensor) -> torch.Tensor:
         stream = torch.cuda.current_stream(registers.device).cuda_stream
         rc = lib.hll_insert_launch(registers.data_ptr(), recs.data_ptr(), n,
                                    registers.numel(), m, stream)
-    if rc != 0:
-        raise RuntimeError(f"hll_insert launch failed: CUDA error {rc}")
+    nvcc.check(rc, "hll_insert launch failed")
     return registers
 
 
@@ -133,8 +132,7 @@ def noop(grid: int, device: torch.device) -> None:
     with torch.cuda.device(device):
         rc = lib.hll_noop_launch(
             grid, torch.cuda.current_stream(device).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(f"hll_noop launch failed: CUDA error {rc}")
+    nvcc.check(rc, "hll_noop launch failed")
 
 
 def estimate(registers: torch.Tensor, precision: int) -> torch.Tensor:
@@ -159,6 +157,5 @@ def estimate(registers: torch.Tensor, precision: int) -> torch.Tensor:
             out.data_ptr(), s, precision,
             float(exn.hll_alpha_m2(precision)),
             float(np.float32(2.5 * m)), stream)
-    if rc != 0:
-        raise RuntimeError(f"hll_estimate launch failed: CUDA error {rc}")
+    nvcc.check(rc, "hll_estimate launch failed")
     return out

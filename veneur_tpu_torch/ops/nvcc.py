@@ -29,6 +29,22 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 EXTRACT_FLAGS = FLAGS + ("-ftz=true",)
 
 
+class CudaError(RuntimeError):
+    """A CUDA runtime call of a kernel launcher returned ``code`` (a
+    ``cudaError_t``); ops/device_guard.classify maps it to a fault kind.
+    Argument checks raise ValueError or TypeError, never this."""
+
+    def __init__(self, code: int, what: str):
+        super().__init__(f"{what}: CUDA error {code}")
+        self.code = int(code)
+
+
+def check(rc: int, what: str) -> None:
+    """Raise CudaError unless the launcher returned cudaSuccess."""
+    if rc != 0:
+        raise CudaError(rc, what)
+
+
 def nvcc() -> str:
     path = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
     if not os.path.exists(path):

@@ -17,9 +17,16 @@ same estimator on both sides (ops/hll.estimate, the hll_estimate kernel
 on the card, for dense rows), so a series reports identically on either
 side of promotion.
 
+Device fault domain (ops/device_guard.py): every dense-tier device op
+(inserts, growth, estimates, the register readback) runs under the
+worker's guard as op "sets". Register updates are max-merges, idempotent
+and order-free, so on a classified fault the dense tier moves to the CPU
+(``to_host``: the same torch int8 tensor on the CPU, where ops/hll takes
+its plain versions) and the faulted update is applied again there;
+``to_device`` moves it back when the probe re-admits the card.
+
 Not ported here: the series-sharded dense tier (``shard=``; the factory
-refuses series sharding) and the device fault domain's host mode
-(``guard=``, ``to_host``/``to_device``; ROADMAP.md item 3 brings them).
+refuses series sharding).
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from veneur_tpu_torch.ops import hll as hll_ops
+from veneur_tpu_torch.ops.device_guard import DeviceFaultError, host_copy
 
 
 class StagedSetStore:
@@ -39,8 +47,10 @@ class StagedSetStore:
 
     def __init__(self, precision: int = hll_ops.DEFAULT_PRECISION,
                  promote_entries: Optional[int] = None,
-                 compact_every: int = 1 << 16, device=None) -> None:
+                 compact_every: int = 1 << 16, device=None,
+                 guard=None, host: bool = False) -> None:
         self.precision = precision
+        # the device of the dense tier; in host mode it lives on the CPU
         self.device = device
         self.m = hll_ops.num_registers(precision)
         self.promote_entries = promote_entries or max(self.m // 8, 64)
@@ -58,9 +68,48 @@ class StagedSetStore:
         self._slot_lut = np.full(64, -1, np.int32)
         self._dense: Optional[torch.Tensor] = None  # int8 [slots, m]
         self._inserter = hll_ops.HostInserter()
+        self._guard = guard
+        # host mode: the dense tier is a CPU tensor (a quarantined worker,
+        # or the failover after a dense-tier fault)
+        self._host = bool(host)
         # imported full-register rows max-merge host-side and batch onto
         # the device once per flush
         self._imp_dense: dict[int, np.ndarray] = {}
+
+    # -- device fault domain ------------------------------------------------
+
+    @property
+    def host_mode(self) -> bool:
+        return self._host
+
+    @property
+    def _dense_device(self):
+        return "cpu" if self._host else self.device
+
+    def _dev_call(self, fn, *args, retryable: bool = False):
+        """One dense-tier device op through the worker's guard (in host
+        mode, or without a guard, a plain call)."""
+        if self._guard is None or self._host:
+            return fn(*args)
+        return self._guard.call("sets", fn, *args, retryable=retryable)
+
+    def to_host(self) -> None:
+        """Move the dense tier to the CPU. Safe after a partly applied
+        faulted update: max-merges applied again only re-assert ranks."""
+        if self._host:
+            return
+        self._host = True
+        if self._dense is not None:
+            self._dense = host_copy(self._dense, "set dense tier")
+
+    def to_device(self) -> None:
+        """Move the dense tier back to the device (the probe succeeded).
+        Nothing changes if the upload raises."""
+        if not self._host:
+            return
+        if self._dense is not None:
+            self._dense = self._dense.to(self.device)
+        self._host = False
 
     # -- ingest -------------------------------------------------------------
 
@@ -108,17 +157,30 @@ class StagedSetStore:
         stacked = np.stack([self._imp_dense[r] for r in rows])
         self._imp_dense = {}
         assert self._dense is not None
-        # slots are distinct (one per imported row): a row-wise max
-        at = torch.from_numpy(slots).to(self._dense.device)
-        self._dense[at] = torch.maximum(
-            self._dense[at], torch.from_numpy(stacked).to(self._dense.device))
+
+        def merge_rows(dense):
+            # slots are distinct (one per imported row): a row-wise max
+            at = torch.from_numpy(slots).to(dense.device)
+            dense[at] = torch.maximum(
+                dense[at], torch.from_numpy(stacked).to(dense.device))
+
+        try:
+            self._dev_call(merge_rows, self._dense, retryable=True)
+        except DeviceFaultError:
+            self.to_host()
+            merge_rows(self._dense)
 
     # -- internals ----------------------------------------------------------
 
     def _dense_insert(self, slots: np.ndarray, idx: np.ndarray,
                       rank: np.ndarray) -> None:
         assert self._dense is not None
-        self._inserter.insert(self._dense, slots, idx, rank)
+        try:
+            self._dev_call(self._inserter.insert, self._dense, slots, idx,
+                           rank, retryable=True)
+        except DeviceFaultError:
+            self.to_host()
+            self._inserter.insert(self._dense, slots, idx, rank)
 
     def _compact(self) -> None:
         self._compact_no_promote()
@@ -146,10 +208,20 @@ class StagedSetStore:
         self._slot_lut[row] = slot
         if self._dense is None or slot >= self._dense.shape[0]:
             grown = max(16, (slot + 1) * 2)
-            fresh = hll_ops.init_pool(grown, self.precision, self.device)
-            if self._dense is not None:
-                fresh[:self._dense.shape[0]] = self._dense
-            self._dense = fresh
+
+            def grow(old, device):
+                fresh = hll_ops.init_pool(grown, self.precision, device)
+                if old is not None:
+                    fresh[:old.shape[0]] = old
+                return fresh
+
+            try:
+                self._dense = self._dev_call(grow, self._dense,
+                                             self._dense_device,
+                                             retryable=True)
+            except DeviceFaultError:
+                self.to_host()
+                self._dense = grow(self._dense, "cpu")
         mask = (self._ckeys // self.m) == row
         if mask.any():
             idx = (self._ckeys[mask] % self.m).astype(np.int32)
@@ -212,8 +284,15 @@ class StagedSetStore:
             else:
                 out[r] = raw
         if self._slot_of_row and self._dense is not None:
-            dense_est = hll_ops.estimate(self._dense,
-                                         self.precision).cpu().numpy()
+            def est(dense):
+                return hll_ops.estimate(dense, self.precision).cpu().numpy()
+
+            try:
+                dense_est = self._dev_call(est, self._dense, retryable=True)
+            except DeviceFaultError:
+                # the CPU's plain estimate is bitwise the kernel's
+                self.to_host()
+                dense_est = est(self._dense)
             for r, s in self._slot_of_row.items():
                 if r < num_rows:
                     out[r] = dense_est[s]
@@ -231,7 +310,12 @@ class StagedSetStore:
         mask = rows < num_rows
         out[rows[mask], idx[mask]] = self._crank[mask]
         if self._slot_of_row and self._dense is not None:
-            dense_np = self._dense.cpu().numpy()
+            try:
+                dense_np = self._dev_call(lambda d: d.cpu().numpy(),
+                                          self._dense, retryable=True)
+            except DeviceFaultError:
+                self.to_host()
+                dense_np = self._dense.numpy()
             for r, s in self._slot_of_row.items():
                 if r < num_rows:
                     out[r] = dense_np[s]
