@@ -60,10 +60,13 @@ script exits non-zero:
    process, so nothing else loads the host while the card's steps are
    timed; compare_snapshots holds the two snapshots to each other.
 5. server: the port's Server built by its factory with a UDP listener on
-   port 0, a channel sink and count_unique_timeseries answers a few
-   hundred real datagrams (set lines among them); one flush; its
-   InterMetrics and its unique-timeseries tally equal a CPU server's over
-   the same datagrams. Two runs: the default configuration on traffic
+   port 0, a channel sink, a Datadog, a Prometheus-repeater and a
+   forward-statsd sink on local listeners (HTTP, TCP, TCP), and
+   count_unique_timeseries answers a few hundred real datagrams (set
+   lines among them); one flush, columnar, through the native emit tier;
+   its InterMetrics, its unique-timeseries tally and every byte its
+   sinks sent equal a CPU server's over the same datagrams (one ``now``,
+   one hostname, the idempotency keys' sender pinned). Two runs: the default configuration on traffic
    with no series past the staging depth, and micro_fold off on traffic
    whose two untagged series take 300 samples each, past the 64-deep
    staging plane, so the spill folds run (with micro-folds on, the
@@ -72,7 +75,9 @@ script exits non-zero:
 5b. each run's datagrams through a server with tpu_native_ingest and
    tpu_native_readers on: a C++ reader thread reads the socket (the
    script fails if a Python reader runs or native mode is off); its
-   InterMetrics and tally equal the CPU server's of phase 5.
+   InterMetrics and tally equal the CPU server's of phase 5, and so do
+   its sinks' Datadog series and other requests and its repeater and
+   forward lines, as multisets.
    Phases 4 to 5b run the configuration's defaults, micro-folds and the
    device guard on (the workers' flush streams the staging plane through
    the mirror; the servers run the micro-fold scheduler; phase 5's spill
@@ -96,7 +101,21 @@ script exits non-zero:
    in a child process (classified lost, the probe fails, the CPU flushes
    on). The guard's host cost per call: a one-kernel op called directly
    and through the guard, in turns.
-8. on the line before the last two, the card's name and power limit;
+8. the egress at full width, after phase 5b (host work: no kernel
+   runs): phase 4's card snapshot through generate_columnar
+   (generate_s, object path against columnar), its materialize() equal
+   to the object path as a multiset and its arrays bitwise the CPU
+   snapshot's batch; then every ported metric sink (Datadog, SignalFx,
+   the Prometheus repeater and pushgateway, forward-statsd, New Relic)
+   of one factory-built server, on local listeners, flushes it through
+   the server's negotiation in turn: the native tier on and off on the
+   card's batch, on for the CPU's. Every byte from the card's batch
+   equals the CPU's (the Datadog bodies raw and inflated); native equals
+   Python byte for byte for the lines, the exposition text and New
+   Relic, and by value for the Datadog series and SignalFx points; the
+   native encoders took every group of every native-capable sink. Each
+   sink's seconds (native, Python), requests and bytes are printed.
+9. on the line before the last two, the card's name and power limit;
    then a ``kernels`` JSON line: every kernel with its launches on the
    main path (phases 4 to 5b: counts reset just before, read just
    after), its agreement with the plain version, its time, the plain
@@ -106,7 +125,7 @@ script exits non-zero:
    from 0 just before its run; the probe's variants beside it, with
    their build report and launches (only the variant flush_extract
    launches has any).
-9. the last line: {"ok": true, "device": {...}}.
+10. the last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the veneur_tpu_torch package beside it, the
 script prints no result and exits 2. It imports nothing of JAX.
@@ -488,7 +507,6 @@ def phase_worker(tw, generate, parse, qs):
     check_guard_clean(cpu, snap_c, "phase 4, CPU")
     del cpu
     compare_snapshots(snap_g, snap_c, "phase 4, card against CPU")
-    del snap_c
     n = snap_g.directory.num_histo_rows
     qv = snap_g.quantile_values
     if qv.shape != (n, len(qs)) or not (qv == qv).all():
@@ -517,7 +535,7 @@ def phase_worker(tw, generate, parse, qs):
             for k, v in t.items()))
     return {"card": t_g, "cpu": t_c, "series": n, "samples": samples,
             "spilled": spilled, "set_series": N_SETS,
-            "set_samples": set_samples}, plan, snap_g
+            "set_samples": set_samples}, plan, snap_g, snap_c
 
 
 # -- phase 4c -----------------------------------------------------------------
@@ -914,6 +932,225 @@ def phase_real_faults() -> dict:
 # -- phase 5 ------------------------------------------------------------------
 
 
+# -- sink listeners (phases 5, 5b and 8) --------------------------------------
+
+
+# request headers a sink sets; urllib's own (Host, User-Agent, ...) vary
+SINK_HEADERS = ("content-type", "content-encoding", "x-sf-token",
+                "x-insert-key")
+
+
+class HttpTap:
+    """A local HTTP listener that records every POST (path, the sink's
+    headers, body) and answers 202."""
+
+    def __init__(self) -> None:
+        import threading
+        from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+
+        tap = self
+        self.lock = threading.Lock()
+        self.requests: list = []
+        self.keys: set = set()
+
+        class Handler(BaseHTTPRequestHandler):
+            def do_POST(self):
+                body = self.rfile.read(int(self.headers["Content-Length"]))
+                hdrs = tuple(sorted((k.lower(), v)
+                                    for k, v in self.headers.items()
+                                    if k.lower() in SINK_HEADERS))
+                with tap.lock:
+                    tap.requests.append((self.path, hdrs, body))
+                    key = self.headers.get("Idempotency-Key")
+                    if key is not None:
+                        tap.keys.add(key)
+                self.send_response(202)
+                self.send_header("Content-Length", "2")
+                self.end_headers()
+                self.wfile.write(b"{}")
+
+            def log_message(self, *args):
+                pass
+
+        self.server = ThreadingHTTPServer(("127.0.0.1", 0), Handler)
+        self.server.daemon_threads = True
+        self.thread = threading.Thread(target=self.server.serve_forever,
+                                       daemon=True)
+        self.thread.start()
+        self.base = f"http://127.0.0.1:{self.server.server_address[1]}"
+
+    def opener(self, req, timeout: float) -> bytes:
+        """The sinks' opener: a request for another host goes to this
+        listener instead, path and query kept (New Relic's collector URL
+        is fixed by its region); nothing leaves the machine."""
+        import urllib.parse
+        import urllib.request
+
+        from veneur_tpu_torch.utils.http import default_opener
+
+        u = urllib.parse.urlsplit(req.full_url)
+        local = urllib.request.Request(
+            self.base + u.path + (f"?{u.query}" if u.query else ""),
+            data=req.data, method=req.get_method(),
+            headers=dict(req.header_items()))
+        return default_opener(local, timeout)
+
+    def taken(self) -> list:
+        with self.lock:
+            return sorted(self.requests)
+
+    def close(self) -> None:
+        self.server.shutdown()
+        self.server.server_close()
+
+
+class TcpTap:
+    """A local TCP listener keeping the byte stream of each connection."""
+
+    def __init__(self) -> None:
+        import socket
+        import threading
+
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(8)
+        self.sock.settimeout(0.1)
+        self.address = f"127.0.0.1:{self.sock.getsockname()[1]}"
+        self.lock = threading.Lock()
+        self.streams: list[bytearray] = []
+        self.readers: list = []
+        self.stop = False
+        self.thread = threading.Thread(target=self._accept, daemon=True)
+        self.thread.start()
+
+    def _accept(self) -> None:
+        import socket
+        import threading
+
+        while not self.stop:
+            try:
+                conn, _ = self.sock.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            buf = bytearray()
+            reader = threading.Thread(target=self._read, args=(conn, buf),
+                                      daemon=True)
+            with self.lock:
+                self.streams.append(buf)
+                self.readers.append(reader)
+            reader.start()
+
+    def _read(self, conn, buf: bytearray) -> None:
+        import socket
+
+        conn.settimeout(0.1)
+        with conn:
+            while not self.stop:
+                try:
+                    data = conn.recv(1 << 20)
+                except socket.timeout:
+                    continue
+                except OSError:
+                    return
+                if not data:
+                    return
+                with self.lock:
+                    buf += data
+
+    def taken(self) -> bytes:
+        """Every byte received, once the sink's connection was accepted
+        and closed (close_sink_sockets)."""
+        deadline = time.monotonic() + 60
+        while not self.readers and time.monotonic() < deadline:
+            time.sleep(0.01)
+        with self.lock:
+            readers = list(self.readers)
+        if not readers:
+            raise AssertionError("the sink never connected")
+        for reader in readers:
+            reader.join(timeout=60)
+            if reader.is_alive():
+                raise AssertionError("a sink kept its TCP connection open")
+        with self.lock:
+            return b"".join(bytes(s) for s in self.streams)
+
+    def close(self) -> None:
+        self.stop = True
+        self.thread.join(timeout=2)
+        self.sock.close()
+
+
+class SinkTaps:
+    """Local listeners behind a server's Datadog (HTTP), Prometheus
+    repeater (TCP) and forward-statsd (TCP) sinks."""
+
+    def __init__(self) -> None:
+        self.http, self.repeater, self.forward = (HttpTap(), TcpTap(),
+                                                  TcpTap())
+
+    def config(self) -> dict:
+        return {"datadog_api_key": "smoke",
+                "datadog_api_hostname": self.http.base,
+                "datadog_flush_max_per_body": 2000,
+                "prometheus_repeater_address": self.repeater.address,
+                "prometheus_network_type": "tcp",
+                "forward_statsd_address": self.forward.address,
+                "forward_statsd_network": "tcp"}
+
+    def taken(self) -> dict:
+        return {"datadog": self.http.taken(),
+                "prometheus": self.repeater.taken(),
+                "forward_statsd": self.forward.taken()}
+
+    def close(self) -> None:
+        for tap in (self.http, self.repeater, self.forward):
+            tap.close()
+
+
+def pin_idempotency(server) -> None:
+    """Idempotency keys carry a random sender token per process: pin it,
+    so two servers' requests compare byte for byte."""
+    for sink in server.metric_sinks:
+        if getattr(sink, "delivery", None) is not None:
+            sink.delivery._mint_sender = "chip-smoke"
+
+
+def close_sink_sockets(server) -> None:
+    for sink in server.metric_sinks:
+        sock = getattr(sink, "_sock", None)
+        if sock is not None:
+            sock.close()
+            sink._sock = None
+
+
+def datadog_entries(requests) -> list:
+    """The series entries of Datadog requests, inflated and parsed, as a
+    sorted list of canonical JSON strings (a point's value as a float:
+    the native tier writes an integral rate as an integer, which JSON
+    reads as the same number); the other requests as they came."""
+    import zlib
+
+    out = []
+    for path, _hdrs, body in requests:
+        if path.startswith("/api/v1/series"):
+            for e in json.loads(zlib.decompress(body))["series"]:
+                e["points"] = [[ts, None if v is None else float(v)]
+                               for ts, v in e["points"]]
+                out.append(json.dumps(e, sort_keys=True))
+        else:
+            out.append(json.dumps([path, body.decode()]))
+    return sorted(out)
+
+
+def lines_of(stream: bytes) -> list:
+    return sorted(stream.split(b"\n"))
+
+
+# -- phases 5 and 5b ----------------------------------------------------------
+
+
 def server_datagrams(seed: int, spill: bool, n: int = 300) -> list[bytes]:
     """Phase 5's traffic. spill=False: no series passes the staging depth
     (at most 60 samples a series), so the interval is bitwise the same on
@@ -943,7 +1180,8 @@ def server_datagrams(seed: int, spill: bool, n: int = 300) -> list[bytes]:
         ]
         out.append("\n".join(lines).encode())
     out.append(b"_sc|api.health|0|#pod:p1|m:serving")
-    out.append(b"_e{7,13}:deploy!|api v2 rolled|#team:core")
+    # the event carries its date (else it is the time it was parsed)
+    out.append(b"_e{7,13}:deploy!|api v2 rolled|d:1700000000|#team:core")
     return out
 
 
@@ -960,8 +1198,7 @@ def server_config(native: bool, spill: bool) -> dict:
            "interval": "1h", "percentiles": [0.5, 0.9, 0.99],
            "aggregates": ["min", "max", "count", "sum", "avg", "median"],
            "hostname": "chip-smoke", "tpu_native_ingest": native,
-           "tpu_native_readers": native, "flush_emit_native": False,
-           "count_unique_timeseries": True}
+           "tpu_native_readers": native, "count_unique_timeseries": True}
     if spill:
         # the spill run's batch cuts are the datagrams' on every path
         cfg["micro_fold"] = False
@@ -987,9 +1224,10 @@ def check_server_guard_clean(server, what: str, micro: bool = True) -> None:
 
 
 def serve_once(data: dict, grams: list, now: int):
-    """A factory-built server on the card with a channel sink: the
-    datagrams over UDP to its listener, one flush. Returns (server,
-    InterMetrics of the flush, InterMetrics the sink got)."""
+    """A factory-built server on the card with a channel sink and the
+    network sinks of SinkTaps: the datagrams over UDP to its listener,
+    one flush. Returns (server, InterMetrics of the flush, InterMetrics
+    the channel sink got, what each network sink's listener took)."""
     import socket
 
     from veneur_tpu_torch.core.config import load_config
@@ -997,8 +1235,10 @@ def serve_once(data: dict, grams: list, now: int):
     from veneur_tpu_torch.sinks.channel import ChannelMetricSink
 
     sink = ChannelMetricSink()
-    server = build_server(load_config(data=data), extra_metric_sinks=[sink],
-                          device=DEVICE)
+    taps = SinkTaps()
+    server = build_server(load_config(data={**data, **taps.config()}),
+                          extra_metric_sinks=[sink], device=DEVICE)
+    pin_idempotency(server)
     ports = server.start()
     try:
         if data["tpu_native_readers"]:
@@ -1028,10 +1268,30 @@ def serve_once(data: dict, grams: list, now: int):
         got = server.flush(now=now)
     finally:
         server.shutdown()
+        close_sink_sockets(server)
+    try:
+        taken = taps.taken()
+    finally:
+        taps.close()
     delivered = []
     while not sink.queue.empty():
         delivered.extend(sink.queue.get_nowait())
-    return server, got, delivered
+    return server, got.materialize(), delivered, taken
+
+
+def check_sink_counts(server, taken: dict, what: str) -> None:
+    """Every network sink flushed without an error and its listener took
+    bytes; nothing is left spilled."""
+    counts = server.sink_counters()
+    for name in taken:
+        c = counts.get(name)
+        if c is None or c["flush_error_total"] or \
+                c["metrics_flushed_total"] < 1 or not taken[name]:
+            raise AssertionError(f"{what}: sink {name}: {c}")
+    for name, d in server.delivery_stats().items():
+        if d["spilled_payloads"] or d["dropped_payloads"] or \
+                d["delivered_payloads"] < 1:
+            raise AssertionError(f"{what}: delivery of {name}: {d}")
 
 
 def phase_server(ek, spill: bool):
@@ -1043,19 +1303,32 @@ def phase_server(ek, spill: bool):
     what = "phase 5 (spill, micro_fold off)" if spill else "phase 5"
     before = ek.flush_extract.launches
     now = 1_700_000_000
-    server, got, delivered = serve_once(data, grams, now)
+    server, got, delivered, taken = serve_once(data, grams, now)
     check_server_guard_clean(server, what, micro=not spill)
+    check_sink_counts(server, taken, what)
     launched = ek.flush_extract.launches - before
+    taps = SinkTaps()
     ref_server = build_server(load_config(data={
-        **data, "statsd_listen_addresses": []}), device="cpu")
+        **data, "statsd_listen_addresses": [], **taps.config()}),
+        device="cpu")
+    pin_idempotency(ref_server)
     for d in grams:
         ref_server.process_metric_packet(d)
-    ref = ref_server.flush(now=now)
+    try:
+        ref = ref_server.flush(now=now).materialize()
+        close_sink_sockets(ref_server)
+        ref_taken = taps.taken()
+    finally:
+        ref_server.shutdown()
+        taps.close()
     check_server_guard_clean(ref_server, f"{what}, CPU server",
                              micro=not spill)
     if canonical(got) != canonical(ref) or \
             canonical(delivered) != canonical(got):
         raise AssertionError("CUDA server InterMetrics != CPU server's")
+    if taken != ref_taken:
+        raise AssertionError(f"{what}: the card server's sinks sent other "
+                             "bytes than the CPU server's")
     tally = server.last_unique_timeseries
     if tally is None or tally != ref_server.last_unique_timeseries \
             or tally < 1:
@@ -1074,21 +1347,32 @@ def phase_server(ek, spill: bool):
         f"on {server.device}, equal to the CPU server's; set gauges "
         f"api.users {sorted(users)}; unique timeseries {tally} on both; "
         f"flush_extract launches during the flush: {launched}; micro-folds "
-        f"{server.workers[0].micro_folds_total}")
-    return grams, canonical(ref), ref_server.last_unique_timeseries
+        f"{server.workers[0].micro_folds_total}; sinks: " + ", ".join(
+            f"{k} {len(v)} {'requests' if k == 'datadog' else 'bytes'}"
+            for k, v in taken.items()) + ", equal to the CPU server's")
+    return grams, canonical(ref), ref_server.last_unique_timeseries, taken
 
 
-def phase_native_server(grams, ref, ref_tally, spill: bool):
+def phase_native_server(grams, ref, ref_tally, ref_taken, spill: bool):
     """Phase 5's datagrams through a server with tpu_native_ingest and
     tpu_native_readers on (a C++ reader thread on the UDP socket): its
-    InterMetrics equal the Python-path CPU server's of phase 5."""
+    InterMetrics equal the Python-path CPU server's of phase 5, and so
+    does what its sinks sent, as multisets (the C++ directory may order
+    the rows otherwise): the Datadog series entries and the other
+    requests, the repeater's and forward-statsd's lines."""
     t0 = time.perf_counter()
-    server, got, delivered = serve_once(
+    server, got, delivered, taken = serve_once(
         server_config(native=True, spill=spill), grams, 1_700_000_000)
     wall = time.perf_counter() - t0
-    check_server_guard_clean(
-        server, "phase 5b (spill, micro_fold off)" if spill else "phase 5b",
-        micro=not spill)
+    what = "phase 5b (spill, micro_fold off)" if spill else "phase 5b"
+    check_server_guard_clean(server, what, micro=not spill)
+    check_sink_counts(server, taken, what)
+    if datadog_entries(taken["datadog"]) != \
+            datadog_entries(ref_taken["datadog"]) or any(
+            lines_of(taken[k]) != lines_of(ref_taken[k])
+            for k in ("prometheus", "forward_statsd")):
+        raise AssertionError(f"{what}: the native server's sinks sent "
+                             "other metrics than the CPU server's")
     if not spill and server.workers[0].micro_folds_total < 1:
         raise AssertionError("the native server's scheduler ran no "
                              "micro-fold")
@@ -1104,8 +1388,264 @@ def phase_native_server(grams, ref, ref_tally, spill: bool):
         f"datagrams read by a C++ reader "
         f"thread (native_mode on, no Python reader) -> {len(got)} "
         f"InterMetrics on {server.device}, equal to the Python-path CPU "
-        f"server's; unique timeseries {ref_tally}; micro-folds "
+        f"server's, and so are its sinks' series and lines; unique "
+        f"timeseries {ref_tally}; micro-folds "
         f"{server.workers[0].micro_folds_total}; {wall:.2f} s")
+
+
+# -- phase 8 ------------------------------------------------------------------
+
+
+EGRESS_AGGS = ["min", "max", "count", "sum", "avg", "median", "hmean"]
+EGRESS_NOW = 1_700_000_000
+# the port's native encoders, each counted while phase 8's sinks flush
+ENCODERS = ("encode_datadog_series", "encode_signalfx_body",
+            "encode_prometheus_lines", "encode_forward_lines",
+            "encode_prometheus_exposition")
+
+
+@contextlib.contextmanager
+def counting_encoders():
+    """Count each native encoder's calls and the calls that returned a
+    payload (None sends the group to the Python formatter)."""
+    from veneur_tpu_torch import native
+
+    counts = {name: [0, 0] for name in ENCODERS}
+    saved = {name: getattr(native, name) for name in ENCODERS}
+
+    def wrap(name):
+        def call(*args, **kw):
+            out = saved[name](*args, **kw)
+            counts[name][0] += 1
+            counts[name][1] += out is not None
+            return out
+        return call
+
+    for name in ENCODERS:
+        setattr(native, name, wrap(name))
+    try:
+        yield counts
+    finally:
+        for name, fn in saved.items():
+            setattr(native, name, fn)
+
+
+def batch_arrays_equal(a, b, what: str) -> None:
+    """Two ColumnarMetrics batches: every group's arrays bitwise, arenas
+    and row metadata equal, the extras equal."""
+    if len(a.groups) != len(b.groups):
+        raise AssertionError(f"{what}: groups differ")
+    for gi, (ga, gb) in enumerate(zip(a.groups, b.groups)):
+        if (ga.nrows, ga.has_routing) != (gb.nrows, gb.has_routing) or \
+                bytes(ga.meta_blob or b"") != bytes(gb.meta_blob or b"") \
+                or (ga.meta_blob is None) != (gb.meta_blob is None):
+            raise AssertionError(f"{what}: group {gi} rows or arena differ")
+        if [(f.suffix, f.type) for f in ga.families] != \
+                [(f.suffix, f.type) for f in gb.families]:
+            raise AssertionError(f"{what}: group {gi} families differ")
+        for fa, fb in zip(ga.families, gb.families):
+            if fa.values.tobytes() != fb.values.tobytes() or \
+                    (fa.mask is None) != (fb.mask is None) or (
+                        fa.mask is not None
+                        and fa.mask.tobytes() != fb.mask.tobytes()):
+                raise AssertionError(f"{what}: group {gi} family "
+                                     f"{fa.suffix!r} differs")
+    if canonical(a.extras) != canonical(b.extras):
+        raise AssertionError(f"{what}: extras differ")
+
+
+def egress_server(http: HttpTap, repeater: TcpTap, forward: TcpTap):
+    """A factory-built server on the card whose metric sinks are every
+    ported network sink, pointed at the local listeners."""
+    from veneur_tpu_torch.core.config import load_config
+    from veneur_tpu_torch.core.factory import build_server
+
+    data = {"interval": "1h", "hostname": "chip-smoke",
+            "percentiles": QS, "aggregates": EGRESS_AGGS,
+            "tags": ["smoke:8"],
+            "datadog_api_key": "smoke", "datadog_api_hostname": http.base,
+            "signalfx_api_key": "smoke", "signalfx_endpoint_base": http.base,
+            "prometheus_repeater_address": repeater.address,
+            "prometheus_network_type": "tcp",
+            "prometheus_pushgateway_address":
+                f"{http.base}/metrics/job/smoke",
+            "forward_statsd_address": forward.address,
+            "forward_statsd_network": "tcp",
+            "newrelic_insert_key": "smoke", "newrelic_account_id": 8}
+    server = build_server(load_config(data=data), device=DEVICE,
+                          opener=http.opener)
+    pin_idempotency(server)
+    for sink in server.metric_sinks:
+        # New Relic's URL names its public collector: its requests must
+        # go through the listener's opener
+        if getattr(sink, "opener", http.opener) != http.opener:
+            raise AssertionError(f"sink {sink.name()} has its own opener")
+    return server
+
+
+def emit_once(batch, native: bool) -> dict:
+    """Each sink of egress_server flushes the batch in turn through the
+    server's negotiation, the native tier on or off; per sink its
+    seconds, what its listener took, and the native encoder calls."""
+    http, repeater, forward = HttpTap(), TcpTap(), TcpTap()
+    server = egress_server(http, repeater, forward)
+    server.flush_emit_native = native
+    out = {}
+    try:
+        for sink in server.metric_sinks:
+            with counting_encoders() as enc:
+                t0 = time.perf_counter()
+                server._flush_sink_columnar(sink, batch, None)
+                secs = time.perf_counter() - t0
+            out[type(sink).__name__] = {"s": secs, "encoders": {
+                k: v for k, v in enc.items() if v[0]}}
+        close_sink_sockets(server)
+        taken = {"http": http.taken(), "http_keys": sorted(http.keys),
+                 "repeater": repeater.taken(), "forward": forward.taken()}
+        counts = server.sink_counters()
+        delivery = server.delivery_stats()
+    finally:
+        server.shutdown()
+        for tap in (http, repeater, forward):
+            tap.close()
+    for name, c in counts.items():
+        if c["flush_error_total"] or c["metrics_flushed_total"] < 1:
+            raise AssertionError(f"phase 8: sink {name}: {c}")
+    for name, d in delivery.items():
+        if d["spilled_payloads"] or d["dropped_payloads"]:
+            raise AssertionError(f"phase 8: delivery of {name}: {d}")
+    return {"sinks": out, "taken": taken}
+
+
+def http_by_sink(requests) -> dict:
+    """The HTTP requests by sink, from their paths."""
+    out = {"datadog": [], "signalfx": [], "exposition": [], "newrelic": []}
+    for r in requests:
+        path = r[0]
+        key = ("datadog" if path.startswith(("/api/", "/intake")) else
+               "signalfx" if path.startswith("/v2/") else
+               "exposition" if path.startswith("/metrics/") else
+               "newrelic" if path.startswith("/v1/accounts/") else None)
+        if key is None:
+            raise AssertionError(f"phase 8: request to {path}")
+        out[key].append(r)
+    return out
+
+
+def signalfx_points(requests) -> list:
+    out = []
+    for path, _hdrs, body in requests:
+        if path.startswith("/v2/datapoint"):
+            for kind, pts in json.loads(body).items():
+                for p in pts:
+                    p["value"] = float(p["value"])
+                    out.append(json.dumps([kind, p], sort_keys=True))
+    return sorted(out)
+
+
+def phase_egress(snap_g, snap_c) -> dict:
+    """Phase 8: phase 4's 100k-series snapshot from the card through
+    generate_columnar (held to the object path, and to the CPU
+    snapshot's batch bitwise), then through every ported metric sink to
+    local listeners: native tier on and off on the card's batch, native
+    on the CPU's. Raises on any difference."""
+    import zlib
+
+    from veneur_tpu_torch.core.flusher import (generate_columnar,
+                                               generate_inter_metrics)
+    from veneur_tpu_torch.core.metrics import HistogramAggregates
+
+    aggs = HistogramAggregates.from_names(EGRESS_AGGS)
+    t0 = time.perf_counter()
+    objs = generate_inter_metrics(snap_g, False, QS, aggs, now=EGRESS_NOW)
+    t_obj = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    batch = generate_columnar(snap_g, False, QS, aggs, now=EGRESS_NOW)
+    t_col = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    mats = batch.materialize()
+    t_mat = time.perf_counter() - t0
+    if len(batch) != len(objs) or canonical(mats) != canonical(objs):
+        raise AssertionError("phase 8: materialize() != the object path")
+    del objs, mats
+    batch_c = generate_columnar(snap_c, False, QS, aggs, now=EGRESS_NOW)
+    batch_arrays_equal(batch, batch_c, "phase 8, card against CPU")
+    plans = batch.emit_plan()
+    if not plans or any(p is None for p in plans):
+        raise AssertionError("phase 8: a group has no native emit plan")
+    log(f"[egress] {len(batch)} metrics in {len(batch.groups)} groups; "
+        f"generate_s object {t_obj:.4f}, columnar {t_col:.4f} "
+        f"(materialize {t_mat:.4f}); materialize() equal to the object "
+        f"path; the batch bitwise equal to the CPU snapshot's")
+
+    runs = {"native": emit_once(batch, True),
+            "python": emit_once(batch, False),
+            "cpu_native": emit_once(batch_c, True)}
+    # the native tier took every group of every native-capable sink
+    for name, rec in runs["native"]["sinks"].items():
+        enc = rec["encoders"]
+        if name == "NewRelicMetricSink":
+            if enc:
+                raise AssertionError("phase 8: New Relic called an encoder")
+            continue
+        calls = sum(v[0] for v in enc.values())
+        done = sum(v[1] for v in enc.values())
+        if calls != len(batch.groups) or done != calls:
+            raise AssertionError(f"phase 8: {name}: native encoders took "
+                                 f"{done} of {len(batch.groups)} groups")
+    for name, rec in runs["python"]["sinks"].items():
+        if rec["encoders"]:
+            raise AssertionError(f"phase 8: {name} encoded natively with "
+                                 "the tier off")
+    nat, py, cpu = (runs[k]["taken"] for k in ("native", "python",
+                                                "cpu_native"))
+    # card against CPU: every byte, the Datadog bodies raw and inflated
+    if nat != cpu:
+        raise AssertionError("phase 8: the card batch's sinks sent other "
+                             "bytes than the CPU batch's")
+    hn, hp, hc = (http_by_sink(x["http"]) for x in (nat, py, cpu))
+    inflate = [zlib.decompress(b) for p, _h, b in hn["datadog"]
+               if p.startswith("/api/v1/series")]
+    if inflate != [zlib.decompress(b) for p, _h, b in hc["datadog"]
+                   if p.startswith("/api/v1/series")]:
+        raise AssertionError("phase 8: inflated Datadog bodies differ")
+    # native against Python: byte for byte where the formats are one
+    # (lines, exposition text, New Relic), else the same series and
+    # points (the native JSON bodies are compact and chunked per group)
+    if nat["repeater"] != py["repeater"] or nat["forward"] != py["forward"]:
+        raise AssertionError("phase 8: native lines != Python lines")
+    if hn["exposition"] != hp["exposition"] or \
+            hn["newrelic"] != hp["newrelic"]:
+        raise AssertionError("phase 8: native exposition or New Relic "
+                             "bytes != Python's")
+    if datadog_entries(hn["datadog"]) != datadog_entries(hp["datadog"]):
+        raise AssertionError("phase 8: native Datadog series != Python's")
+    if signalfx_points(hn["signalfx"]) != signalfx_points(hp["signalfx"]):
+        raise AssertionError("phase 8: native SignalFx points != Python's")
+
+    sinks = {name: {f"{run}_s": runs[run]["sinks"][name]["s"]
+                    for run in runs} for name in runs["native"]["sinks"]}
+    for name, key in (("DatadogMetricSink", "datadog"),
+                      ("SignalFxMetricSink", "signalfx"),
+                      ("PrometheusExpositionSink", "exposition"),
+                      ("NewRelicMetricSink", "newrelic")):
+        sinks[name].update(
+            requests=len(hn[key]), python_requests=len(hp[key]),
+            bytes=sum(len(b) for _p, _h, b in hn[key]))
+    sinks["PrometheusMetricSink"].update(
+        requests=1, bytes=len(nat["repeater"]))
+    sinks["ForwardStatsdSink"].update(requests=1, bytes=len(nat["forward"]))
+    for name, s in sinks.items():
+        log(f"[egress] {name}: native {s['native_s']:.4f} s, Python "
+            f"{s['python_s']:.4f} s (CPU batch native "
+            f"{s['cpu_native_s']:.4f} s); {s['requests']} requests, "
+            f"{s['bytes']} bytes")
+    log("[egress] every sink's bytes from the card batch equal the CPU "
+        "batch's; native equal to Python; the native tier took every "
+        "group of every native-capable sink")
+    return {"metrics": len(batch), "groups": len(batch.groups),
+            "generate_object_s": t_obj, "generate_columnar_s": t_col,
+            "materialize_s": t_mat, "sinks": sinks}
 
 
 # -- main ---------------------------------------------------------------------
@@ -1218,7 +1758,8 @@ def main() -> int:
 
     reset_launches(ek, hll)
     t0 = time.perf_counter()
-    phases, plan, python_snap = phase_worker(tw, generate, parse_metric, qs)
+    phases, plan, python_snap, cpu_snap = phase_worker(
+        tw, generate, parse_metric, qs)
     wall["worker_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     phases["dense_sets"] = phase_dense_sets(tw, parse_metric, hll)
@@ -1230,16 +1771,23 @@ def main() -> int:
     wall["server_s"] = wall["native_server_s"] = 0.0
     for spill in (False, True):
         t0 = time.perf_counter()
-        server_grams, server_ref, server_tally = phase_server(ek, spill)
+        server_grams, server_ref, server_tally, server_taken = \
+            phase_server(ek, spill)
         wall["server_s"] += time.perf_counter() - t0
         t0 = time.perf_counter()
-        phase_native_server(server_grams, server_ref, server_tally, spill)
+        phase_native_server(server_grams, server_ref, server_tally,
+                            server_taken, spill)
         wall["native_server_s"] += time.perf_counter() - t0
     launches = read_launches(ek, hll)
     for name in ("flush_extract", "hll_insert", "hll_estimate"):
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the main "
                                  f"path")
+    # 8: the egress of phase 4's snapshot (host work: no kernel runs)
+    t0 = time.perf_counter()
+    phases["egress"] = phase_egress(python_snap, cpu_snap)
+    del cpu_snap
+    wall["egress_s"] = time.perf_counter() - t0
     # this slice's own paths, each counted from 0 just before its run
     reset_launches(ek, hll)
     t0 = time.perf_counter()

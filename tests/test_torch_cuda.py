@@ -576,3 +576,82 @@ def test_dense_set_pool_fails_over_alone_on_the_card(card):
     a2, b2 = gpu.flush(qs), cpu.flush(qs)
     assert not a2.degraded
     assert guard_faults.same_snapshots(a2, b2) == []
+
+
+def test_egress_of_a_card_snapshot(card):
+    """A small card snapshot through generate_columnar and the line,
+    exposition and Datadog sinks: the native tier's bytes equal the
+    Python formatter's (line blobs and exposition text byte for byte,
+    Datadog series by value), and the card batch's equal the CPU
+    batch's."""
+    import json
+    import zlib
+
+    from veneur_tpu_torch.core.flusher import (device_quantiles,
+                                               generate_columnar)
+    from veneur_tpu_torch.core.metrics import HistogramAggregates
+    from veneur_tpu_torch.sinks.datadog import DatadogMetricSink
+    from veneur_tpu_torch.sinks.forward_statsd import ForwardStatsdSink
+    from veneur_tpu_torch.sinks.prometheus import (PrometheusExpositionSink,
+                                                   PrometheusMetricSink)
+
+    aggs = HistogramAggregates.from_names(
+        ["min", "max", "count", "sum", "avg", "median", "hmean"])
+    qs = device_quantiles([0.5, 0.99], aggs)
+    rng = np.random.default_rng(8)
+    lines = [f"lat.{i % 97}:{v:.4f}|ms|#ep:e{i % 3}".encode()
+             for i, v in enumerate(rng.gamma(2.0, 20.0, 4000))]
+    lines += [f"c.{i}:{i % 4}|c".encode() for i in range(50)]
+    lines += [f"g.{i}:{rng.normal():.5f}|g|#host:h{i}".encode()
+              for i in range(50)]
+    lines += _set_lines(2)[:400]
+    batches = []
+    for device in (card, "cpu"):
+        w = tw.DeviceWorker(batch_size=1024, device=device)
+        for line in lines:
+            w.process_metric(parse_metric(line))
+        batches.append(generate_columnar(w.flush(qs), False, [0.5, 0.99],
+                                         aggs, now=1_700_000_000))
+
+    def emit(batch, native):
+        out = []
+        for cls in (ForwardStatsdSink, PrometheusMetricSink):
+            sink = cls("127.0.0.1:9")
+            sent = []
+            sink._send = sent.append
+            if native:
+                assert sink.flush_columnar_native(batch)
+            else:
+                sink.flush_columnar(batch)
+            out.append(b"\n".join(sent[0]))
+        expo = PrometheusExpositionSink("http://127.0.0.1:9/m")
+        posted = []
+        expo._post = lambda body, count: posted.append(body)
+        (expo.flush_columnar_native if native else expo.flush_columnar)(
+            batch)
+        out.append(posted[0])
+        dd = DatadogMetricSink(interval=10.0, flush_max_per_body=500,
+                               hostname="h", tags=["t:1"],
+                               dd_hostname="http://127.0.0.1:9",
+                               api_key="k")
+        got = []
+        dd._post_all = lambda m, c, raw=None, n=0, precompressed=False: \
+            got.append((m, raw or []))
+        (dd.flush_columnar_native if native else dd.flush_columnar)(batch)
+        series, raw = got[0]
+        entries = list(series)
+        for body in raw:
+            entries += json.loads(zlib.decompress(body))["series"]
+        out.append(sorted(json.dumps(e, sort_keys=True) for e in
+                          ({**e, "points": [[t, None if v is None
+                                             else float(v)]
+                                            for t, v in e["points"]]}
+                           for e in entries)))
+        out.append(raw)
+        return out
+
+    card_native, card_python = emit(batches[0], True), emit(batches[0], False)
+    assert emit(batches[1], True) == card_native
+    assert card_native[:4] == card_python[:4]
+    assert card_native[4] and not card_python[4]
+    assert card_native[0].count(b"\n") > 500

@@ -1,8 +1,8 @@
 """veneur_tpu_torch: the PyTorch/CUDA port of veneur_tpu.
 
 The same DogStatsD aggregation server, with its device programs written
-as PyTorch tensor code and its one hand-written kernel (the flush
-extract) in CUDA C++ for Hopper. The JAX package ``veneur_tpu`` stays the
+as PyTorch tensor code and its hand-written kernels (the flush extract,
+the HLL insert and estimate) in CUDA C++ for Hopper. The JAX package ``veneur_tpu`` stays the
 reference; this package imports nothing of it and keeps its own copies
 of the host-only modules it needs, at the same module paths.
 
@@ -15,7 +15,11 @@ Package layout:
                 config, server, factory
   protocol/     DogStatsD wire parsing
   ssf/          SSF sample model
-  sinks/        channel, debug and blackhole sinks
+  sinks/        channel, debug, blackhole and the metric network sinks
+                (Datadog, SignalFx, Prometheus, forward-statsd, New
+                Relic), the delivery layer
+  utils/        hashing, device fault injection, HTTP helpers
+  native.py     the native C++ ingest and emit library (native/)
   cli/          the server entry point
 """
 

@@ -10,8 +10,9 @@ instance emits percentiles but no local aggregates (flusher.go:61-74).
 The flusher consumes a FlushSnapshot (dense arrays + row metadata) and emits
 InterMetric objects row by row; all numeric work already happened on device.
 
-PyTorch port: the object path of veneur_tpu/core/flusher.py, copied. The
-columnar generator and forwarding selection are not in this slice.
+PyTorch port: veneur_tpu/core/flusher.py, copied: the object path and
+the columnar generator. Forwarding selection (``forwardable_rows``) waits
+for the global tier.
 """
 
 from __future__ import annotations
@@ -302,3 +303,212 @@ def _flush_histo_row(
         for suffix, col in cols.pcols:
             append(InterMetric(name + suffix, ts, col[row], tags, GAUGE,
                                sinks=sinks))
+
+
+# ---------------------------------------------------------------------------
+# Columnar generation (the SoA fast path; see core/columnar.py)
+
+
+def generate_columnar(
+    snap: FlushSnapshot,
+    is_local: bool,
+    percentiles: list[float],
+    aggregates: HistogramAggregates,
+    now: Optional[int] = None,
+    governor=None,
+):
+    """Columnar twin of generate_inter_metrics: numpy masks instead of a
+    per-row Python loop. Emits the identical metric multiset (pinned by
+    tests/test_columnar.py); costs O(R) numpy, not O(R·families) Python.
+    """
+    from veneur_tpu_torch.core.columnar import (
+        ColumnarMetrics, ColumnGroup, MetricFamily,
+    )
+
+    if governor is not None:
+        # liveness beat for the flush watchdog's deferral rule (see
+        # generate_inter_metrics)
+        governor.beat()
+    ts = int(time.time()) if now is None else now
+    batch = ColumnarMetrics(timestamp=ts)
+    GAUGE = MetricType.GAUGE
+
+    # -- histogram/timer rows ---------------------------------------------
+    hrows = snap.directory.histo.rows
+    if hrows:
+        sc = np.frombuffer(snap.directory.histo.scope_codes,
+                           dtype=np.int8)[: len(hrows)]
+        is_global_row = sc == int(ScopeClass.GLOBAL)
+        # a local instance forwards global rows instead of emitting them
+        base = ~is_global_row if is_local else None
+        # tenant-budget-rejected rows (native path) are cut from EVERY
+        # family; hadm folds into base AND into pmask below — percentile
+        # families bypass base, and a rejected row must not leak through
+        # them. Zero-tenant runs never build the mask (rejected_rows 0).
+        hadm = None
+        if snap.directory.histo.rejected_rows > 0:
+            hadm = np.frombuffer(snap.directory.histo.admit_codes,
+                                 dtype=np.int8)[: len(hrows)] != 0
+            base = hadm if base is None else (base & hadm)
+        use_global = (np.zeros(len(hrows), bool) if is_local
+                      else is_global_row)
+        # widen to f64 up front: the object path boxes every f32 column
+        # through .tolist() before arithmetic, so divisions (avg, hmean)
+        # happen in f64 — match that exactly
+        def as64(a):
+            return None if a is None else np.asarray(a, np.float64)
+
+        lmin, lmax = as64(snap.lmin), as64(snap.lmax)
+        lsum, lweight, lrecip = (as64(snap.lsum), as64(snap.lweight),
+                                 as64(snap.lrecip))
+        dmin, dmax = as64(snap.dmin), as64(snap.dmax)
+        dsum, dcount, drecip = (as64(snap.dsum), as64(snap.dcount),
+                                as64(snap.drecip))
+
+        def _and(a, b):
+            return b if a is None else (a & b)
+
+        def pick(global_col, local_col):
+            if not use_global.any():
+                return local_col
+            return np.where(use_global, global_col, local_col)
+
+        fams: list[MetricFamily] = []
+        with np.errstate(divide="ignore", invalid="ignore"):
+            if aggregates.value & Aggregate.MAX:
+                fams.append(MetricFamily(
+                    ".max", GAUGE, pick(dmax, lmax),
+                    _and(base, ~np.isinf(lmax) | use_global)))
+            if aggregates.value & Aggregate.MIN:
+                fams.append(MetricFamily(
+                    ".min", GAUGE, pick(dmin, lmin),
+                    _and(base, ~np.isinf(lmin) | use_global)))
+            if aggregates.value & Aggregate.SUM:
+                fams.append(MetricFamily(
+                    ".sum", GAUGE, pick(dsum, lsum),
+                    _and(base, (lsum != 0) | use_global)))
+            if aggregates.value & Aggregate.AVERAGE:
+                fams.append(MetricFamily(
+                    ".avg", GAUGE,
+                    pick(dsum / dcount if not is_local else 0.0,
+                         lsum / np.maximum(lweight, 1e-300)),
+                    _and(base,
+                         ((lsum != 0) & (lweight != 0)) | use_global)))
+            if aggregates.value & Aggregate.COUNT:
+                fams.append(MetricFamily(
+                    ".count", MetricType.COUNTER,
+                    pick(dcount, lweight),
+                    _and(base, (lweight != 0) | use_global)))
+            if aggregates.value & Aggregate.MEDIAN:
+                q_index = {float(q): i for i, q in
+                           enumerate(np.asarray(snap.quantile_qs))}
+                fams.append(MetricFamily(
+                    ".median", GAUGE,
+                    np.asarray(snap.quantile_values[:, q_index[0.5]],
+                               np.float64),
+                    base))
+            if aggregates.value & Aggregate.HARMONIC_MEAN:
+                fams.append(MetricFamily(
+                    ".hmean", GAUGE,
+                    pick(dcount / drecip if not is_local else 0.0,
+                         lweight / np.where(lrecip != 0, lrecip, 1.0)),
+                    _and(base,
+                         ((lrecip != 0) & (lweight != 0)) | use_global)))
+            if percentiles:
+                # mixed rows emit percentiles only on the global instance
+                # (flusher.go:61-74); local-only rows always do
+                pmask = (sc == int(ScopeClass.LOCAL)) if is_local else None
+                if hadm is not None:
+                    pmask = hadm if pmask is None else (pmask & hadm)
+                q_index = {float(q): i for i, q in
+                           enumerate(np.asarray(snap.quantile_qs))}
+                for p in percentiles:
+                    fams.append(MetricFamily(
+                        _percentile_name("", p), GAUGE,
+                        np.asarray(
+                            snap.quantile_values[:, q_index[float(p)]],
+                            np.float64),
+                        pmask))
+        pool = snap.directory.histo
+
+        def histo_meta(i, _rows=hrows):
+            m = _rows[i]
+            return m.key.name, m.tags, m.sinks
+
+        batch.groups.append(ColumnGroup(
+            nrows=len(hrows), meta_at=histo_meta, families=fams,
+            has_routing=pool.routed_rows > 0,
+            frag_at=lambda i, _rows=hrows: _rows[i].wire_frag(),
+            meta_blob=pool.frag_blob()))
+
+    # -- set rows ----------------------------------------------------------
+    srows = snap.directory.sets.rows
+    if srows:
+        ssc = np.frombuffer(snap.directory.sets.scope_codes,
+                            dtype=np.int8)[: len(srows)]
+        smask = (~(ssc == int(ScopeClass.MIXED))) if is_local else None
+        if snap.directory.sets.rejected_rows > 0:
+            sadm = np.frombuffer(snap.directory.sets.admit_codes,
+                                 dtype=np.int8)[: len(srows)] != 0
+            smask = sadm if smask is None else (smask & sadm)
+
+        def set_meta(i, _rows=srows):
+            m = _rows[i]
+            return m.key.name, m.tags, m.sinks
+
+        batch.groups.append(ColumnGroup(
+            nrows=len(srows), meta_at=set_meta,
+            families=[MetricFamily(
+                "", GAUGE, np.asarray(snap.set_estimates, np.float64),
+                smask)],
+            has_routing=snap.directory.sets.routed_rows > 0,
+            frag_at=lambda i, _rows=srows: _rows[i].wire_frag(),
+            meta_blob=snap.directory.sets.frag_blob()))
+
+    # -- counters / gauges -------------------------------------------------
+    for pool, mtype in ((snap.scalars.counters, MetricType.COUNTER),
+                        (snap.scalars.gauges, GAUGE)):
+        n = pool.used
+        if not n:
+            continue
+        csc = np.frombuffer(pool.scope_codes, dtype=np.int8)[:n]
+        cmask = (~(csc == int(ScopeClass.GLOBAL))) if is_local else None
+        if pool.rejected_rows > 0:
+            cadm = np.frombuffer(pool.admit_codes, dtype=np.int8)[:n] != 0
+            cmask = cadm if cmask is None else (cmask & cadm)
+
+        def scalar_meta(i, _meta=pool.meta):
+            key, tags, _cls, sinks = _meta[i]
+            return key.name, tags, sinks
+
+        def scalar_frag(i, _meta=pool.meta):
+            key, tags, _cls, _sinks = _meta[i]
+            rec = (key.name + "\x1f" + "\x1f".join(tags)
+                   if tags else key.name)
+            if "\x1e" in rec or "\x1f" in key.name or any(
+                    "\x1f" in t or "\x1e" in t for t in tags):
+                return None
+            return rec.encode("utf-8")
+
+        batch.groups.append(ColumnGroup(
+            nrows=n, meta_at=scalar_meta,
+            families=[MetricFamily(
+                "", mtype, np.asarray(pool.values[:n], np.float64),
+                cmask)],
+            has_routing=pool.routed_rows > 0,
+            frag_at=scalar_frag,
+            meta_blob=pool.frag_blob()))
+
+    # -- status checks (rare; objects) -------------------------------------
+    for (key, tags, _cls, sinks), sv in zip(
+        snap.scalars.status_meta, snap.scalars.status_values
+    ):
+        value, message, hostname = sv
+        batch.extras.append(
+            InterMetric(
+                name=key.name, timestamp=ts, value=float(value),
+                tags=list(tags), type=MetricType.STATUS, message=message,
+                hostname=hostname, sinks=sinks,
+            )
+        )
+    return batch

@@ -27,10 +27,21 @@ event and service-check lines back to the Python parser. A library that
 does not build or load raises; the server never falls back to the
 Python path behind the configuration's back.
 
+With a metric sink the flush is columnar, as in the JAX package: each
+worker's snapshot becomes a ``ColumnarMetrics`` batch
+(``core/flusher.generate_columnar``), and one thread per sink emits it,
+joined within the interval. A sink that supports the native emit tier
+(``flush_emit_native``) serializes from the batch's arrays in C++ and
+falls back to its Python formatter per group; other sinks receive the
+batch's one shared materialization. A tick with nothing to flush drains
+the network sinks' spilled payloads. Per-sink counts are
+``sink_counters()``, the delivery layer's ``delivery_stats()``.
+
 Not in this slice (the factory refuses their config keys): SSF/TCP/TLS/
-unixgram listeners, reader shards, forwarding, imports, proxies, query
-listeners, tenancy, the flush pipeline, plugins, self-telemetry (so the
-unique-timeseries tally and the guard's counters are kept, not sent).
+unixgram listeners, span sinks, reader shards, forwarding, imports,
+proxies, query listeners, tenancy, the flush pipeline, plugins,
+self-telemetry (so the unique-timeseries tally, the guard's counters and
+the sinks' counts are kept, not sent).
 """
 
 from __future__ import annotations
@@ -47,6 +58,7 @@ import numpy as np
 from veneur_tpu_torch import __version__
 from veneur_tpu_torch.core.config import Config
 from veneur_tpu_torch.core.flusher import (device_quantiles,
+                                           generate_columnar,
                                            generate_inter_metrics)
 from veneur_tpu_torch.core.metrics import HistogramAggregates, InterMetric
 from veneur_tpu_torch.core.worker import DeviceWorker, FlushSnapshot
@@ -130,6 +142,17 @@ class Server:
         self.event_worker = EventWorker()
         self.metric_sinks: list[MetricSink] = list(metric_sinks or [])
         self.sink_excluded_tags: dict[str, set[str]] = {}
+        # native emit tier (native/emit.cpp): sinks serialize their wire
+        # payloads GIL-free straight from the flush arrays; off = always
+        # use the Python columnar formatters
+        self.flush_emit_native = bool(
+            getattr(cfg, "flush_emit_native", True))
+        # per-sink counts (the JAX package sends them as
+        # sink.metrics_flushed_total, flush.error_total and
+        # sink.metric_flush_total_duration_ns), written by the sink
+        # threads
+        self._sink_counts: dict[str, dict[str, float]] = {}
+        self._sink_counts_lock = threading.Lock()
         self._threads: list[threading.Thread] = []
         self._sockets: list[socket.socket] = []
         self._shutdown = threading.Event()
@@ -209,6 +232,39 @@ class Server:
             for k, v in g.counters().items():
                 out[k] = out.get(k, 0) + v
         return out
+
+    def _delivery_managers(self):
+        """(report name, DeliveryManager) for every sink that carries
+        one."""
+        out = []
+        for sink in self.metric_sinks:
+            man = getattr(sink, "delivery", None)
+            if man is not None:
+                out.append((sink.name(), man))
+        return out
+
+    def delivery_stats(self) -> dict[str, dict]:
+        """Each network sink's delivery counters (sinks/delivery.py
+        ``DeliveryManager.stats``), keyed by sink name."""
+        return {rname: man.stats()
+                for rname, man in self._delivery_managers()}
+
+    def sink_counters(self) -> dict[str, dict[str, float]]:
+        """Per sink: metrics flushed and flush errors since start, and
+        the last flush's seconds (``metrics_flushed_total``,
+        ``flush_error_total``, ``flush_duration_s``)."""
+        with self._sink_counts_lock:
+            return {k: dict(v) for k, v in self._sink_counts.items()}
+
+    def _count_sink(self, sink: MetricSink, flushed: int, error: bool,
+                    seconds: float) -> None:
+        with self._sink_counts_lock:
+            c = self._sink_counts.setdefault(sink.name(), {
+                "metrics_flushed_total": 0, "flush_error_total": 0,
+                "flush_duration_s": 0.0})
+            c["metrics_flushed_total"] += flushed
+            c["flush_error_total"] += int(error)
+            c["flush_duration_s"] = seconds
 
     @property
     def native_reader_threads(self) -> int:
@@ -442,15 +498,18 @@ class Server:
             except Exception:
                 log.exception("flush failed")
 
-    def flush(self, now: Optional[float] = None) -> list[InterMetric]:
+    def flush(self, now: Optional[float] = None):
         """One flush pass (reference Server.Flush, flusher.go:28-134):
         swap every worker under its lock, extract the swapped epochs,
-        generate InterMetrics, emit to the sinks. Returns the metrics.
-        `now` pins the interval's timestamp."""
+        generate the interval's metrics, emit to the sinks.
+
+        Returns the ColumnarMetrics batch when a metric sink exists
+        (len() works; call .materialize() for objects), else the
+        list[InterMetric]. `now` pins the interval's timestamp."""
         with self._flush_lock:
             return self._flush(now)
 
-    def _flush(self, now: Optional[float]) -> list[InterMetric]:
+    def _flush(self, now: Optional[float]):
         flush_start = time.time() if now is None else float(now)
         phases: dict[str, float] = {}
         if self.native_mode:
@@ -489,27 +548,99 @@ class Server:
             with self._worker_locks[i]:
                 worker.device_guard_tick()
         phases["extract_s"] = time.perf_counter() - _t
+
+        # generation: columnar whenever a metric sink exists (sinks that
+        # cannot consume columns share the batch's one materialization)
         _t = time.perf_counter()
+        ts = int(flush_start)
         final: list[InterMetric] = []
-        for snap in snaps:
-            final.extend(generate_inter_metrics(
-                snap, self.is_local, self.percentiles, self.aggregates,
-                now=int(flush_start)))
+        batch = None
+        if self.metric_sinks:
+            for snap in snaps:
+                b = generate_columnar(snap, self.is_local, self.percentiles,
+                                      self.aggregates, now=ts)
+                if batch is None:
+                    batch = b
+                else:
+                    batch.groups.extend(b.groups)
+                    batch.extras.extend(b.extras)
+            n_flushed = batch.count() if batch is not None else 0
+        else:
+            for snap in snaps:
+                final.extend(generate_inter_metrics(
+                    snap, self.is_local, self.percentiles, self.aggregates,
+                    now=ts))
+            n_flushed = len(final)
         phases["generate_s"] = time.perf_counter() - _t
+
+        # emission: one thread per sink, outside the worker locks (the
+        # object path runs only without metric sinks, so it emits
+        # nothing)
         _t = time.perf_counter()
-        for sink in self.metric_sinks:
-            routed = strip_excluded_tags(
-                filter_routed(final, sink.name()),
-                self.sink_excluded_tags.get(sink.name()))
-            try:
-                sink.flush(routed)
-            except Exception:
-                log.exception("sink %s flush failed", sink.name())
-        phases["sink_flush_s"] = time.perf_counter() - _t
+        threads = []
+        if batch is not None and n_flushed:
+            for sink in self.metric_sinks:
+                threads.append(self._spawn_sink(
+                    self._flush_sink_columnar, f"flush-{sink.name()}",
+                    sink, batch, self.sink_excluded_tags.get(sink.name())))
+        elif not final:
+            # quiet tick: the sinks' flushes do not run, but spilled
+            # payloads must keep draining (and an open breaker must get
+            # its half-open probe)
+            for rname, man in self._delivery_managers():
+                if not len(man.spill):
+                    continue
+
+                def _drain(m=man):
+                    m.begin_flush()
+                    m.retry_spill()
+
+                threads.append(self._spawn_sink(
+                    _drain, f"spill-drain-{rname}"))
+        for th in threads:
+            th.join(timeout=self.interval)
+        if threads:
+            phases["sink_flush_s"] = time.perf_counter() - _t
         if self.config.count_unique_timeseries:
             self.last_unique_timeseries = self._tally_timeseries(snaps)
         self.last_flush_phases = phases
-        return final
+        return batch if batch is not None else final
+
+    @staticmethod
+    def _spawn_sink(target, name: str, *args) -> threading.Thread:
+        th = threading.Thread(target=target, args=args, daemon=True,
+                              name=name)
+        th.start()
+        return th
+
+    def _flush_sink_columnar(self, sink: MetricSink, batch,
+                             excluded_tags) -> None:
+        start = time.time()
+        error = False
+        flushed = 0
+        try:
+            # per-sink capability negotiation: the native emit tier first
+            # (native/emit.cpp, GIL released); False means the sink could
+            # not take this batch natively and its Python columnar
+            # formatter runs instead
+            handled = (self.flush_emit_native
+                       and getattr(sink, "supports_native_emit", False)
+                       and sink.flush_columnar_native(batch, excluded_tags))
+            fn = getattr(sink, "flush_columnar", None)
+            if not handled and fn is not None:
+                fn(batch, excluded_tags)
+            elif not handled:
+                # duck-typed sink (name()/flush() without the MetricSink
+                # base): the shared materialization, routed and stripped
+                metrics = filter_routed(batch.materialize(), sink.name())
+                sink.flush(strip_excluded_tags(metrics, excluded_tags))
+        except Exception:
+            log.exception("sink %s columnar flush failed", sink.name())
+            error = True
+        else:
+            flushed = batch.count_for(sink.name())
+        finally:
+            self._count_sink(sink, flushed, error, time.time() - start)
 
     def _tally_timeseries(self, snaps: list[FlushSnapshot]) -> int:
         """Merge per-worker unique-timeseries HLLs and estimate on the

@@ -67,7 +67,8 @@ import torch
 
 from veneur_tpu_torch.core.columnar import unpack_extract_columns
 from veneur_tpu_torch.core.directory import (RowMeta, ScopeClass,
-                                             SeriesDirectory, classify)
+                                             SeriesDirectory, build_frag,
+                                             classify)
 from veneur_tpu_torch.core.metrics import MetricKey, UDPMetric, route_info
 from veneur_tpu_torch.device import resolve
 from veneur_tpu_torch.ops import device_guard as dg
@@ -330,9 +331,16 @@ class ScalarPool:
         self.routed_rows = 0
         self.admit_codes = array("b")
         self.rejected_rows = 0
+        # incremental \x1e-joined wire-frag arena (see directory._Pool):
+        # the native emit tier reads this buffer zero-copy at flush
+        self.frag_arena = bytearray()
+        self.frag_clean = True
         self.values = np.zeros(initial, np.float64)
         self.present = np.zeros(initial, bool)
         self.used = 0
+
+    def frag_blob(self):
+        return self.frag_arena if self.frag_clean else None
 
     def ensure(self, rows: int) -> None:
         if rows > len(self.values):
@@ -355,7 +363,10 @@ class ScalarPool:
         return row
 
     def adopt_row(self, row: int, key, tags, scope_class, sinks,
-                  admitted=True) -> None:
+                  frag=False, admitted=True) -> None:
+        """Register metadata for a row assigned externally (native path).
+        ``frag`` carries a prebuilt wire_frag (the worker's cross-epoch
+        RowMeta cache); False = build here (the Python upsert path)."""
         assert row == len(self.meta), "rows must be adopted in order"
         self.meta.append((key, tags, scope_class, sinks))
         self.scope_codes.append(int(scope_class))
@@ -364,6 +375,15 @@ class ScalarPool:
             self.rejected_rows += 1
         if sinks is not None:
             self.routed_rows += 1
+        if self.frag_clean:
+            if frag is False:
+                frag = build_frag(getattr(key, "name", key), list(tags))
+            if frag is None:
+                self.frag_clean = False
+            else:
+                if row:
+                    self.frag_arena += b"\x1e"
+                self.frag_arena += frag
         # grow BEFORE bumping used: ensure() copies relative to used
         self.ensure(row + 1)
         self.used = row + 1
@@ -1008,7 +1028,8 @@ class DeviceWorker:
                 scalars = (self.scalars.counters if pool == 2
                            else self.scalars.gauges)
                 scalars.adopt_row(row, meta.key, meta.tags,
-                                  meta.scope_class, meta.sinks)
+                                  meta.scope_class, meta.sinks,
+                                  frag=meta.wire_frag())
 
     def sync_native_series(self) -> None:
         """Adopt pending new-series registrations mid-epoch, so swap only

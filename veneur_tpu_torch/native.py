@@ -6,8 +6,12 @@ series directory, raw-sample staging plane and drain buffers in C++),
 ``NativeRouter`` (lines committed to shard digest % N, and C++ reader
 threads on bound UDP sockets), ``available`` and ``source_hash``, and the
 staging plane's watermark drain the micro-fold reads
-(``stage_pending``, ``drain_stage_delta``). The emit, codec, forward, SSF, reader-shard and loadgen entry points wait for
-their slices.
+(``stage_pending``, ``drain_stage_delta``), and the emit tier the metric
+sinks serialize through (``emit_available``, ``encode_datadog_series``,
+``encode_signalfx_body``, ``encode_prometheus_lines``,
+``encode_forward_lines``, ``encode_prometheus_exposition``, ``deflate``).
+The archive, codec, stream-frame, dedup, SSF, reader-shard and loadgen
+entry points wait for their slices.
 
 The library is built from the sources in ``native/`` at first use, by
 g++ with the flags of native/Makefile, into ``build/native/`` at the
@@ -29,6 +33,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
 
@@ -168,6 +173,47 @@ def load_library() -> ctypes.CDLL:
         lib.vn_reader_packets.argtypes = [vp]
         lib.vn_reader_stop.restype = ll
         lib.vn_reader_stop.argtypes = [vp]
+        # the emit tier (native/emit.cpp): Datadog series bodies,
+        # SignalFx bodies, statsd/forward lines, exposition text and the
+        # GIL-free deflate passes
+        lib.vn_encode_datadog_series.restype = ll
+        lib.vn_encode_datadog_series.argtypes = [
+            c.c_char_p, ll, ll,                           # meta
+            c.c_char_p, ll,                               # suffixes
+            vp, ci,                                       # types, nfam
+            vp, vp,                                       # values, masks
+            ll, c.c_double,                               # ts, interval
+            c.c_char_p, ll,                               # hostname
+            c.c_char_p, ll,                               # common tags
+            c.c_char_p, ll,                               # excl keys
+            c.c_char_p, ll,                               # excl prefixes
+            c.c_char_p, ll,                               # drop prefixes
+            ll,                                           # max_per_body
+            c.POINTER(vp), c.POINTER(c.c_char_p),
+            c.POINTER(ll), c.POINTER(ll)]
+        lib.vn_encode_signalfx_body.restype = ll
+        lib.vn_encode_signalfx_body.argtypes = [
+            c.c_char_p, ll, ll, c.c_char_p, ll,
+            vp, ci, vp, vp, ll,
+            c.c_char_p, ll, c.c_char_p, ll,
+            c.c_char_p, ll, c.c_char_p, ll,
+            c.c_char_p, ll,
+            c.POINTER(c.c_char_p), c.POINTER(ll)]
+        for name in ("vn_encode_prometheus_lines", "vn_encode_forward_lines",
+                     "vn_encode_prometheus_exposition"):
+            fn = getattr(lib, name)
+            fn.restype = ll
+            fn.argtypes = [
+                c.c_char_p, ll, ll, c.c_char_p, ll,
+                vp, ci, vp, vp, c.c_char_p, ll,
+                c.POINTER(c.c_char_p), c.POINTER(ll)]
+        lib.vn_deflate.restype = ll
+        lib.vn_deflate.argtypes = [
+            c.c_char_p, ll, c.POINTER(c.c_char_p), c.POINTER(ll)]
+        lib.vn_deflate_chunks.restype = ll
+        lib.vn_deflate_chunks.argtypes = [
+            c.c_char_p, vp, ll, c.POINTER(vp), c.POINTER(c.c_char_p),
+            c.POINTER(ll)]
         _lib = lib
         return _lib
 
@@ -470,3 +516,213 @@ class NativeRouter:
     def stop_reader(self, handle) -> int:
         """Join the reader; its final packet count."""
         return int(self._lib.vn_reader_stop(handle))
+
+
+# ---------------------------------------------------------------------------
+# The emit tier (native/emit.cpp): zero-copy serializers over the columnar
+# flush arrays, byte-identical to the sinks' Python formatters
+
+
+def emit_available() -> bool:
+    """True when the native emit tier (native/emit.cpp) is loadable and
+    not masked out. VENEUR_EMIT_NATIVE=0 forces the Python formatters
+    without touching the library on disk."""
+    if os.environ.get("VENEUR_EMIT_NATIVE", "").lower() in (
+            "0", "false", "off", "no"):
+        return False
+    return available()
+
+
+def _blob_arg(blob) -> tuple:
+    """(c_char_p-compatible arg, length) for a meta blob that may be a
+    bytes object or a pool's live bytearray arena (zero-copy: the arena
+    is frozen after the epoch swap, so a borrowed pointer is safe for
+    the duration of the call)."""
+    if isinstance(blob, bytearray):
+        n = len(blob)
+        if n == 0:
+            return b"", 0
+        arr = (ctypes.c_char * n).from_buffer(blob)
+        return ctypes.cast(arr, ctypes.c_char_p), n
+    return blob, len(blob)
+
+
+def _copy_arr(ptr: "ctypes.c_void_p", count: int, dtype) -> np.ndarray:
+    if count == 0 or not ptr.value:
+        return np.zeros(0, dtype)
+    ctype = np.ctypeslib.as_ctypes_type(dtype)
+    view = np.ctypeslib.as_array(
+        ctypes.cast(ptr, ctypes.POINTER(ctype)), shape=(count,))
+    return view.copy()
+
+
+def encode_datadog_series(meta_blob: bytes, nrows: int,
+                          suffixes: list[str], family_types: np.ndarray,
+                          values: np.ndarray, masks: np.ndarray,
+                          ts: int, interval: float, hostname: str,
+                          common_tags_json: bytes,
+                          excluded_keys: list[str],
+                          excluded_prefixes: list[str],
+                          drop_prefixes: list[str],
+                          max_per_body: int,
+                          compress: bool = False
+                          ) -> "Optional[tuple[list[bytes], int]]":
+    """Chunked Datadog {"series": [...]} bodies straight from columnar
+    arrays (native/emit.cpp vn_encode_datadog_series). Returns
+    (bodies, emitted_count), or None when the encoder refuses the
+    input. compress=True deflates every chunk natively before it is
+    copied out (vn_deflate_chunks; byte-identical to zlib.compress),
+    so only compressed bytes cross back into Python."""
+    lib = load_library()
+    c = ctypes
+    values = np.ascontiguousarray(values, np.float64)
+    masks = np.ascontiguousarray(masks, np.uint8)
+    family_types = np.ascontiguousarray(family_types, np.int8)
+    suffix_blob = "\x1f".join(suffixes).encode("utf-8")
+    ek = "\x1f".join(excluded_keys).encode("utf-8")
+    ep = "\x1f".join(excluded_prefixes).encode("utf-8")
+    dp = "\x1f".join(drop_prefixes).encode("utf-8")
+    host = hostname.encode("utf-8")
+    meta_arg, meta_len = _blob_arg(meta_blob)
+    chunk_off = c.c_void_p()
+    out = c.c_char_p()
+    out_len = c.c_longlong()
+    entries = c.c_longlong()
+    n_chunks = lib.vn_encode_datadog_series(
+        meta_arg, meta_len, nrows, suffix_blob, len(suffix_blob),
+        _ptr(family_types), len(suffixes), _ptr(values), _ptr(masks),
+        ts, float(interval), host, len(host), common_tags_json,
+        len(common_tags_json), ek, len(ek), ep, len(ep), dp, len(dp),
+        max_per_body, c.byref(chunk_off), c.byref(out),
+        c.byref(out_len), c.byref(entries))
+    if n_chunks < 0:
+        return None
+    if compress and n_chunks:
+        # chain the deflate pass on the still-live thread-local body
+        # buffer (same thread; the deflate output lives in its own
+        # buffers): one more GIL-free call, no Python-side copy of the
+        # uncompressed bodies
+        zoff = c.c_void_p()
+        zout = c.c_char_p()
+        zlen = c.c_longlong()
+        zn = lib.vn_deflate_chunks(out, chunk_off, n_chunks,
+                                   c.byref(zoff), c.byref(zout),
+                                   c.byref(zlen))
+        if zn < 0:
+            return None
+        chunk_off, out, out_len = zoff, zout, zlen
+    offs = _copy_arr(chunk_off, n_chunks + 1, np.int64).tolist()
+    whole = ctypes.string_at(out, out_len.value)
+    return ([whole[offs[i]:offs[i + 1]] for i in range(n_chunks)],
+            int(entries.value))
+
+
+def encode_signalfx_body(meta_blob: bytes, nrows: int,
+                         suffixes: list[str], family_types: np.ndarray,
+                         values: np.ndarray, masks: np.ndarray,
+                         ts_ms: int, hostname_tag: str, hostname: str,
+                         name_drops: list[str], tag_drops: list[str],
+                         excluded_keys: list[str]
+                         ) -> "Optional[tuple[bytes, int]]":
+    """One SignalFx {"counter":[...],"gauge":[...]} body from columnar
+    arrays; (body, emitted_count), or None when the encoder refuses."""
+    lib = load_library()
+    c = ctypes
+    values = np.ascontiguousarray(values, np.float64)
+    masks = np.ascontiguousarray(masks, np.uint8)
+    family_types = np.ascontiguousarray(family_types, np.int8)
+    sb = "\x1f".join(suffixes).encode("utf-8")
+    nd = "\x1f".join(name_drops).encode("utf-8")
+    td_ = "\x1f".join(tag_drops).encode("utf-8")
+    ek = "\x1f".join(excluded_keys).encode("utf-8")
+    ht = hostname_tag.encode("utf-8")
+    hv = hostname.encode("utf-8")
+    meta_arg, meta_len = _blob_arg(meta_blob)
+    out = c.c_char_p()
+    out_len = c.c_longlong()
+    n = lib.vn_encode_signalfx_body(
+        meta_arg, meta_len, nrows, sb, len(sb),
+        _ptr(family_types), len(suffixes), _ptr(values), _ptr(masks),
+        ts_ms, ht, len(ht), hv, len(hv), nd, len(nd), td_, len(td_),
+        ek, len(ek), c.byref(out), c.byref(out_len))
+    if n < 0:
+        return None
+    return ctypes.string_at(out, out_len.value), int(n)
+
+
+def _encode_lines(symbol: str, meta_blob, nrows: int,
+                  suffixes: list[str], family_types: np.ndarray,
+                  values: np.ndarray, masks: np.ndarray,
+                  excluded_keys: list[str]
+                  ) -> "Optional[tuple[bytes, int]]":
+    """Shared wrapper for the line-oriented emitters (statsd lines,
+    forward lines, exposition text): one newline-joined buffer plus the
+    emitted count; None when the encoder refuses."""
+    lib = load_library()
+    c = ctypes
+    values = np.ascontiguousarray(values, np.float64)
+    masks = np.ascontiguousarray(masks, np.uint8)
+    family_types = np.ascontiguousarray(family_types, np.int8)
+    suffix_blob = "\x1f".join(suffixes).encode("utf-8")
+    ek = "\x1f".join(excluded_keys).encode("utf-8")
+    meta_arg, meta_len = _blob_arg(meta_blob)
+    out = c.c_char_p()
+    out_len = c.c_longlong()
+    n = getattr(lib, symbol)(
+        meta_arg, meta_len, nrows, suffix_blob, len(suffix_blob),
+        _ptr(family_types), len(suffixes), _ptr(values), _ptr(masks),
+        ek, len(ek), c.byref(out), c.byref(out_len))
+    if n < 0:
+        return None
+    return ctypes.string_at(out, out_len.value), int(n)
+
+
+def encode_prometheus_lines(meta_blob, nrows: int,
+                            suffixes: list[str],
+                            family_types: np.ndarray,
+                            values: np.ndarray, masks: np.ndarray,
+                            excluded_keys: list[str]
+                            ) -> "Optional[tuple[bytes, int]]":
+    """statsd repeater lines from columnar arrays (one newline-joined
+    buffer + line count)."""
+    return _encode_lines("vn_encode_prometheus_lines", meta_blob, nrows,
+                         suffixes, family_types, values, masks,
+                         excluded_keys)
+
+
+def encode_forward_lines(meta_blob, nrows: int, suffixes: list[str],
+                         family_types: np.ndarray, values: np.ndarray,
+                         masks: np.ndarray, excluded_keys: list[str]
+                         ) -> "Optional[tuple[bytes, int]]":
+    """Verbatim DogStatsD forward lines (no sanitization) from columnar
+    arrays; same contract as encode_prometheus_lines."""
+    return _encode_lines("vn_encode_forward_lines", meta_blob, nrows,
+                         suffixes, family_types, values, masks,
+                         excluded_keys)
+
+
+def encode_prometheus_exposition(meta_blob, nrows: int,
+                                 suffixes: list[str],
+                                 family_types: np.ndarray,
+                                 values: np.ndarray, masks: np.ndarray,
+                                 excluded_keys: list[str]
+                                 ) -> "Optional[tuple[bytes, int]]":
+    """Prometheus exposition text (`name{k="v"} value` samples, the
+    pushgateway body) from columnar arrays; (text, sample_count)."""
+    return _encode_lines("vn_encode_prometheus_exposition", meta_blob,
+                         nrows, suffixes, family_types, values, masks,
+                         excluded_keys)
+
+
+def deflate(data: bytes) -> Optional[bytes]:
+    """zlib deflate with the GIL released (native/emit.cpp vn_deflate);
+    byte-identical to zlib.compress(data): both drive the system zlib
+    at the default level. None when the call fails."""
+    lib = load_library()
+    c = ctypes
+    out = c.c_char_p()
+    out_len = c.c_longlong()
+    if lib.vn_deflate(data, len(data), c.byref(out),
+                      c.byref(out_len)) < 0:
+        return None
+    return ctypes.string_at(out, out_len.value)
