@@ -141,18 +141,39 @@ script exits non-zero:
    and frames, the global's import seconds (decode, upsert), the merge
    at the swap, fold_s, extract_s, sets_s and its peak device memory;
    then merge_many at [8, 65,536, 128] on the card, bitwise the CPU's.
-11. on the line before the last two, the card's name and power limit;
+11. the SSF span path. 11a: bench.py's ssf_histo width (50,000
+   indicator spans over 64 services, durations gamma(2.0, 5e6) ns from
+   default_rng(3), indicator and objective timers, five passes each
+   flushed) through a port server's native SSF path
+   (handle_trace_packets_native, bursts of 4,096) and through its Python
+   path with the columnar span pipeline, each on the card and on the
+   CPU: every pass's snapshot card against CPU bitwise, and the native
+   path's InterMetrics equal to the Python path's (uniqueness rate 0,
+   one spill batch at the swap on both). 11b: phase 4's interval as the
+   samples of about 280,000 spans of 16 samples (uniqueness rate 1.0):
+   the native path at full width (spill folds, K1 at 131,072 rows, K4
+   and K5 through the staged store's dense tier) and the Python path on
+   every 32nd span, card against CPU bitwise; then a factory-built
+   server on the card with every listener of the slice, started: the
+   spans of the series lines in turn over UDP (the C++ SSF reader),
+   a unix stream socket and a unixgram socket, then 19,000 DogStatsD
+   lines over mutual TLS (a CA and certificates made by openssl here),
+   each sender paced and waited on; its snapshot bitwise a CPU server's
+   fed the same in the same order. Span conservation from
+   ingress_stats()["spans"] on every server; each arm's spans/s,
+   flush_s and flush phases printed.
+12. on the line before the last two, the card's name and power limit;
    then a ``kernels`` JSON line: every kernel with its launches on the
    main path (phases 4 to 5b: counts reset just before, read just
    after), its agreement with the plain version, its time, the plain
    time and its bound; its launches in phase 6 (``launches_micro``), in
    phase 7's intervals (``launches_guard``), in the real-OOM run of
    tools/port_guard_faults.py (``launches_guard_oom``), in phase 9
-   (``launches_shards``) and in phase 10 (``launches_global``), each
-   counted from 0 just before its run; the probe's variants beside it,
-   with their build report and launches (only the variant flush_extract
-   launches has any).
-12. the last line: {"ok": true, "device": {...}}.
+   (``launches_shards``), in phase 10 (``launches_global``) and in phase
+   11 (``launches_spans``), each counted from 0 just before its run; the
+   probe's variants beside it, with their build report and launches
+   (only the variant flush_extract launches has any).
+13. the last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the veneur_tpu_torch package beside it, the
 script prints no result and exits 2. It imports nothing of JAX.
@@ -182,6 +203,9 @@ N_HIST, N_HOT, N_COUNTERS, N_GAUGES = 80_000, 1_000, 10_000, 9_000
 N_SETS, N_SETS_BIG, BIG_MEMBERS, SMALL_MEMBERS = 25_000, 64, 8_192, 20
 EDGE_ROWS = 4099
 DEVICE = "cuda"
+# the card's name and power limit (nvidia-smi), set by main() and
+# printed beside phase 11's figures
+CARD = ""
 probe = None  # tools/port_probe_extract.py, imported by main()
 probe_hll = None  # tools/port_probe_hll.py, imported by main()
 guard_faults = None  # tools/port_guard_faults.py, imported by main()
@@ -2111,8 +2135,12 @@ def counting_codec(tap: ImportTap, counts: dict):
 
 
 def gm_global_config(tap, listen: bool) -> dict:
+    # the HTTP imports are traced hops: their veneur.import spans derive
+    # on the card global only (the CPU global replays the payloads), so
+    # they must derive nothing
     data = {"interval": "1h", "percentiles": QS, "aggregates": GM_AGGS,
             "hostname": "gm-global", "tpu_hll_precision": 14,
+            "ssf_span_uniqueness_rate": 0.0,
             "forward_statsd_address": tap.address,
             "forward_statsd_network": "tcp"}
     if listen:
@@ -2322,6 +2350,479 @@ def phase_global(parse) -> dict:
     return out
 
 
+# -- phase 11 -----------------------------------------------------------------
+
+
+# 11a: bench.py's ssf_histo width (bench.py:443-535)
+SSF_SPANS, SSF_SERVICES, SSF_PASSES, SSF_BURST = 50_000, 64, 5, 4_096
+SSF_NOW = 1_700_000_000
+# 11b: phase 4's interval as the samples of spans, SPAN_SAMPLES a span;
+# the Python arm takes every SPAN_PY_CUT-th span (PERF.md section 4)
+SPAN_SAMPLES, SPAN_PY_CUT = 16, 32
+# 11b's server arm: the spans carrying the series lines (one sample a
+# series) over the SSF sockets, and TLS_LINES DogStatsD lines (phase 4's
+# scalars renamed) over mutual TLS
+TLS_LINES = 19_000
+SPAN_KEYS = {"indicator_span_timer_name": "indicator",
+             "objective_span_timer_name": "objective",
+             "ssf_span_uniqueness_rate": 1.0}
+
+
+def _varint(n: int) -> bytes:
+    out = bytearray()
+    while True:
+        b = n & 0x7F
+        n >>= 7
+        if n:
+            out.append(b | 0x80)
+        else:
+            out.append(b)
+            return bytes(out)
+
+
+def _ld(field: int, payload: bytes) -> bytes:
+    """A length-delimited protobuf field."""
+    return _varint(field << 3 | 2) + _varint(len(payload)) + payload
+
+
+def ssf_histo_payloads() -> list[bytes]:
+    """bench.py's ssf_histo spans: 50,000 indicator spans over 64
+    services, operation "op", durations gamma(2.0, 5e6) ns from
+    default_rng(3); the start a fixed instant instead of the clock."""
+    import numpy as np
+
+    from veneur_tpu_torch.gen import ssf_pb2
+
+    rng = np.random.default_rng(3)
+    base = SSF_NOW * 10**9
+    out = []
+    for i in range(SSF_SPANS):
+        pb = ssf_pb2.SSFSpan(
+            trace_id=i + 1, id=i + 1, start_timestamp=base + i,
+            end_timestamp=base + i + int(rng.gamma(2.0, 5e6)),
+            service=f"svc{i % SSF_SERVICES}", name="op", indicator=True)
+        out.append(pb.SerializeToString())
+    return out
+
+
+def span_server(data: dict, device: str):
+    from veneur_tpu_torch.core.config import load_config
+    from veneur_tpu_torch.core.factory import build_server
+
+    return build_server(load_config(data={
+        "interval": "1h", "num_workers": 1, "percentiles": QS,
+        "aggregates": ["min", "max", "count"], "hostname": "chip-smoke",
+        **SPAN_KEYS, **data}), device=device)
+
+
+def check_span_books(server, what: str, received: int) -> dict:
+    """Span conservation, native spans counted: received == derived +
+    dropped + pending; the spans received as expected; no parse error."""
+    st = server.ingress_stats()["spans"]
+    if st["received"] != st["derived"] + st["dropped"] + st["pending"] \
+            or st["received"] != received or st["dropped"] \
+            or server.parse_errors:
+        raise AssertionError(f"{what}: span books {st} (expected "
+                             f"{received} received), parse errors "
+                             f"{server.parse_errors}")
+    return st
+
+
+def run_ssf_histo(payloads, native: bool, device: str):
+    """The five passes through one server: the native SSF path in bursts
+    of SSF_BURST or the Python path span by span (columnar pipeline),
+    each pass flushed. The batch size is past a pass's spill, so nothing
+    drains before the swap and both paths fold the same spill batch; no
+    uniqueness sample is drawn (rate 0), so both derive the same."""
+    server = span_server({"tpu_native_ingest": native,
+                          "tpu_batch_size": 1 << 20,
+                          "ssf_span_uniqueness_rate": 0.0}, device)
+    snaps = capture_snapshots(server)
+    outs, times = [], []
+    try:
+        if server._native_ssf != native:
+            raise AssertionError(f"native SSF path {server._native_ssf}, "
+                                 f"asked {native}")
+        for p in range(SSF_PASSES):
+            t0 = time.perf_counter()
+            if native:
+                for i in range(0, len(payloads), SSF_BURST):
+                    server.handle_trace_packets_native(
+                        payloads[i:i + SSF_BURST])
+            else:
+                for pkt in payloads:
+                    server.handle_trace_packet(pkt)
+            t1 = time.perf_counter()
+            got = server.flush(now=SSF_NOW + p)
+            t2 = time.perf_counter()
+            outs.append(canonical(got))
+            times.append({"ingest_s": t1 - t0,
+                          "spans_per_s": len(payloads) / (t1 - t0),
+                          "flush_s": t2 - t1, **server.last_flush_phases,
+                          **server.workers[0].last_extract_phases})
+        # the last flush's own span waits in the pipeline
+        books = check_span_books(server, "phase 11a",
+                                 SSF_PASSES * (len(payloads) + 1))
+        if native and server._spans_native_total != SSF_PASSES * len(
+                payloads):
+            raise AssertionError(f"phase 11a: {server._spans_native_total}"
+                                 " spans through the native path")
+    finally:
+        server.shutdown()
+    return outs, snaps, times, books
+
+
+def phase_ssf_histo() -> dict:
+    """11a: the ssf_histo spans through the native SSF path and the
+    columnar Python path, each on the card and on the CPU."""
+    t0 = time.perf_counter()
+    payloads = ssf_histo_payloads()
+    build_s = time.perf_counter() - t0
+    res, out = {}, {"build_s": build_s}
+    for native in (True, False):
+        arm = "native" if native else "python"
+        for dev in (DEVICE, "cpu"):
+            res[arm, dev] = run_ssf_histo(payloads, native, dev)
+        (oc, sc, tc, bc), (oh, sh, th, _bh) = res[arm, DEVICE], res[arm, "cpu"]
+        if oc != oh:
+            raise AssertionError(f"phase 11a {arm}: card InterMetrics "
+                                 "differ from the CPU's")
+        for p, (a, b) in enumerate(zip(sc, sh)):
+            compare_snapshots(a, b, f"phase 11a {arm} pass {p}, card "
+                              "against CPU")
+        out[arm] = {"card": tc, "cpu": th, "books": bc,
+                    "metrics": len(oc[-1])}
+        for where, t in (("card", tc), ("cpu", th)):
+            log(f"[spans 11a] {arm} {where} ({CARD}): pass 1 of "
+                f"{SSF_PASSES}: " +
+                ", ".join(f"{k} {v:.4f}" for k, v in t[0].items()))
+            log(f"[spans 11a] {arm} {where} ({CARD}): last pass: " +
+                ", ".join(f"{k} {v:.4f}" for k, v in t[-1].items()))
+    # native and Python derive alike where neither draws a sample
+    if res["native", DEVICE][0] != res["python", DEVICE][0]:
+        raise AssertionError("phase 11a: native SSF path and Python path "
+                             "derive different InterMetrics")
+    n = out["native"]["metrics"]
+    log(f"[spans 11a] {SSF_SPANS} spans x {SSF_PASSES} passes ({n} "
+        f"InterMetrics a flush; payloads built in {build_s:.2f} s): card "
+        "bitwise the CPU on both paths, native == Python")
+    return out
+
+
+def _sample_heads(metric: int, names, tags) -> list[bytes]:
+    """The bytes of each series' SSF sample up to its value: the metric
+    enum, the name and the tags (a map entry each). ``tags`` holds each
+    series' "k:v" strings."""
+    heads = []
+    for name, tl in zip(names, tags):
+        b = (b"\x08" + _varint(metric) if metric else b"") + _ld(
+            2, name.encode())
+        for t in tl:
+            k, _, v = t.partition(":")
+            b += _ld(8, _ld(1, k.encode()) + _ld(2, v.encode()))
+        heads.append(b)
+    return heads
+
+
+def _wrap(body_head: bytes, value_len: int) -> bytes:
+    """Span field 10 around a sample of ``body_head`` plus ``value_len``
+    more bytes."""
+    return _varint(10 << 3 | 2) + _varint(len(body_head) + value_len) + \
+        body_head
+
+
+def mixed_span_samples(plan, parse) -> list[bytes]:
+    """Phase 4's interval as encoded SSF samples, in its order: each
+    series, scalar and set line; then the bulk histogram samples (@0.5
+    where the weight is 2); then the bulk set members "m%09d" % id."""
+    import numpy as np
+
+    series, scalars, rows, vals, wts, (set_lines, srows, _i, _r, ids) = plan
+    kinds = {"counter": 0, "gauge": 1, "histogram": 2, "timer": 2,
+             "set": 3}
+    rate_b = {1.0: b"\x3d" + struct.pack("<f", 1.0),
+              0.5: b"\x3d" + struct.pack("<f", 0.5)}
+    out = []
+    series_heads = []
+    for line in series + scalars + set_lines:
+        m = parse(line)
+        head = _sample_heads(kinds[m.key.type], [m.name], [m.tags])[0]
+        if m.key.type == "histogram" or m.key.type == "timer":
+            series_heads.append(head)
+        if m.key.type == "set":
+            val = _ld(5, m.value.encode())
+        else:
+            val = b"\x1d" + struct.pack("<f", float(m.value))
+        out.append(_wrap(head, len(val) + 5) + val + rate_b[m.sample_rate])
+    # bulk histogram samples: head, the f32 value, the rate
+    wrapped = [_wrap(h + b"\x1d", 4 + 5) for h in series_heads]
+    vb = np.ascontiguousarray(vals, "<f4").tobytes()
+    rb = (rate_b[1.0], rate_b[0.5])
+    half = (wts == 2.0).tolist()
+    out.extend(wrapped[r] + vb[4 * k:4 * k + 4] + rb[h]
+               for k, (r, h) in enumerate(zip(rows.tolist(), half)))
+    # bulk set members: the set series' heads, the member as the message
+    s = np.arange(N_SETS)
+    set_heads = _sample_heads(3, [f"users.{i}" for i in s],
+                              [[f"shard:{i % 16}"] for i in s])
+    wrapped = [_wrap(h + b"\x2a\x0a", 10 + 5) for h in set_heads]
+    one = rate_b[1.0]
+    out.extend(wrapped[r] + b"m%09d" % i + one
+               for r, i in zip(srows.tolist(), ids.tolist()))
+    return out
+
+
+def mixed_span_payloads(samples: list[bytes]) -> list[bytes]:
+    """SPAN_SAMPLES samples a span: root spans over 64 services,
+    operation "op", 1 us each."""
+    base = SSF_NOW * 10**9
+    out = []
+    for j, i in enumerate(range(0, len(samples), SPAN_SAMPLES)):
+        head = (b"\x10" + _varint(j + 1) + b"\x18" + _varint(j + 1)
+                + b"\x28" + _varint(base + j) + b"\x30"
+                + _varint(base + j + 1000)
+                + _ld(8, b"svc%d" % (j % SSF_SERVICES)) + _ld(13, b"op"))
+        out.append(head + b"".join(samples[i:i + SPAN_SAMPLES]))
+    return out
+
+
+MIXED_KEYS = {"count_unique_timeseries": True, "micro_fold": False}
+
+
+def run_mixed_spans(payloads, native: bool, device: str) -> tuple:
+    """One interval of span payloads through a server, one flush; returns
+    (snapshot, InterMetrics, seconds, span books)."""
+    server = span_server({"tpu_native_ingest": native, **MIXED_KEYS},
+                         device)
+    snaps = capture_snapshots(server)
+    try:
+        t0 = time.perf_counter()
+        if native:
+            for i in range(0, len(payloads), SSF_BURST):
+                server.handle_trace_packets_native(payloads[i:i + SSF_BURST])
+        else:
+            for pkt in payloads:
+                server.handle_trace_packet(pkt)
+        t1 = time.perf_counter()
+        got = canonical(server.flush(now=SSF_NOW))
+        t2 = time.perf_counter()
+        books = check_span_books(server, f"phase 11b ({device})",
+                                 len(payloads) + 1)
+        w = server.workers[0]
+        if w.overload_dropped_total:
+            raise AssertionError(f"phase 11b: {w.overload_dropped_total} "
+                                 "samples shed")
+        return snaps[0], got, {
+            "ingest_s": t1 - t0, "spans_per_s": len(payloads) / (t1 - t0),
+            "flush_s": t2 - t1, **server.last_flush_phases,
+            **w.last_extract_phases}, books
+    finally:
+        server.shutdown()
+
+
+def make_pki(tmp: Path) -> dict:
+    """A CA, a server certificate for 127.0.0.1 and a client certificate,
+    made by openssl; raises if openssl fails."""
+    import subprocess
+
+    ec = ["-newkey", "ec", "-pkeyopt", "ec_paramgen_curve:prime256v1",
+          "-nodes"]
+
+    def run(*args):
+        subprocess.run(["openssl", *args], cwd=tmp, check=True,
+                       capture_output=True, timeout=60)
+
+    run("req", "-x509", *ec, "-keyout", "ca.key", "-out", "ca.pem", "-days",
+        "2", "-subj", "/CN=chip-smoke-ca")
+    (tmp / "san.ext").write_text("subjectAltName=IP:127.0.0.1\n")
+    for who in ("server", "client"):
+        run("req", *ec, "-keyout", f"{who}.key", "-out", f"{who}.csr",
+            "-subj", f"/CN={who}")
+        run("x509", "-req", "-in", f"{who}.csr", "-CA", "ca.pem", "-CAkey",
+            "ca.key", "-CAcreateserial", "-out", f"{who}.pem", "-days", "2",
+            "-extfile", "san.ext")
+    return {k: str(tmp / v) for k, v in (
+        ("ca", "ca.pem"), ("cert", "server.pem"), ("key", "server.key"),
+        ("client_cert", "client.pem"), ("client_key", "client.key"))}
+
+
+def wait_for(pred, what: str, timeout: float = 120.0) -> None:
+    deadline = time.time() + timeout
+    while not pred():
+        if time.time() > deadline:
+            raise AssertionError(f"timed out waiting for {what}")
+        time.sleep(0.02)
+
+
+def phase_span_server(payloads, tls_lines) -> dict:
+    """11b's server arm: a factory-built server on the card, native
+    ingest and readers on, every listener of the span slice: the spans
+    in turn over UDP (the C++ SSF reader), a unix stream socket and a
+    unixgram socket, then DogStatsD lines over mutual TLS, each sender
+    paced and waited on until the server counted all it sent. One flush;
+    its snapshot bitwise a CPU server's fed the same in the same order
+    through handle_trace_packet, handle_ssf and handle_metric_packet."""
+    import shutil
+    import socket
+    import ssl
+    import tempfile
+
+    from veneur_tpu_torch.protocol import ssf_wire
+
+    tmp = Path(tempfile.mkdtemp(prefix="vsmoke"))
+    try:
+        pki = make_pki(tmp)
+        n = len(payloads)
+        udp, unix, ugram = (payloads[:n // 3], payloads[n // 3:2 * n // 3],
+                            payloads[2 * n // 3:])
+        data = {"tpu_native_ingest": True, "tpu_native_readers": True,
+                "count_unique_timeseries": True,
+                "ssf_listen_addresses": [
+                    "udp://127.0.0.1:0", f"unix://{tmp}/ssf.sock",
+                    f"unixgram://{tmp}/ssfg.sock"],
+                "statsd_listen_addresses": ["tcp://127.0.0.1:0"],
+                "tls_key": pki["key"], "tls_certificate": pki["cert"],
+                "tls_authority_certificate": pki["ca"]}
+        server = span_server(data, DEVICE)
+        snaps = capture_snapshots(server)
+        t = {}
+        try:
+            ports = server.start()
+            ctx = server.workers[0]._native
+            if not server._native_ssf or len(server._native_ssf_readers) \
+                    != 1:
+                raise AssertionError("the C++ SSF reader is not running")
+            t0 = time.perf_counter()
+            with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+                for i, pkt in enumerate(udp):
+                    s.sendto(pkt, ("127.0.0.1", ports["udp://127.0.0.1:0"]))
+                    if i % 16 == 15:
+                        time.sleep(0.002)
+            wait_for(lambda: ctx.ssf_spans == len(udp), "the UDP spans")
+            t["udp_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with socket.socket(socket.AF_UNIX, socket.SOCK_STREAM) as s:
+                s.connect(str(tmp / "ssf.sock"))
+                s.sendall(b"".join(struct.pack(">BI", 0, len(p)) + p
+                                   for p in unix))
+            wait_for(lambda: server.ssf_spans_received_total == len(unix),
+                     "the unix stream spans")
+            t["unix_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            with socket.socket(socket.AF_UNIX, socket.SOCK_DGRAM) as s:
+                for i, pkt in enumerate(ugram):
+                    s.sendto(pkt, str(tmp / "ssfg.sock"))
+                    if i % 16 == 15:
+                        time.sleep(0.002)
+            wait_for(lambda: ctx.ssf_spans == len(udp) + len(ugram),
+                     "the unixgram spans")
+            t["unixgram_s"] = time.perf_counter() - t0
+            t0 = time.perf_counter()
+            before = server.workers[0].processed
+            tls = ssl.create_default_context(cafile=pki["ca"])
+            tls.load_cert_chain(pki["client_cert"], pki["client_key"])
+            raw = socket.create_connection(
+                ("127.0.0.1", ports["tcp://127.0.0.1:0"]), timeout=60)
+            with tls.wrap_socket(raw, server_hostname="127.0.0.1") as c:
+                c.sendall(b"\n".join(tls_lines) + b"\n")
+            wait_for(lambda: server.workers[0].processed - before
+                     == len(tls_lines), "the TLS lines")
+            t["tls_s"] = time.perf_counter() - t0
+            reader_spans = ctx.ssf_spans
+            t0 = time.perf_counter()
+            got = canonical(server.flush(now=SSF_NOW))
+            t["flush_s"] = time.perf_counter() - t0
+            books = check_span_books(server, "phase 11b server", n + 1)
+            tcp = server.stats.totals()
+        finally:
+            server.shutdown()
+        ref = span_server({"tpu_native_ingest": True,
+                           "count_unique_timeseries": True}, "cpu")
+        ref_snaps = capture_snapshots(ref)
+        try:
+            for pkt in udp:
+                ref.handle_trace_packet(pkt)
+            for pkt in unix:
+                ref.handle_ssf(ssf_wire.parse_ssf(pkt))
+            for pkt in ugram:
+                ref.handle_trace_packet(pkt)
+            for line in tls_lines:
+                ref.handle_metric_packet(line)
+            want = canonical(ref.flush(now=SSF_NOW))
+        finally:
+            ref.shutdown()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    compare_snapshots(snaps[0], ref_snaps[0],
+                      "phase 11b server, card against CPU")
+    if got != want:
+        raise AssertionError("phase 11b server: InterMetrics differ from "
+                             "the CPU server's")
+    if reader_spans < 1 or tcp.get(("tcp.connects", ())) != 1:
+        raise AssertionError(f"phase 11b server: C++ SSF reader spans "
+                             f"{reader_spans}, TLS connects {tcp}")
+    log(f"[spans 11b] server: {len(udp)} spans over UDP (C++ SSF reader: "
+        f"{reader_spans} native, with unixgram), {len(unix)} over a unix "
+        f"stream, {len(ugram)} over unixgram, {len(tls_lines)} DogStatsD "
+        "lines over mutual TLS: the card's snapshot bitwise a CPU server's "
+        f"fed in the same order; ({CARD}) " + ", ".join(
+            f"{k} {v:.4f}" for k, v in t.items()))
+    return {"seconds": t, "reader_spans": reader_spans, "books": books,
+            "metrics": len(got)}
+
+
+def phase_mixed_spans(parse) -> dict:
+    """11b: phase 4's mixed interval as the samples of spans, through the
+    native SSF path at full width (spill folds, K1 at 131,072 rows, K4
+    and K5 through the staged store's dense tier) and the Python path at
+    a cut, each on the card and the CPU; then the server arm."""
+    t0 = time.perf_counter()
+    plan = interval_plan(seed=5)
+    samples = mixed_span_samples(plan, parse)
+    payloads = mixed_span_payloads(samples)
+    # the TLS lines are series of their own: a gauge written over two
+    # paths would keep whichever write the readers' timing put last
+    tls_lines = [b"tls." + line for line in plan[1][:TLS_LINES]]
+    n_lines = len(plan[0]) + len(plan[1]) + len(plan[5][0])
+    del plan, samples
+    build_s = time.perf_counter() - t0
+    out = {"build_s": build_s, "spans": len(payloads)}
+    res = {}
+    for arm, pay in (("native", payloads),
+                     ("python", payloads[::SPAN_PY_CUT])):
+        for dev in (DEVICE, "cpu"):
+            res[arm, dev] = run_mixed_spans(pay, arm == "native", dev)
+        (sc, oc, tc, bc), (sh, oh, th, _bh) = res[arm, DEVICE], res[arm, "cpu"]
+        compare_snapshots(sc, sh, f"phase 11b {arm}, card against CPU")
+        if oc != oh:
+            raise AssertionError(f"phase 11b {arm}: card InterMetrics "
+                                 "differ from the CPU's")
+        if arm == "native":
+            users = [i for i, r in enumerate(sc.directory.sets.rows)
+                     if r.key.name.startswith("users.")]
+            check_set_estimates(sc.set_estimates[users])
+        out[arm] = {"card": tc, "cpu": th, "books": bc, "spans": len(pay),
+                    "metrics": len(oc), "histo_rows":
+                    sc.directory.num_histo_rows}
+        for where, t in (("card", tc), ("cpu", th)):
+            log(f"[spans 11b] {arm} {where} ({CARD}): " + ", ".join(
+                f"{k} {v:.4f}" for k, v in t.items()))
+        del res[arm, "cpu"]
+    log(f"[spans 11b] {len(payloads)} spans of {SPAN_SAMPLES} samples "
+        f"(built in {build_s:.2f} s): native {out['native']['histo_rows']} "
+        f"histogram rows, {out['native']['metrics']} InterMetrics; Python "
+        f"arm one span in {SPAN_PY_CUT}; card bitwise the CPU on both")
+    out["server"] = phase_span_server(payloads[:(n_lines + SPAN_SAMPLES - 1)
+                                               // SPAN_SAMPLES], tls_lines)
+    return out
+
+
+def phase_spans(parse) -> dict:
+    """Phase 11: 11a and 11b."""
+    return {"ssf_histo": phase_ssf_histo(),
+            "mixed": phase_mixed_spans(parse)}
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -2366,7 +2867,8 @@ def main() -> int:
     import port_probe_hll as probe_hll
 
     # 1. setup
-    card = probe.card_line()
+    global CARD
+    card = CARD = probe.card_line()
     log(f"[setup] card: {card}")
     log(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}"
         f", cuda {torch.version.cuda}, device "
@@ -2492,12 +2994,22 @@ def main() -> int:
     phases["global"] = phase_global(parse_metric)
     wall["global_s"] = time.perf_counter() - t0
     launches_global = read_launches(ek, hll)
+    # 11: the SSF span path, counted from 0
+    reset_launches(ek, hll)
+    t0 = time.perf_counter()
+    phases["spans"] = phase_spans(parse_metric)
+    wall["spans_s"] = time.perf_counter() - t0
+    launches_spans = read_launches(ek, hll)
     for name in ("flush_extract", "hll_estimate"):
         for where, got in (("shards", launches_shards),
                            ("global", launches_global)):
             if got[name] < 1:
                 raise AssertionError(f"{name} was not launched in phase "
                                      f"{where}")
+    for name in ("flush_extract", "hll_insert", "hll_estimate"):
+        if launches_spans[name] < 1:
+            raise AssertionError(f"{name} was not launched on the span "
+                                 "path (phase 11)")
 
     def counts(name: str) -> dict:
         return {"launches": launches[name],
@@ -2505,7 +3017,8 @@ def main() -> int:
                 "launches_guard": launches_guard[name],
                 "launches_guard_oom": launches_guard_oom[name],
                 "launches_shards": launches_shards[name],
-                "launches_global": launches_global[name]}
+                "launches_global": launches_global[name],
+                "launches_spans": launches_spans[name]}
 
     source = "veneur_tpu_torch/csrc/flush_extract.cu"
     kernels = {"kernels": [{

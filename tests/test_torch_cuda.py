@@ -10,7 +10,10 @@ the rank range, row counts around each block round; for the insert
 negative rows, duplicate words within a warp, odd negative registers, n
 not a multiple of 32, n = 1,048,576 and the host inserter's pinned
 uploads); the CUDA worker, with and without sets, against its CPU twin;
-the native ingest path on the card against the CPU; the micro-fold
+the native ingest path on the card against the CPU; the native SSF span
+path (C++ span decoding and extraction into a worker's context) and
+port servers deriving spans (native and columnar) on the card against
+the CPU; the micro-fold
 mirror on the card, and micro-folded intervals against batch-folded ones
 on the card and the CPU; and the device guard under real faults
 (tools/port_guard_faults.py): an allocator OOM through the HBM valve,
@@ -37,6 +40,10 @@ import torch
 from veneur_tpu_torch.core import worker as tw
 from veneur_tpu_torch.ops import extract_kernel as ek
 from veneur_tpu_torch.ops import hll, hll_kernel
+from veneur_tpu_torch import ssf
+from veneur_tpu_torch.core.config import Config
+from veneur_tpu_torch.core.server import Server
+from veneur_tpu_torch.protocol import ssf_wire
 from veneur_tpu_torch.protocol.dogstatsd import parse_metric
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
@@ -747,3 +754,100 @@ def test_reader_shards_on_the_card(card):
               "lsum", "lweight"):
         assert np.asarray(getattr(a, f)).tobytes() == \
             np.asarray(getattr(b, f)).tobytes(), f
+
+
+# -- the SSF span path --------------------------------------------------------
+
+
+def _span_packets(seed: int, n: int) -> list[bytes]:
+    """SSF datagrams: indicator spans over 16 services carrying timers,
+    histograms, counters, gauges and set members; every 9th span carries
+    a status check (the Python fall-back)."""
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(n):
+        samples = [
+            ssf.SSFSample(metric=ssf.SSFMetricType.HISTOGRAM,
+                          name=f"cs.lat{i % 40}",
+                          value=float(rng.gamma(2.0, 9.0)), timestamp=1),
+            ssf.SSFSample(metric=ssf.SSFMetricType.COUNTER,
+                          name=f"cs.hits{i % 7}", value=1.0, timestamp=1),
+            ssf.SSFSample(metric=ssf.SSFMetricType.GAUGE,
+                          name=f"cs.load{i % 5}", value=float(i),
+                          timestamp=1),
+            ssf.SSFSample(metric=ssf.SSFMetricType.SET,
+                          name=f"cs.users{i % 3}",
+                          message=f"u{int(rng.integers(0, 6000))}",
+                          timestamp=1)]
+        if i % 9 == 0:
+            samples.append(ssf.SSFSample(
+                metric=ssf.SSFMetricType.STATUS, name="cs.chk",
+                status=ssf.SSFStatus.WARNING, timestamp=1))
+        start = 1_000_000_000 + i
+        out.append(ssf_wire.encode_datagram(ssf.SSFSpan(
+            trace_id=100 + i, id=200 + i, start_timestamp=start,
+            end_timestamp=start + int(rng.gamma(2.0, 5e6)),
+            service=f"svc{i % 16}", indicator=True, name="op",
+            metrics=samples)))
+    return out
+
+
+def test_native_ssf_worker_cuda_equals_cpu(card):
+    """Spans decoded and extracted in C++ into a worker's context on the
+    card (the dense set store, so set members go through the insert
+    kernel): every snapshot array equal to the CPU worker's, two
+    intervals."""
+    kw = dict(stage_depth=16, batch_size=4096, initial_histo_rows=64,
+              set_store="dense", initial_set_rows=16, hll_precision=14,
+              micro_fold=False)
+    gpu = tw.DeviceWorker(**kw, device=card)
+    cpu = tw.DeviceWorker(**kw, device="cpu")
+    for w in (gpu, cpu):
+        w.attach_native()
+    qs = np.array([0.5, 0.9, 0.99])
+    for k in range(2):
+        packets = _span_packets(k, 6000)
+        k1, k4 = ek.flush_extract.launches, hll.insert_batch.launches
+        res = [w._native.ingest_ssf_many(packets, b"cs.ind", b"cs.obj", 1.0)
+               for w in (gpu, cpu)]
+        assert res[0] == res[1] and res[0][0] == 6000 - 667
+        a, b = gpu.flush(qs), cpu.flush(qs)
+        assert ek.flush_extract.launches == k1 + 1
+        assert hll.insert_batch.launches > k4
+        for name in ("quantile_values", "dmin", "dmax", "dsum", "dcount",
+                     "lsum", "lweight", "digest_means", "digest_weights",
+                     "set_estimates", "set_registers"):
+            va, vb = getattr(a, name), getattr(b, name)
+            assert va.dtype == vb.dtype and va.shape == vb.shape, name
+            assert va.tobytes() == vb.tobytes(), name
+
+
+@pytest.mark.parametrize("native", [True, False], ids=["native", "columnar"])
+def test_span_server_cuda_equals_cpu(card, native):
+    """A port server deriving spans on the card (native SSF path or the
+    columnar pipeline) flushes the CPU server's InterMetrics, three
+    intervals, each flush's own span included."""
+    outs = []
+    for dev in (card, "cpu"):
+        srv = Server(Config(
+            interval="10s", num_workers=1, tpu_native_ingest=native,
+            micro_fold=False, percentiles=[0.5, 0.99],
+            indicator_span_timer_name="cs.ind",
+            objective_span_timer_name="cs.obj",
+            ssf_span_uniqueness_rate=1.0), device=dev)
+        try:
+            assert srv._native_ssf is native
+            got = []
+            for k in range(3):
+                packets = _span_packets(10 + k, 3000)
+                if native:
+                    srv.handle_trace_packets_native(packets)
+                else:
+                    for pkt in packets:
+                        srv.handle_trace_packet(pkt)
+                got.append(sorted((m.name, m.value, tuple(m.tags))
+                                  for m in srv.flush(now=1_700_000_000 + k)))
+            outs.append(got)
+        finally:
+            srv.shutdown()
+    assert outs[0] == outs[1]

@@ -18,6 +18,10 @@ the CPU: the forward codec, the forwarders, the import servers.
   kind/value check of the native decode path.
 * The import HTTP server's GET surface (``/healthcheck``, ``/version``,
   ``/builddate``, ``/debug/pprof``) answers as the JAX one does.
+* ``POST /import`` is a traced hop: a forward carrying trace headers
+  leaves a ``veneur.import`` span in the global's span pipeline, and the
+  global's next two flushes (the import, the hop's span and each flush's
+  own span derived) equal the JAX global's.
 * The factory: the forwarder from one ``forward_address``, the import
   servers from their keys; a multi-destination ``forward_address``,
   ``forward_discovery_file`` and ``spill_journal_dir`` refused by name.
@@ -42,6 +46,7 @@ from veneur_tpu.distributed import codec as jcodec
 from veneur_tpu.distributed import forward as jfwd
 from veneur_tpu.distributed import import_server as jimp
 from veneur_tpu.protocol import dogstatsd as jdog
+from veneur_tpu.trace import opentracing as jot
 from veneur_tpu_torch.core import worker as tw
 from veneur_tpu_torch.core.config import Config as TConfig
 from veneur_tpu_torch.core.config import load_config as tload
@@ -53,6 +58,7 @@ from veneur_tpu_torch.distributed import import_server as timp
 from veneur_tpu_torch.distributed import rpc as trpc
 from veneur_tpu_torch.gen import veneur_tpu_pb2 as tpb
 from veneur_tpu_torch.protocol import dogstatsd as tdog
+from veneur_tpu_torch.trace import opentracing as tot
 
 AGGS = HistogramAggregates.from_names(["min", "max", "count", "sum"])
 PCTS = [0.5, 0.9, 0.99]
@@ -516,6 +522,43 @@ def test_import_http_get_surface_equals_jax():
     finally:
         jh.stop()
         th.stop()
+
+
+def test_http_import_hop_is_traced_as_jax():
+    jsnap, tsnap = _local_snapshots(0)
+    outs = []
+    for pkg, snap in (("jax", jsnap), ("port", tsnap)):
+        cfg_cls, srv_cls, mod, fmod, kw = (
+            (JConfig, JServer, jimp, jfwd, {}) if pkg == "jax"
+            else (TConfig, TServer, timp, tfwd, {"device": "cpu"}))
+        srv = srv_cls(cfg_cls(interval="10s", percentiles=PCTS,
+                              num_workers=2, tpu_hll_precision=P,
+                              ssf_span_uniqueness_rate=1.0), **kw)
+        imp = mod.ImportServer(srv)
+        http = mod.ImportHTTPServer(imp)
+        port = http.start("127.0.0.1", 0)
+        tracer = (jot if pkg == "jax" else tot).Tracer(service="local")
+        fwd = fmod.HTTPForwarder(f"http://127.0.0.1:{port}", 10.0, 100.0,
+                                 P, tracer=tracer)
+        try:
+            fwd([snap])
+            assert fwd.errors == 0 and imp.received_metrics > 0
+            # the hop's span finishes after the response is written
+            assert _wait_until(lambda: srv.ssf_spans_received_total == 1)
+            outs.append([sorted((m.name, m.value, tuple(m.tags))
+                                for m in srv.flush(now=1_700_000_000 + k))
+                         for k in range(2)])
+        finally:
+            http.stop()
+            imp.stop()
+            srv.shutdown()
+    assert outs[0] == outs[1]
+    # the hop's span (a child of the forward's) in the first flush, the
+    # first flush's own (a root) in the second
+    assert [[m[2] for m in o if m[0] == "ssf.names_unique"]
+            for o in outs[1]] == [
+        [("indicator:false", "root_span:false", "service:veneur-tpu")],
+        [("indicator:false", "root_span:true", "service:veneur-tpu")]]
 
 
 # -- the factory -------------------------------------------------------------

@@ -677,8 +677,11 @@ def test_server_flushes_through_faults_and_counts_them():
     faults: every flush's InterMetrics equal a healthy JAX server's, the
     guard's counters and the host fallbacks are on the Server object,
     and the flush's guard tick quarantines the tripped worker."""
+    # ssf_span_uniqueness_rate 0: the flush spans' unseeded 1% draw would
+    # make the three-flush comparison nondeterministic
     base = {"percentiles": PCTS, "aggregates": ["min", "max", "count"],
             "hostname": "h", "tpu_native_ingest": False,
+            "ssf_span_uniqueness_rate": 0.0,
             "tpu_native_readers": False, "flush_emit_native": False,
             "device_fault_streak": 2}
     jsink, tsink = JChannel(), TChannel()

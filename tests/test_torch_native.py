@@ -310,6 +310,10 @@ def test_native_path_equals_python_path(store):
 # -- servers --------------------------------------------------------------------
 
 BASE = {
+    # each flush is itself a span that derives an ssf.names_unique set
+    # at this rate from the unseeded global random; 0 keeps multi-flush
+    # comparisons deterministic (test_torch_spans.py seeds it)
+    "ssf_span_uniqueness_rate": 0.0,
     "percentiles": PCTS,
     "aggregates": ["min", "max", "count"],
     "interval": "10s",

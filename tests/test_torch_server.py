@@ -34,6 +34,10 @@ from veneur_tpu_torch.sinks.channel import ChannelMetricSink as TChannel
 NOW = 1_700_000_000
 
 BASE = {
+    # each flush is itself a span that derives an ssf.names_unique set
+    # at this rate from the unseeded global random; 0 keeps multi-flush
+    # comparisons deterministic (test_torch_spans.py seeds it)
+    "ssf_span_uniqueness_rate": 0.0,
     "percentiles": [0.5, 0.9, 0.99],
     "aggregates": ["min", "max", "count", "sum", "avg", "median", "hmean"],
     "interval": "10s",
@@ -87,11 +91,6 @@ def _jax_server(extra=None):
     cfg = jload(data={**BASE, **(extra or {})})
     sink = JChannel()
     server = JServer(cfg, metric_sinks=[sink])
-    # the JAX server traces its own flushes into its span pipeline, whose
-    # derived metrics (ssf.names_unique, ...) land in whichever later
-    # interval the pipeline reaches them; the port has no span pipeline
-    # yet (ROADMAP item 9)
-    server.ingest_internal_span = lambda span: None
     return server, sink
 
 
@@ -159,9 +158,7 @@ def test_udp_round_trip():
     ("tenant_default_budget", 100),
     ("query_listen_addrs", ["http://127.0.0.1:0"]),
     ("forward_address", "127.0.0.1:9,127.0.0.1:10"),
-    ("ssf_listen_addresses", ["udp://127.0.0.1:0"]),
     ("archive_dir", "/nonexistent"),
-    ("statsd_listen_addresses", ["tcp://127.0.0.1:0"]),
 ])
 def test_unported_key_refused_by_name(key, value):
     # a forwarding fleet validates only over gRPC (core/config.py)

@@ -250,6 +250,10 @@ def test_pool_carried_across_into_a_worker_epoch():
 # -- servers ------------------------------------------------------------------
 
 BASE = {
+    # each flush is itself a span that derives an ssf.names_unique set
+    # at this rate from the unseeded global random; 0 keeps multi-flush
+    # comparisons deterministic (test_torch_spans.py seeds it)
+    "ssf_span_uniqueness_rate": 0.0,
     "percentiles": [0.5, 0.99],
     "aggregates": ["min", "max", "count"],
     "interval": "10s",

@@ -306,9 +306,12 @@ SINK_KEYS = {
     "NewRelicMetricSink": {"newrelic_insert_key": "nk",
                            "newrelic_account_id": 7},
 }
+# each flush is itself a span that derives an ssf.names_unique set at
+# ssf_span_uniqueness_rate from the unseeded global random; 0 keeps the
+# multi-flush comparisons deterministic (test_torch_spans.py seeds it)
 BASE = {"interval": "10s", "hostname": "parity-host",
         "tpu_native_ingest": False, "tpu_native_readers": False,
-        "micro_fold": False}
+        "micro_fold": False, "ssf_span_uniqueness_rate": 0.0}
 
 
 def _policy(sink):
@@ -355,17 +358,13 @@ def test_factory_builds_every_sink_at_once():
 
 
 @pytest.mark.parametrize("key,value", [
-    ("datadog_trace_api_address", "http://127.0.0.1:9"),
     ("kafka_broker", "127.0.0.1:9092"),
     ("splunk_hec_address", "http://127.0.0.1:9"),
     ("xray_address", "127.0.0.1:2000"),
     ("lightstep_access_token", "t"),
     ("trace_lightstep_access_token", "t"),
     ("falconer_address", "127.0.0.1:9"),
-    ("span_log_dir", "/nonexistent"),
-    ("debug_ingested_spans", True),
     ("spill_journal_dir", "/nonexistent"),
-    ("newrelic_trace_observer_url", "http://127.0.0.1:9/trace"),
 ])
 def test_unported_sink_keys_refused_by_name(key, value):
     data = {**BASE, key: value, "newrelic_insert_key": "nk",
@@ -437,14 +436,6 @@ def test_reader_shards_env_hatch(monkeypatch):
 # -- servers -------------------------------------------------------------------
 
 
-def drop_self_traces(jax_server) -> None:
-    """The JAX server traces its own flush into its span pipeline, and
-    the derived metrics (ssf.names_unique, ...) land in a later interval
-    whenever the pipeline gets to them. The port has no span pipeline
-    yet (ROADMAP item 9): drop those spans so intervals compare."""
-    jax_server.ingest_internal_span = lambda span: None
-
-
 def _datagrams(seed: int) -> list[bytes]:
     lines = _lines(seed)
     grams = [b"\n".join(lines[i:i + 9]) for i in range(0, len(lines), 9)]
@@ -476,8 +467,6 @@ def test_servers_send_the_same_bytes(ingest, emit):
                     "tags_exclude": ["ep|prometheus"]}
             srv = (jbuild(jload(data=data), opener=rec) if pkg == "jax"
                    else tbuild(tload(data=data), device="cpu", opener=rec))
-            if pkg == "jax":
-                drop_self_traces(srv)
             for s in srv.metric_sinks:
                 if getattr(s, "delivery", None) is not None:
                     s.delivery._mint_sender = "fixed-sender"
@@ -543,8 +532,6 @@ def test_quiet_tick_drains_the_spill_as_jax():
                 "sink_retry_max": 0, "sink_breaker_threshold": 0}
         srv = (jbuild(jload(data=data), opener=opener) if pkg == "jax"
                else tbuild(tload(data=data), device="cpu", opener=opener))
-        if pkg == "jax":
-            drop_self_traces(srv)
         srv.metric_sinks[0].delivery._mint_sender = "fixed-sender"
         man = srv.metric_sinks[0].delivery
         try:

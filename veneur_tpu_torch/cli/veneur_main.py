@@ -4,7 +4,10 @@
 
 Runs on the card unless ``--device`` names another device. Config keys
 the port does not support yet are refused by name (core/factory.py).
-SIGTERM/SIGINT stop the server after one final flush.
+The startup line lists every listener with its bound port: the statsd
+ones (udp://, tcp://, unixgram://) and the SSF ones
+(``ssf_listen_addresses``; an SSF spec equal to a statsd one is keyed
+``ssf:<spec>``). SIGTERM/SIGINT stop the server after one final flush.
 """
 
 from __future__ import annotations

@@ -17,8 +17,18 @@ Relic gets its own DeliveryManager from one ``DeliveryPolicy`` (retry,
 breaker, deadline clip, spill). ``opener`` is injected into every HTTP
 sink for tests. With ``flush_emit_native`` (on by default) the native
 library is loaded here, so a library that does not build fails the
-start, not each flush. Span sinks, Kafka and the spill journal stay
-refused.
+start, not each flush. Kafka and the spill journal stay refused.
+
+Spans: ``ssf_listen_addresses`` (udp://, unix://, unixgram://) start the
+SSF listeners, and statsd listeners take tcp:// (TLS with ``tls_key``
+and ``tls_certificate``, mutual TLS with ``tls_authority_certificate``)
+and unixgram:// besides udp://. The span sinks built: Datadog trace
+(``datadog_trace_api_address``), New Relic spans
+(``newrelic_trace_observer_url`` with ``newrelic_insert_key``), debug
+(``debug_ingested_spans``) and the span log (``span_log_dir``: a
+``SpanBatchSink`` over a ``SegmentedLogWriter``), plus
+``extra_span_sinks``. The Splunk, X-Ray, LightStep and falconer span
+sinks stay refused by name.
 
 The micro-fold (``micro_fold``, ``micro_fold_rows``,
 ``micro_fold_max_age_s``) and the device fault domain (``device_guard``,
@@ -28,7 +38,7 @@ in the JAX package.
 
 The native C++ ingest path is ported: ``tpu_native_ingest`` and
 ``tpu_native_readers`` (both on by default) load as they do in the JAX
-package, with UDP listeners only, and so are reader shards:
+package, and so are reader shards:
 ``reader_shards``, ``VENEUR_READER_SHARDS`` and the default -1 resolve
 as in the JAX package (core/config.resolve_reader_shards; the server
 attaches the shards).
@@ -82,26 +92,19 @@ REFUSED_KEYS = {
     # the proxy tier's forwarding (discovery) and the spill journal
     "forward_discovery_file": _on,
     "spill_journal_dir": _on,
-    # SSF / TCP / TLS / unixgram listeners
-    "ssf_listen_addresses": _on,
-    "tls_key": _on,
-    "tls_certificate": _on,
-    "tls_authority_certificate": _on,
     # archive and plugins
     "archive_dir": _on,
     "archive_blob_bucket": _on,
     "flush_file": _on,
     "aws_s3_bucket": _on,
-    # span sinks and Kafka (the metric network sinks are ported)
-    "datadog_trace_api_address": _on,
+    # Kafka and the span sinks of the next span slice (Datadog trace,
+    # New Relic spans, debug and the span log are ported)
     "kafka_broker": _on,
     "splunk_hec_address": _on,
     "xray_address": _on,
     "lightstep_access_token": _on,
     "trace_lightstep_access_token": _on,
     "falconer_address": _on,
-    "span_log_dir": _on,
-    "debug_ingested_spans": _on,
     # operations
     "stats_address": _on,
     "flush_watchdog_missed_flushes": lambda v: v > 0,
@@ -126,15 +129,6 @@ def check_config(cfg: Config) -> None:
     for key, enabled in REFUSED_KEYS.items():
         if enabled(getattr(cfg, key)):
             _refuse(key, getattr(cfg, key))
-    if cfg.newrelic_insert_key and cfg.newrelic_trace_observer_url:
-        # the New Relic span sink needs the SSF span path
-        _refuse("newrelic_trace_observer_url",
-                cfg.newrelic_trace_observer_url)
-    for spec in cfg.statsd_listen_addresses:
-        if not spec.startswith("udp://"):
-            raise UnportedConfigError(
-                f"config key 'statsd_listen_addresses': {spec!r} — only "
-                f"udp:// listeners are supported by the PyTorch port yet")
     if len(cfg.forward_destinations()) > 1:
         # a comma-separated fleet is the sharded proxy tier's spread
         _refuse("forward_address", cfg.forward_address)
@@ -145,7 +139,8 @@ def check_config(cfg: Config) -> None:
 
 
 def build_server(cfg: Config, extra_metric_sinks=None,
-                 device: Optional[str] = None, opener=None) -> Server:
+                 device: Optional[str] = None, opener=None,
+                 extra_span_sinks=None) -> Server:
     """Construct a Server from configuration on ``device`` (the card
     unless the caller asks for another). ``opener`` (optional) is
     injected into every HTTP-based sink for tests."""
@@ -153,6 +148,7 @@ def build_server(cfg: Config, extra_metric_sinks=None,
     from veneur_tpu_torch.sinks.delivery import DeliveryPolicy
 
     metric_sinks = list(extra_metric_sinks or [])
+    span_sinks = list(extra_span_sinks or [])
     interval = cfg.interval_seconds()
     # one shared delivery policy: every network sink gets its own
     # DeliveryManager built from it (sinks/delivery.py)
@@ -181,6 +177,14 @@ def build_server(cfg: Config, extra_metric_sinks=None,
                 e.metric_prefix: e.tags
                 for e in cfg.datadog_exclude_tags_prefix_by_prefix_metric
             },
+            **dkw,
+        ))
+    if cfg.datadog_trace_api_address:
+        from veneur_tpu_torch.sinks.datadog import DatadogSpanSink
+
+        span_sinks.append(DatadogSpanSink(
+            cfg.datadog_trace_api_address,
+            buffer_size=cfg.datadog_span_buffer_size,
             **dkw,
         ))
 
@@ -245,17 +249,41 @@ def build_server(cfg: Config, extra_metric_sinks=None,
             region=cfg.newrelic_region,
             **kw,
         ))
+    if cfg.newrelic_insert_key and cfg.newrelic_trace_observer_url:
+        from veneur_tpu_torch.sinks.newrelic import NewRelicSpanSink
+
+        span_sinks.append(NewRelicSpanSink(
+            insert_key=cfg.newrelic_insert_key,
+            trace_observer_url=cfg.newrelic_trace_observer_url,
+            common_tags=cfg.newrelic_common_tags,
+            **kw,
+        ))
+
+    if cfg.span_log_dir:
+        from veneur_tpu_torch.spans import SegmentedLogWriter, SpanBatchSink
+
+        span_sinks.append(SpanBatchSink(
+            SegmentedLogWriter(cfg.span_log_dir),
+            name="span_log",
+            delivery=policy,
+            batch_rows=cfg.span_batch_rows,
+            pending_cap=cfg.span_pending_cap))
 
     if cfg.debug_flushed_metrics:
         from veneur_tpu_torch.sinks.debug import DebugMetricSink
 
         metric_sinks.append(DebugMetricSink())
+    if cfg.debug_ingested_spans:
+        from veneur_tpu_torch.sinks.debug import DebugSpanSink
+
+        span_sinks.append(DebugSpanSink())
     if cfg.flush_emit_native and any(
             getattr(s, "supports_native_emit", False) for s in metric_sinks):
         from veneur_tpu_torch import native
 
         native.load_library()
-    server = Server(cfg, metric_sinks=metric_sinks, device=device)
+    server = Server(cfg, metric_sinks=metric_sinks, device=device,
+                    span_sinks=span_sinks)
 
     # forwarding (a local): one static upstream
     if cfg.forward_address:

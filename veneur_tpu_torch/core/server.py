@@ -52,11 +52,25 @@ global with ``grpc_address`` or ``http_address`` imports them
 (``import_server``, ``import_http``: distributed/import_server.py) and
 merges them into its pools at the swap.
 
-Not in this slice (the factory refuses their config keys): SSF/TCP/TLS/
-unixgram listeners, span sinks, proxies and multi-destination
-forwarding, query listeners, tenancy, the flush pipeline, plugins,
-self-telemetry (so the unique-timeseries tally, the guard's counters,
-the sinks' and the forwarder's counts are kept, not sent).
+Spans: SSF arrives on UDP, unix stream and unixgram listeners
+(``ssf_listen_addresses``) or through ``handle_trace_packet`` /
+``handle_ssf``. Each span goes through the columnar span pipeline
+(spans/, derived at the flush edge before the swap) or, with it off or a
+per-span sink configured, the ``SpanWorker`` lanes; both derive its
+metrics into the workers (core/spans.py) and hand it to the span sinks.
+With native ingest, one worker and no span sink the C++ SSF path decodes
+and derives in one pass (``handle_trace_packets_native``, the C++ SSF
+reader); STATUS-bearing spans come back to the Python path. Every flush
+is itself a span (``tracer``) that rejoins this server's span pipeline
+and derives at the next flush, as in the JAX package. DogStatsD also
+arrives over TCP (TLS, mutual TLS) and unixgram.
+
+Not in this slice (the factory refuses their config keys): proxies and
+multi-destination forwarding, query listeners, tenancy, the flush
+pipeline, plugins, the Kafka, Splunk, X-Ray, LightStep and falconer span
+sinks, self-telemetry (so the unique-timeseries tally, the guard's
+counters, the sinks', the forwarder's and the span path's counts are
+kept, not sent: ``stats`` keeps the counters the JAX package sends).
 """
 
 from __future__ import annotations
@@ -65,6 +79,7 @@ import logging
 import math
 import os
 import socket
+import ssl
 import threading
 import time
 from typing import Optional
@@ -77,18 +92,34 @@ from veneur_tpu_torch.core.flusher import (device_quantiles,
                                            generate_columnar,
                                            generate_inter_metrics)
 from veneur_tpu_torch.core.metrics import HistogramAggregates, InterMetric
+from veneur_tpu_torch.core.spans import MetricExtractionSink, SpanWorker
 from veneur_tpu_torch.core.worker import DeviceWorker, FlushSnapshot
 from veneur_tpu_torch.device import resolve
 from veneur_tpu_torch.ops import hll as hll_ops
 from veneur_tpu_torch.ops.device_guard import (DeviceFaultError,
                                                DeviceGuard,
                                                guard_enabled_default)
-from veneur_tpu_torch.protocol import dogstatsd
-from veneur_tpu_torch.sinks import (MetricSink, filter_routed,
+from veneur_tpu_torch.protocol import dogstatsd, ssf_wire
+from veneur_tpu_torch.sinks import (MetricSink, SpanSink, filter_routed,
                                     strip_excluded_tags)
+from veneur_tpu_torch.spans import ColumnarSpanPipeline, columnar_enabled
 from veneur_tpu_torch.ssf import SSFSample
+from veneur_tpu_torch.trace.opentracing import Tracer
 
 log = logging.getLogger("veneur_tpu_torch.server")
+
+# ssf.error_total tag sets, verbatim from the reference
+# (server.go:1052-1072, 1238-1246)
+_SSF_ERR_ZEROLENGTH = ["ssf_format:packet", "packet_type:unknown",
+                       "reason:zerolength"]
+_SSF_ERR_UNMARSHAL = ["ssf_format:packet", "packet_type:ssf_metric",
+                      "reason:unmarshal"]
+_SSF_ERR_EMPTY_ID = ["ssf_format:packet", "packet_type:ssf_metric",
+                     "reason:empty_id"]
+_SSF_ERR_PROCESSING = ["ssf_format:framed", "packet_type:unknown",
+                       "reason:processing"]
+_SSF_ERR_FRAMING = ["ssf_format:framed", "packet_type:unknown",
+                    "reason:framing"]
 
 
 class EventWorker:
@@ -110,12 +141,50 @@ class EventWorker:
         return out
 
 
+class KeptCounts:
+    """The counters the JAX package sends as self-telemetry (its
+    ``stats.count``), kept in the process: ``stats_address`` is not
+    ported. ``totals()`` maps (name, tags) to a counter's lifetime sum.
+    The gauges and timings the copied forward and import modules report
+    through the same client are dropped."""
+
+    def __init__(self) -> None:
+        self._lock = threading.Lock()
+        self._totals: dict[tuple[str, tuple[str, ...]], float] = {}
+
+    def count(self, name: str, value, tags=None) -> None:
+        k = (name, tuple(tags or ()))
+        with self._lock:
+            self._totals[k] = self._totals.get(k, 0) + value
+
+    def gauge(self, name: str, value, tags=None) -> None:
+        pass
+
+    histogram = time_in_nanoseconds = gauge
+
+    def totals(self) -> dict[tuple[str, tuple[str, ...]], float]:
+        with self._lock:
+            return dict(self._totals)
+
+
+class _SpanPipelineClient:
+    """Trace-client adapter: finished internal spans re-enter the owning
+    server's span pipeline (sinks and span->metric derivation)."""
+
+    def __init__(self, server: "Server") -> None:
+        self._server = server
+
+    def record(self, span) -> None:
+        self._server.ingest_internal_span(span)
+
+
 class Server:
     """One veneur_tpu_torch aggregation server."""
 
     def __init__(self, cfg: Config,
                  metric_sinks: Optional[list[MetricSink]] = None,
-                 device=None) -> None:
+                 device=None,
+                 span_sinks: Optional[list[SpanSink]] = None) -> None:
         self.config = cfg
         self.device = resolve(device)
         self.interval = cfg.interval_seconds()
@@ -157,7 +226,59 @@ class Server:
             enabled=cfg.device_guard and guard_enabled_default())
         self.event_worker = EventWorker()
         self.metric_sinks: list[MetricSink] = list(metric_sinks or [])
+        self.span_sinks: list[SpanSink] = list(span_sinks or [])
         self.sink_excluded_tags: dict[str, set[str]] = {}
+        # the counters the JAX package sends (ssf.error_total, tcp.*,
+        # frames.disconnects, ssf.spans.received_total, worker.span.*,
+        # sink.spans_*), kept here
+        self.stats = KeptCounts()
+        self._span_sink_reported: dict[tuple[str, str], int] = {}
+
+        # the span->metric bridge is always wired in, like the reference's
+        # ssfmetrics sink (server.go:407-415)
+        self._extraction_sink = MetricExtractionSink(
+            route_metric=self._route,
+            indicator_timer_name=cfg.indicator_span_timer_name,
+            objective_timer_name=cfg.objective_span_timer_name,
+            uniqueness_rate=cfg.ssf_span_uniqueness_rate,
+        )
+        common_tags = dict(t.split(":", 1) for t in cfg.tags if ":" in t)
+        self.span_worker = SpanWorker(
+            [self._extraction_sink] + self.span_sinks,
+            common_tags=common_tags,
+            capacity=cfg.span_channel_capacity,
+            workers=cfg.num_span_workers,
+            flush_drain_s=cfg.span_flush_drain_s,
+        )
+        # the columnar span pipeline (spans/): on when configured and
+        # every span sink takes sealed batches; one per-span-only sink
+        # keeps the whole path on the SpanWorker lanes (a span must flow
+        # through exactly one of the two or it derives twice)
+        self.span_pipeline: Optional[ColumnarSpanPipeline] = None
+        if columnar_enabled(cfg.span_columnar) and all(
+                hasattr(s, "ingest_batch") for s in self.span_sinks):
+            self.span_pipeline = ColumnarSpanPipeline(
+                route_many=self._route_many,
+                batch_sinks=self.span_sinks,
+                common_tags=common_tags,
+                indicator_timer_name=cfg.indicator_span_timer_name,
+                objective_timer_name=cfg.objective_span_timer_name,
+                uniqueness_rate=cfg.ssf_span_uniqueness_rate,
+                batch_rows=cfg.span_batch_rows,
+                pending_cap=cfg.span_pending_cap,
+            )
+        # handle_ssf's columnar path stands down once the span worker is
+        # customized at runtime (a sink appended to span_worker.span_sinks,
+        # or its ingest replaced); this length is what "uncustomized"
+        # means
+        self._span_worker_sink_count = len(self.span_worker.span_sinks)
+        # per-service span counts (reference server.go:1088-1101), swapped
+        # every flush into ``stats`` (ssf.spans.received_total), and
+        # lifetime tallies for span conservation
+        self.ssf_spans_received: dict[str, int] = {}
+        self.ssf_spans_received_total = 0
+        self._spans_native_total = 0
+        self._ssf_stats_lock = threading.Lock()
         # native emit tier (native/emit.cpp): sinks serialize their wire
         # payloads GIL-free straight from the flush arrays; off = always
         # use the Python columnar formatters
@@ -171,6 +292,11 @@ class Server:
         self._sink_counts_lock = threading.Lock()
         self._threads: list[threading.Thread] = []
         self._sockets: list[socket.socket] = []
+        # flock fds of bound unix sockets, and open stream connections
+        # (shut at shutdown so their reader threads end)
+        self._socket_locks: list[int] = []
+        self._conns: set = set()
+        self._conns_lock = threading.Lock()
         self._shutdown = threading.Event()
         self._flush_lock = threading.Lock()
         self._counter_lock = threading.Lock()
@@ -190,6 +316,8 @@ class Server:
         self._native_ingest_tick = 0
         # C++ reader-thread handles, and the packets of stopped ones
         self._native_readers: list = []
+        self._native_ssf_readers: list = []
+        self._native_stream_readers: list = []
         self._native_reader_packets_stopped = 0
         self._native_reader_lock = threading.Lock()
         self._native_pump_started = False
@@ -219,6 +347,22 @@ class Server:
                 self._reader_shards = n_rs
                 log.info("reader-sharded ingest enabled (%d shared-nothing "
                          "reader shards)", n_rs)
+        # the native SSF span path: only when the extraction sink is the
+        # sole span consumer (a span sink needs the Python span object),
+        # and with one worker (the C++ extractor commits into one context;
+        # with several, the Python path routes each derived metric to its
+        # home worker)
+        self._native_ssf = (self.native_mode and not self.span_sinks
+                            and len(self.workers) == 1)
+        # the tracer's finished spans rejoin this server's own span
+        # pipeline (the reference's internal spans flow through SpanChan
+        # the same way, server.go:310-317)
+        self.tracer = Tracer(client=_SpanPipelineClient(self),
+                             service="veneur-tpu")
+        self._native_ssf_indicator = cfg.indicator_span_timer_name.encode()
+        self._native_ssf_objective = cfg.objective_span_timer_name.encode()
+        if self._native_ssf:
+            log.info("native SSF span extraction enabled")
 
     @property
     def is_local(self) -> bool:
@@ -269,12 +413,16 @@ class Server:
 
     def _delivery_managers(self):
         """(report name, DeliveryManager) for every sink that carries
-        one."""
+        one; span sinks report under <name>_spans."""
         out = []
         for sink in self.metric_sinks:
             man = getattr(sink, "delivery", None)
             if man is not None:
                 out.append((sink.name(), man))
+        for sink in self.span_sinks:
+            man = getattr(sink, "delivery", None)
+            if man is not None:
+                out.append((sink.name() + "_spans", man))
         return out
 
     def delivery_stats(self) -> dict[str, dict]:
@@ -331,7 +479,52 @@ class Server:
         if self._reader_shards:
             out["reader_shards"] = self.workers[0].reader_stats(
                 lock_stats=self._lock_stats_enabled)
+        out["spans"] = self._span_stats()
         return out
+
+    def _span_stats(self) -> dict:
+        """Span conservation: received == derived + dropped + pending
+        (received counts every handle_ssf plus the natively extracted
+        spans; derived counts spans whose metrics reached the workers).
+        Exact on the columnar path; on the SpanWorker lanes pending is a
+        point-in-time queue depth, so there the balance is eventual."""
+        with self._ssf_stats_lock:
+            received = self.ssf_spans_received_total
+        native = self._spans_native_total
+        received += native
+        ext = self._extraction_sink
+        sw = self.span_worker
+        with ext._stats_lock:
+            lderived = ext.spans_seen
+            lrows = ext.derived_rows
+            linvalid = ext.invalid_samples
+        with sw._stats_lock:
+            ldropped = (sw.spans_dropped
+                        + sw.lane_drops.get(ext.name(), 0)
+                        + sw.ingest_timeouts.get(ext.name(), 0))
+        if self.span_pipeline is not None:
+            # the lanes' tallies are zero in pure columnar operation, but
+            # a runtime customization (handle_ssf) reroutes the stream
+            # through them: both books are summed
+            ps = self.span_pipeline.stats()
+            return {
+                "received": received,
+                "derived": ps["spans_derived"] + native + lderived,
+                "derived_rows": ps["derived_rows"] + lrows,
+                "dropped": ps["spans_dropped"] + ldropped,
+                "pending": ps["pending"] + sw.pending(),
+                "invalid_samples": ps["invalid_samples"] + linvalid,
+                "columnar": True,
+            }
+        return {
+            "received": received,
+            "derived": lderived + native,
+            "derived_rows": lrows,
+            "dropped": ldropped,
+            "pending": sw.pending(),
+            "invalid_samples": linvalid,
+            "columnar": False,
+        }
 
     def sink_counters(self) -> dict[str, dict[str, float]]:
         """Per sink: metrics flushed and flush errors since start, and
@@ -371,14 +564,37 @@ class Server:
             else:
                 self._route(dogstatsd.parse_metric(packet))
         except dogstatsd.ParseError as e:
-            with self._counter_lock:
-                self._parse_errors_py += 1
+            self._bump_errors()
             log.debug("bad metric packet %r: %s", packet[:128], e)
+
+    def _bump_errors(self, n: int = 1) -> None:
+        with self._counter_lock:
+            self._parse_errors_py += n
 
     def _route(self, metric) -> None:
         i = metric.digest % len(self.workers)
         with self._worker_locks[i]:
             self.workers[i].process_metric(metric)
+
+    def _route_many(self, metrics: list) -> None:
+        """Route a burst of metrics taking each worker lock once per
+        group. Grouping is a stable partition of one stream, so each
+        worker sees what per-metric _route would give it, in order."""
+        nw = len(self.workers)
+        if nw == 1:
+            with self._worker_locks[0]:
+                process = self.workers[0].process_metric
+                for m in metrics:
+                    process(m)
+            return
+        groups: dict[int, list] = {}
+        for m in metrics:
+            groups.setdefault(m.digest % nw, []).append(m)
+        for i, group in groups.items():
+            with self._worker_locks[i]:
+                process = self.workers[i].process_metric
+                for m in group:
+                    process(m)
 
     def process_metric_packet(self, datagram: bytes) -> None:
         """Split a datagram on newlines and handle each line
@@ -386,8 +602,7 @@ class Server:
         with self._counter_lock:
             self._packets_py += 1
         if len(datagram) > self.config.metric_max_length:
-            with self._counter_lock:
-                self._parse_errors_py += 1
+            self._bump_errors()
             return
         if self.native_mode:
             # parsed in C++ without a Python lock; the contexts commit
@@ -425,7 +640,279 @@ class Server:
                 for line in ctx.drain_other():
                     self.handle_metric_packet(line)
 
+    def _drain_native_ssf_fallbacks(self) -> None:
+        """The SSF payloads the C++ SSF reader handed back (STATUS spans
+        need the Python pipeline). Must not be called under a worker
+        lock, as _drain_native_events."""
+        if not self._native_ssf_readers:
+            return
+        for pkt in self.workers[0]._native.drain_ssf_fallback():
+            self.handle_trace_packet(pkt)
+
+    # -- SSF ingest ---------------------------------------------------------
+
+    def handle_trace_packet(self, packet: bytes) -> None:
+        """One unframed SSF datagram into the span pipeline
+        (reference HandleTracePacket, server.go:1046)."""
+        if not packet:
+            self._bump_errors()
+            self.stats.count("ssf.error_total", 1,
+                             tags=_SSF_ERR_ZEROLENGTH)
+            return
+        if self._native_ssf:
+            # decode and span->metric extraction in one C++ pass; rc -1
+            # is a span carrying STATUS samples, for the Python path below
+            with self._worker_locks[0]:
+                rc = self.workers[0].ingest_ssf_packet(
+                    packet, self._native_ssf_indicator,
+                    self._native_ssf_objective,
+                    self.config.ssf_span_uniqueness_rate)
+            if rc == 1:
+                return
+            if rc == 0:
+                self._bump_errors()
+                self.stats.count("ssf.error_total", 1,
+                                 tags=_SSF_ERR_UNMARSHAL)
+                return
+        try:
+            span = ssf_wire.parse_ssf(packet)
+        except ssf_wire.FramingError as e:
+            self._bump_errors()
+            self.stats.count("ssf.error_total", 1,
+                             tags=_SSF_ERR_UNMARSHAL)
+            log.debug("bad SSF packet: %s", e)
+            return
+        if span.id == 0:
+            # a client problem, counted, and the span is still handled
+            # (reference server.go:1067-1072)
+            self.stats.count("ssf.error_total", 1,
+                             tags=_SSF_ERR_EMPTY_ID)
+            log.debug("trace packet has zero span id")
+        self.handle_ssf(span)
+
+    def ingest_internal_span(self, span) -> None:
+        """Self-tracing entry: a finished internal span enters the same
+        pipeline external SSF spans do."""
+        self.handle_ssf(span)
+
+    def handle_trace_packets_native(self, packets: list[bytes]) -> None:
+        """Batched handle_trace_packet for the native SSF path: one C call
+        decodes and extracts the whole burst; STATUS-bearing spans come
+        back for the Python pipeline."""
+        worker = self.workers[0]
+        with self._worker_locks[0]:
+            ok, errs, fallbacks = worker._native.ingest_ssf_many(
+                packets, self._native_ssf_indicator,
+                self._native_ssf_objective,
+                self.config.ssf_span_uniqueness_rate)
+            worker.processed += ok
+            if (worker._native.pending_histo >= worker.batch_size
+                    or worker._native.pending_set >= worker.batch_size):
+                worker.drain_native()
+        if errs:
+            self._bump_errors(errs)
+            self.stats.count("ssf.error_total", errs,
+                             tags=_SSF_ERR_UNMARSHAL)
+        for pkt in fallbacks:
+            try:
+                span = ssf_wire.parse_ssf(pkt)
+            except ssf_wire.FramingError as e:
+                self._bump_errors()
+                self.stats.count("ssf.error_total", 1,
+                                 tags=_SSF_ERR_UNMARSHAL)
+                log.debug("bad SSF packet: %s", e)
+                continue
+            if span.id == 0:
+                self.stats.count("ssf.error_total", 1,
+                                 tags=_SSF_ERR_EMPTY_ID)
+            self.handle_ssf(span)
+
+    def handle_ssf(self, span) -> None:
+        """reference handleSSF (server.go:1077): per-service counts, then
+        the columnar pipeline or the span worker."""
+        service = span.service or "unknown"
+        with self._ssf_stats_lock:
+            self.ssf_spans_received[service] = (
+                self.ssf_spans_received.get(service, 0) + 1)
+            self.ssf_spans_received_total += 1
+        sw = self.span_worker
+        # columnar only while the worker is pristine: a runtime-appended
+        # per-span sink or a replaced ingest must keep seeing every span,
+        # so either routes the whole stream back through the lanes
+        if (self.span_pipeline is not None
+                and getattr(sw.ingest, "__func__", None) is SpanWorker.ingest
+                and len(sw.span_sinks) == self._span_worker_sink_count):
+            self.span_pipeline.ingest(span)
+        else:
+            sw.ingest(span)
+
+    def start_ssf_udp(self, addr: str, port: int) -> int:
+        """SSF datagrams over UDP: a C++ SSF reader on the native SSF
+        path with native readers (it raises if it cannot start: no quiet
+        fallback), else a Python reader. Returns the bound port."""
+        sock = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind((addr, port))
+        bound_port = sock.getsockname()[1]
+        self._sockets.append(sock)
+        # the per-datagram buffer is sized from trace_max_length_bytes,
+        # the reference's tracePool (server.go:859-863); inet datagrams
+        # stop at 65,507 bytes, so it is clamped there. A datagram larger
+        # than the buffer is truncated by recv and fails the parse, a
+        # parse error as in the reference
+        max_len = min(self.config.trace_max_length_bytes, 65536)
+        if self._native_ssf and self.config.tpu_native_readers:
+            # datagram -> decode -> span->metric extraction with no Python
+            # on the path; STATUS spans wait for the pump's fallback drain
+            sock.setblocking(True)
+            h = self.workers[0]._native.start_ssf_reader(
+                sock.fileno(), max_len, self._native_ssf_indicator,
+                self._native_ssf_objective,
+                self.config.ssf_span_uniqueness_rate)
+            with self._native_reader_lock:
+                self._native_ssf_readers.append(h)
+            self._start_native_pump()
+            return bound_port
+
+        def loop():
+            sock.settimeout(0.5)
+            buf = bytearray(max_len)
+            while not self._shutdown.is_set():
+                try:
+                    n = sock.recv_into(buf, max_len)
+                    data = bytes(buf[:n])
+                except socket.timeout:
+                    continue
+                except OSError:
+                    return
+                if not self._native_ssf:
+                    self.handle_trace_packet(data)
+                    continue
+                # native path: take whatever else is queued and decode the
+                # burst in one C call
+                batch = [data]
+                sock.setblocking(False)
+                try:
+                    while len(batch) < 512:
+                        batch.append(sock.recv(max_len))
+                except (BlockingIOError, OSError):
+                    pass
+                finally:
+                    sock.settimeout(0.5)
+                self.handle_trace_packets_native(batch)
+
+        self._spawn(loop, "ssf-udp")
+        return bound_port
+
+    def start_ssf_unix(self, path: str) -> None:
+        """Framed SSF over a unix stream socket
+        (reference startSSFUnix, networking.go:222-285)."""
+        sock = self._bind_unix_socket(path, socket.SOCK_STREAM)
+        sock.listen(64)
+
+        def accept_loop():
+            sock.settimeout(0.5)
+            while not self._shutdown.is_set():
+                try:
+                    conn, _ = sock.accept()
+                except socket.timeout:
+                    continue
+                except OSError:
+                    return
+                conn.settimeout(None)
+                self._spawn(lambda c=conn: self._read_ssf_stream(c),
+                            "ssf-unix-conn")
+
+        self._spawn(accept_loop, "ssf-unix-accept")
+
+    def _read_ssf_stream(self, conn: socket.socket) -> None:
+        """Framed read loop; a framing error poisons the stream
+        (reference ReadSSFStreamSocket, server.go:1215)."""
+        self._track_conn(conn, True)
+        f = conn.makefile("rb")
+        try:
+            while not self._shutdown.is_set():
+                try:
+                    span = ssf_wire.read_ssf(
+                        f, max_length=self.config.trace_max_length_bytes)
+                except ssf_wire.SSFUnmarshalError as e:
+                    # the frame was consumed whole, so the stream reads on
+                    # (reference server.go:1243-1248)
+                    self._bump_errors()
+                    self.stats.count("ssf.error_total", 1,
+                                     tags=_SSF_ERR_PROCESSING)
+                    log.debug("bad SSF frame payload: %s", e)
+                    continue
+                if span is None:
+                    # a clean hangup at a frame boundary
+                    # (reference server.go:1229-1232)
+                    self.stats.count("frames.disconnects", 1)
+                    return
+                self.handle_ssf(span)
+        except ssf_wire.FramingError as e:
+            # a framing violation poisons the stream: close it
+            # (reference server.go:1234-1241)
+            self._bump_errors()
+            self.stats.count("ssf.error_total", 1, tags=_SSF_ERR_FRAMING)
+            log.debug("SSF stream framing error, closing: %s", e)
+        except (OSError, ValueError):
+            pass
+        finally:
+            self._track_conn(conn, False)
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def start_ssf_unixgram(self, path: str) -> None:
+        """Unframed SSF datagrams over a unix datagram socket (reference
+        ReadSSFPacketSocket over unixgram, networking.go:222-285)."""
+        sock = self._bind_unix_socket(path, socket.SOCK_DGRAM)
+
+        def loop():
+            # unix datagrams are not bound by the inet 64 KiB limit: the
+            # buffer is the full trace_max_length_bytes
+            max_len = self.config.trace_max_length_bytes
+            buf = bytearray(max_len)
+            sock.settimeout(0.5)
+            while not self._shutdown.is_set():
+                try:
+                    n = sock.recv_into(buf, max_len)
+                except socket.timeout:
+                    continue
+                except OSError:
+                    return
+                self.handle_trace_packet(bytes(buf[:n]))
+
+        self._spawn(loop, "ssf-unixgram")
+
+    def start_ssf_listeners(self) -> dict[str, int]:
+        """Start every ``ssf_listen_addresses`` listener (udp://,
+        unix:// or unixstream://, unixgram://); the UDP ports keyed by
+        address."""
+        ports = {}
+        for spec in self.config.ssf_listen_addresses:
+            proto, _, rest = spec.partition("://")
+            if proto == "udp":
+                host, _, port = rest.rpartition(":")
+                ports[spec] = self.start_ssf_udp(host or "127.0.0.1",
+                                                 int(port))
+            elif proto in ("unix", "unixstream"):
+                self.start_ssf_unix(rest)
+            elif proto == "unixgram":
+                self.start_ssf_unixgram(rest)
+            else:
+                raise ValueError(f"unsupported SSF listener {spec!r}")
+        return ports
+
     # -- listeners ----------------------------------------------------------
+
+    def _track_conn(self, conn: socket.socket, live: bool) -> None:
+        with self._conns_lock:
+            if live:
+                self._conns.add(conn)
+            else:
+                self._conns.discard(conn)
 
     def _spawn(self, target, name: str) -> threading.Thread:
         t = threading.Thread(target=target, name=name, daemon=True)
@@ -449,19 +936,21 @@ class Server:
             bound_port = sock.getsockname()[1]  # resolve port 0 once
             self._sockets.append(sock)
             if self.native_mode and self.config.tpu_native_readers:
-                self._start_native_metric_reader(sock, i)
+                self._start_native_metric_reader(sock)
             else:
                 self._spawn(lambda s=sock: self._read_metric_socket(s),
                             f"statsd-udp-{i}")
         return bound_port
 
-    def _start_native_metric_reader(self, sock: socket.socket,
-                                    i: int) -> None:
-        """Hand the bound socket's fd to a C++ reader thread: datagram to
-        staged sample with no Python on the path. The socket object stays
-        in self._sockets so the fd outlives the thread. ``i`` spreads the
-        readers' event lines and parse errors over the contexts."""
+    def _start_native_metric_reader(self, sock: socket.socket) -> None:
+        """Hand the bound datagram socket's fd to a C++ reader thread:
+        datagram to staged sample with no Python on the path. The socket
+        object stays in self._sockets so the fd outlives the thread. The
+        reader's index spreads the readers' event lines and parse errors
+        over the contexts."""
         sock.setblocking(True)
+        with self._native_reader_lock:
+            i = len(self._native_readers)
         if self._reader_shards:
             # shared-nothing: reader i commits only into reader context
             # i % R (its events and errors stay there too)
@@ -487,18 +976,46 @@ class Server:
             while not self._shutdown.wait(0.1):
                 self._drain_native_thresholds()
                 self._drain_native_events()
+                self._drain_native_ssf_fallbacks()
+                self._reap_stream_readers()
 
         self._spawn(pump, "native-pump")
         self._native_pump_started = True
 
+    def _reap_stream_readers(self) -> None:
+        """Join the C++ stream readers whose connection ended (an unjoined
+        dead thread pins its stack for the life of the process)."""
+        with self._native_reader_lock:
+            live = []
+            for h in self._native_stream_readers:
+                if self._native_router.stream_reader_done(h):
+                    self._native_router.stop_stream_reader(h)
+                    self.stats.count("tcp.disconnects", 1)
+                else:
+                    live.append(h)
+            self._native_stream_readers = live
+
     def _stop_native_readers(self) -> None:
-        """Join the C++ reader threads (their fds stay open). Idempotent."""
+        """Join the C++ reader threads: datagram readers (their fds stay
+        open), SSF readers and stream readers (which own and close their
+        connections' fds). Idempotent."""
         with self._native_reader_lock:
             readers, self._native_readers = self._native_readers, []
             for h in readers:
                 # the count after the join: the last recv window included
                 self._native_reader_packets_stopped += (
                     self._native_router.stop_reader(h))
+            ssf_readers, self._native_ssf_readers = (
+                self._native_ssf_readers, [])
+            for h in ssf_readers:
+                # SSF datagrams are spans, counted by the span path
+                self.workers[0]._native.stop_ssf_reader(h)
+            streams, self._native_stream_readers = (
+                self._native_stream_readers, [])
+            if streams:
+                self.stats.count("tcp.disconnects", len(streams))
+            for h in streams:
+                self._native_router.stop_stream_reader(h)
 
     def sync_native_series_once(self) -> None:
         """One locked sweep adopting the contexts' new series (the pending
@@ -549,26 +1066,177 @@ class Server:
                 return  # socket closed during shutdown
             self.process_metric_packet(data)
 
+    def start_statsd_tcp(self, addr: str, port: int) -> int:
+        """Line-delimited statsd over TCP, with TLS when ``tls_key`` and
+        ``tls_certificate`` are set and mutual TLS with
+        ``tls_authority_certificate`` (reference server.go:1254-1335, TLS
+        setup :438-472). A plain connection goes to a C++ line-stream
+        reader with native readers on; TLS stays on Python (ssl wraps the
+        socket object). Returns the bound port."""
+        sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEADDR, 1)
+        sock.bind((addr, port))
+        sock.listen(128)
+        bound_port = sock.getsockname()[1]
+        self._sockets.append(sock)
+
+        ssl_ctx = None
+        if self.config.tls_key and self.config.tls_certificate:
+            ssl_ctx = ssl.SSLContext(ssl.PROTOCOL_TLS_SERVER)
+            ssl_ctx.load_cert_chain(self.config.tls_certificate,
+                                    self.config.tls_key)
+            if self.config.tls_authority_certificate:
+                ssl_ctx.load_verify_locations(
+                    self.config.tls_authority_certificate)
+                ssl_ctx.verify_mode = ssl.CERT_REQUIRED
+
+        def accept_loop():
+            sock.settimeout(0.5)
+            while not self._shutdown.is_set():
+                try:
+                    conn, peer = sock.accept()
+                except socket.timeout:
+                    continue
+                except OSError:
+                    return
+                conn.settimeout(None)
+                if (ssl_ctx is None and self.native_mode
+                        and self.config.tpu_native_readers):
+                    # the C++ reader owns a dup of the fd and closes it;
+                    # the pump reaps finished readers
+                    fd = os.dup(conn.fileno())
+                    try:
+                        h = self._native_router.start_stream_reader(
+                            fd, self.config.metric_max_length)
+                    except RuntimeError:
+                        os.close(fd)
+                        conn.close()
+                        raise
+                    self.stats.count("tcp.connects", 1)
+                    with self._native_reader_lock:
+                        self._native_stream_readers.append(h)
+                    conn.close()
+                    self._start_native_pump()
+                    continue
+                self._spawn(
+                    lambda c=conn, p=peer: self._handle_tcp_conn(c, p,
+                                                                 ssl_ctx),
+                    "statsd-tcp-conn")
+
+        self._spawn(accept_loop, "statsd-tcp-accept")
+        return bound_port
+
+    def _handle_tcp_conn(self, conn: socket.socket, peer, ssl_ctx) -> None:
+        """reference handleTCPGoroutine (server.go:1254-1335)."""
+        self.stats.count("tcp.connects", 1)
+        self._track_conn(conn, True)
+        try:
+            if ssl_ctx is not None:
+                try:
+                    conn = ssl_ctx.wrap_socket(conn, server_side=True)
+                except (ssl.SSLError, OSError):
+                    # a peer resetting mid-handshake raises a plain
+                    # ConnectionResetError, not ssl.SSLError
+                    self.stats.count("tcp.tls_handshake_failures", 1)
+                    raise
+            conn.settimeout(10.0 * self.interval)
+            buf = b""
+            while not self._shutdown.is_set():
+                data = conn.recv(65536)
+                if not data:
+                    break
+                buf += data
+                while b"\n" in buf:
+                    line, buf = buf.split(b"\n", 1)
+                    if len(line) > self.config.metric_max_length:
+                        self._bump_errors()
+                        continue
+                    if line:
+                        self.handle_metric_packet(line)
+            # a trailing partial line without a newline still counts
+            if buf and len(buf) <= self.config.metric_max_length:
+                self.handle_metric_packet(buf)
+        except (OSError, ssl.SSLError) as e:
+            log.debug("tcp statsd conn from %s error: %s", peer, e)
+        finally:
+            self.stats.count("tcp.disconnects", 1)
+            self._track_conn(conn, False)
+            try:
+                conn.close()
+            except OSError:
+                pass
+
+    def _bind_unix_socket(self, path: str, sock_type: int) -> socket.socket:
+        """Bind a unix socket with flock exclusivity (reference
+        acquireLockForSocket, networking.go:289-306): ``<path>.lock`` is
+        flocked before a stale socket file is unlinked, so two servers
+        never steal each other's socket. Abstract sockets (``@name``)
+        need no lock."""
+        if path.startswith("@"):
+            addr: bytes | str = "\0" + path[1:]
+        else:
+            import fcntl
+
+            lock_path = path + ".lock"
+            fd = os.open(lock_path, os.O_CREAT | os.O_RDWR, 0o644)
+            try:
+                fcntl.flock(fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+            except OSError:
+                os.close(fd)
+                raise RuntimeError(
+                    f"socket {path!r} is locked by another veneur instance "
+                    f"(flock on {lock_path!r} held)")
+            self._socket_locks.append(fd)
+            if os.path.exists(path):
+                os.unlink(path)
+            addr = path
+        sock = socket.socket(socket.AF_UNIX, sock_type)
+        sock.bind(addr)
+        self._sockets.append(sock)
+        return sock
+
+    def start_statsd_unixgram(self, path: str) -> None:
+        """DogStatsD over a unix datagram socket (reference
+        networking.go:144-196): a C++ reader with native readers on, as
+        on UDP, else a Python reader."""
+        sock = self._bind_unix_socket(path, socket.SOCK_DGRAM)
+        if self.native_mode and self.config.tpu_native_readers:
+            self._start_native_metric_reader(sock)
+            return
+        self._spawn(lambda: self._read_metric_socket(sock),
+                    "statsd-unixgram")
+
     def start_listeners(self) -> dict[str, int]:
-        """Start every configured statsd listener; returns the resolved
-        ports keyed by address. UDP only in this slice."""
+        """Start every configured statsd listener (udp://, tcp://,
+        unixgram://); returns the resolved ports keyed by address."""
         ports = {}
         for spec in self.config.statsd_listen_addresses:
             proto, _, rest = spec.partition("://")
-            if proto != "udp":
-                raise ValueError(f"statsd listener {spec!r}: only udp:// "
-                                 "listeners are ported")
-            host, _, port = rest.rpartition(":")
-            ports[spec] = self.start_statsd_udp(host or "127.0.0.1",
-                                                int(port))
+            if proto == "udp":
+                host, _, port = rest.rpartition(":")
+                ports[spec] = self.start_statsd_udp(host or "127.0.0.1",
+                                                    int(port))
+            elif proto == "tcp":
+                host, _, port = rest.rpartition(":")
+                ports[spec] = self.start_statsd_tcp(host or "127.0.0.1",
+                                                    int(port))
+            elif proto == "unixgram":
+                self.start_statsd_unixgram(rest)
+            else:
+                raise ValueError(f"unsupported statsd listener {spec!r}")
         return ports
 
     def start(self) -> dict[str, int]:
-        """Start sinks, listeners and the flush ticker
+        """Start sinks, the span worker, listeners and the flush ticker
         (reference Server.Start, server.go:826)."""
-        for sink in self.metric_sinks:
+        for sink in self.metric_sinks + self.span_sinks:
             sink.start()
+        self.span_worker.start()
         ports = self.start_listeners()
+        for spec, port in self.start_ssf_listeners().items():
+            # the same spec on both lists: the SSF port does not shadow
+            # the statsd one
+            ports["ssf:" + spec if spec in ports else spec] = port
         self._spawn(self._flush_loop, "flush-ticker")
         if self.config.micro_fold:
             self._spawn(self._micro_fold_loop, "micro-fold")
@@ -597,17 +1265,25 @@ class Server:
 
         Returns the ColumnarMetrics batch when a metric sink exists
         (len() works; call .materialize() for objects), else the
-        list[InterMetric]. `now` pins the interval's timestamp."""
+        list[InterMetric]. `now` pins the interval's timestamp.
+
+        Self-traced: every flush is a span (reference
+        tracer.StartSpan("flush"), flusher.go:29) that finishes after the
+        flush, rejoins this server's span pipeline and derives at the
+        next flush."""
         with self._flush_lock:
-            return self._flush(now)
+            with self.tracer.start_span("flush"):
+                return self._flush(now)
 
     def _flush(self, now: Optional[float]):
         flush_start = time.time() if now is None else float(now)
         phases: dict[str, float] = {}
         if self.native_mode:
-            # event and service-check lines still buffered in C++; those
-            # landing after this are caught by swap with the epoch close
+            # event and service-check lines and SSF hand-backs still
+            # buffered in C++; those landing after this are caught by swap
+            # with the epoch close
             self._drain_native_events()
+            self._drain_native_ssf_fallbacks()
         other_samples = self.event_worker.flush()
         for sink in self.metric_sinks:
             try:
@@ -615,18 +1291,47 @@ class Server:
             except Exception:
                 log.exception("sink %s FlushOtherSamples failed",
                               sink.name())
+        _t = time.perf_counter()
+        if self.span_pipeline is not None:
+            # the interval's span batches derive into the workers before
+            # the swap, so a span's metrics land in the epoch of the
+            # statsd samples that arrived beside it
+            self.span_pipeline.flush()
+        self.span_worker.flush()
+        phases["span_flush_s"] = time.perf_counter() - _t
+        # per-service span counts (reference handleSSF's counters,
+        # reported at flush, server.go:1088-1101)
+        with self._ssf_stats_lock:
+            span_counts = self.ssf_spans_received
+            self.ssf_spans_received = {}
         qs = device_quantiles(self.percentiles, self.aggregates)
         _t = time.perf_counter()
         swapped = []
-        for worker, lock in zip(self.workers, self._worker_locks):
+        for i, (worker, lock) in enumerate(zip(self.workers,
+                                               self._worker_locks)):
             with lock:
+                if i == 0 and self._native_ssf:
+                    # in the same lock hold as the swap, which resets the
+                    # C++ context: a span landing between a separate drain
+                    # and the reset would lose its service count. Native
+                    # spans never pass handle_ssf, so they join the
+                    # conservation tallies here
+                    for svc, n in (
+                            worker._native.drain_ssf_services().items()):
+                        span_counts[svc] = span_counts.get(svc, 0) + n
+                        self._spans_native_total += n
                 swapped.append(worker.swap(qs))
-        # lines the contexts handed back at epoch close belong to the new
-        # epoch; parsed outside the worker locks (they re-enter _route)
+        # lines and SSF payloads the contexts handed back at epoch close
+        # belong to the new epoch; handled outside the worker locks (they
+        # re-enter _route)
         for worker in self.workers:
             lines, worker.pending_other_lines = worker.pending_other_lines, []
             for line in lines:
                 self.handle_metric_packet(line)
+            pkts, worker.pending_ssf_fallback = (
+                worker.pending_ssf_fallback, [])
+            for pkt in pkts:
+                self.handle_trace_packet(pkt)
         phases["swap_s"] = time.perf_counter() - _t
         _t = time.perf_counter()
         snaps: list[FlushSnapshot] = []
@@ -702,8 +1407,80 @@ class Server:
             phases["sink_flush_s"] = time.perf_counter() - _t
         if self.config.count_unique_timeseries:
             self.last_unique_timeseries = self._tally_timeseries(snaps)
+        self._count_span_telemetry(span_counts)
         self.last_flush_phases = phases
         return batch if batch is not None else final
+
+    def _count_span_telemetry(self, span_counts: dict[str, int]) -> None:
+        """The span path's counters of this flush, as the JAX package
+        sends them (lifetime tallies reported as interval deltas), into
+        ``stats``."""
+        for svc, n in span_counts.items():
+            self.stats.count("ssf.spans.received_total", n,
+                             tags=[f"service:{svc}"])
+        sw = self.span_worker
+
+        def delta(key, total) -> int:
+            d = total - self._span_sink_reported.get(key, 0)
+            self._span_sink_reported[key] = total
+            return d
+
+        # reference worker.go:688,716-717: ingest_timeout_total per sink,
+        # hit_chan_cap for channel drops; lane_drop_total is a lane's
+        # burst overflow
+        for name, total in list(sw.ingest_timeouts.items()):
+            d = delta(("__span_worker__", f"timeout:{name}"), total)
+            if d:
+                self.stats.count("worker.span.ingest_timeout_total", d,
+                                 tags=[f"sink:{name}"])
+        for name, total in list(sw.lane_drops.items()):
+            d = delta(("__span_worker__", f"lane:{name}"), total)
+            if d:
+                self.stats.count("worker.span.lane_drop_total", d,
+                                 tags=[f"sink:{name}"])
+        d = delta(("__span_worker__", "chan_cap"), sw.spans_dropped)
+        if d:
+            self.stats.count("worker.span.hit_chan_cap", d)
+        if self.span_pipeline is not None:
+            pstats = self.span_pipeline.stats()
+            pairs = (
+                ("spans_ingested", "worker.span.columnar_ingested_total"),
+                ("spans_derived", "worker.span.derived_total"),
+                ("derived_rows", "worker.span.derived_metric_rows_total"),
+                ("spans_dropped", "worker.span.pipeline_drop_total"),
+                ("invalid_samples", "worker.span.invalid_samples_total"),
+            )
+            for attr, metric in pairs:
+                d = delta(("__span_pipeline__", attr), pstats[attr])
+                if d:
+                    self.stats.count(metric, d)
+        else:
+            ext = self._extraction_sink
+            with ext._stats_lock:
+                ext_pairs = (
+                    ("spans_seen", "worker.span.derived_total",
+                     ext.spans_seen),
+                    ("derived_rows", "worker.span.derived_metric_rows_total",
+                     ext.derived_rows),
+                    ("invalid_samples", "worker.span.invalid_samples_total",
+                     ext.invalid_samples),
+                )
+            for attr, metric, total in ext_pairs:
+                d = delta(("__extraction__", attr), total)
+                if d:
+                    self.stats.count(metric, d)
+        # span sinks' cumulative counts (reference sinks/sinks.go:60-78)
+        for sink in self.span_sinks:
+            tags = [f"sink:{sink.name()}"]
+            for attr, metric in (
+                    ("spans_flushed", "sink.spans_flushed_total"),
+                    ("spans_dropped", "sink.spans_dropped_total")):
+                total = getattr(sink, attr, None)
+                if total is None:
+                    continue
+                d = delta((sink.name(), attr), total)
+                if d:
+                    self.stats.count(metric, d, tags=tags)
 
     @staticmethod
     def _spawn_sink(target, name: str, *args) -> threading.Thread:
@@ -781,6 +1558,21 @@ class Server:
                 sock.close()
             except OSError:
                 pass
+        # open stream connections: their reader threads end on the
+        # shutdown of the socket
+        with self._conns_lock:
+            conns = list(self._conns)
+        for conn in conns:
+            try:
+                conn.shutdown(socket.SHUT_RDWR)
+            except OSError:
+                pass
+        for fd in self._socket_locks:
+            try:
+                os.close(fd)  # releases the flock
+            except OSError:
+                pass
+        self._socket_locks.clear()
         me = threading.current_thread()
         for t in self._threads:
             if t is not me:
@@ -788,12 +1580,13 @@ class Server:
         fwd_thread = self._forward_thread
         if fwd_thread is not None and fwd_thread is not me:
             fwd_thread.join(timeout=self.interval)
+        self.span_worker.stop()
         if self.forwarder is not None and hasattr(self.forwarder, "close"):
             try:
                 self.forwarder.close()
             except Exception:
                 log.exception("forwarder failed to close")
-        for sink in self.metric_sinks:
+        for sink in self.metric_sinks + self.span_sinks:
             try:
                 sink.stop()
             except Exception:

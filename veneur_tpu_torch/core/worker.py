@@ -743,6 +743,10 @@ class DeviceWorker:
         # event and service-check lines the C++ parser handed back at
         # epoch close; the server parses them into the next epoch
         self.pending_other_lines: list[bytes] = []
+        # SSF payloads the C++ SSF reader handed back (STATUS samples
+        # aboard) and caught at epoch close; the server sends them through
+        # its Python span path
+        self.pending_ssf_fallback: list[bytes] = []
         # cross-epoch series metadata (_sync_native_series): the same
         # series re-register every interval, so RowMeta is built once per
         # series lifetime
@@ -1152,6 +1156,22 @@ class DeviceWorker:
             self.drain_native()
         return n
 
+    def ingest_ssf_packet(self, packet: bytes, indicator_name: bytes,
+                          objective_name: bytes,
+                          uniqueness_rate: float = 0.0) -> int:
+        """Native-path SSF span ingest (decode and span->metric
+        extraction in C++). The rc of ``vn_ingest_ssf``: 1 ok, 0 a decode
+        error, -1 the caller takes the Python path (STATUS samples
+        aboard)."""
+        rc = self._native.ingest_ssf(packet, indicator_name, objective_name,
+                                     uniqueness_rate)
+        if rc == 1:
+            self.processed += 1
+            if (self._native.pending_histo >= self.batch_size
+                    or self._native.pending_set >= self.batch_size):
+                self.drain_native()
+        return rc
+
     def _scalar_upsert_meta(self, pool: ScalarPool, meta: RowMeta) -> int:
         """ScalarPool twin of the directory's upsert_meta: dedup by (key,
         class), adopting a row only for a new series."""
@@ -1269,7 +1289,7 @@ class DeviceWorker:
         Identity in legacy mode."""
         if not self._reader_ctxs:
             return raw
-        h, s, c, g, st, others = raw
+        h, s, c, g, st, others, ssf_fb = raw
         maps = self._ctx_maps[ctx_i]
 
         def translate(pool_i: int, rows):
@@ -1285,7 +1305,7 @@ class DeviceWorker:
         rows, vals = g
         if len(rows):
             g = (translate(3, rows), vals)
-        return h, s, c, g, st, others
+        return h, s, c, g, st, others, ssf_fb
 
     def native_rows_canonical(self, rows, kinds, sel):
         """Translate rows handed back by the home context's batched
@@ -1379,19 +1399,24 @@ class DeviceWorker:
         s = ctx.drain_set(n) if n else None
         c = ctx.drain_counter(ctx.pending_counter)
         g = ctx.drain_gauge(ctx.pending_gauge)
-        st, others = None, []
+        st, others, ssf_fb = None, [], []
         if detach_stage:
+            # epoch close: the event and service-check lines and the SSF
+            # payloads handed back for Python come out in the same
+            # critical section as the detach (the reset right after
+            # clears both buffers)
             st = ctx.detach_stage()
             others = ctx.drain_other()
+            ssf_fb = ctx.drain_ssf_fallback()
         self._sync_native_series(ctx, ctx_i)
-        return h, s, c, g, st, others
+        return h, s, c, g, st, others, ssf_fb
 
     def _apply_native_raw(self, raw, defer_histo_spill: bool = False):
         """Apply drained batches to the pools (no context lock held). With
         staging on, the histogram batch is hot-row spill: folded directly
         in bounded chunks, or with ``defer_histo_spill`` (swap) returned
         for extract_snapshot to fold; None when nothing was deferred."""
-        h, s, c, g, _st, _others = raw
+        h, s, c, g, _st, _others, _ssf_fb = raw
         deferred = None
         if h is not None and len(h[0]):
             self._ensure_histo(self.directory.num_histo_rows)
@@ -2130,6 +2155,7 @@ class DeviceWorker:
             # last write in context order), and the detached planes kept
             # with copies of their maps for the stacked fold
             others: list = []
+            ssf_fb: list = []
             spills: list = []
             planes: list = []
             for i, raw in enumerate(raws):
@@ -2138,10 +2164,12 @@ class DeviceWorker:
                 if d is not None and len(d[0]):
                     spills.append(d)
                 others.extend(raw[5])
+                ssf_fb.extend(raw[6])
                 if raw[4] is not None:
                     planes.append((raw[4], np.frombuffer(
                         self._ctx_maps[i][0], dtype=np.int32).copy()))
             self.pending_other_lines = others
+            self.pending_ssf_fallback = ssf_fb
             if spills:
                 spill_histo = (spills[0] if len(spills) == 1 else tuple(
                     np.concatenate([sp[k] for sp in spills])
@@ -2175,6 +2203,7 @@ class DeviceWorker:
                 # event and service-check lines caught at epoch close; the
                 # server parses them into the new epoch
                 self.pending_other_lines = raw[5]
+                self.pending_ssf_fallback = raw[6]
                 self._native.reset()
                 self._native_errs_seen = 0
                 self._native_proc_seen = 0

@@ -6,14 +6,11 @@ state; plus the HTTP `POST /import` path (handlers_global.go:60-196,
 http.go:63-140) with deflate support.
 
 A copy of veneur_tpu/distributed/import_server.py with its imports
-rebound, and one change: ``POST /import`` does not continue the sender's
-trace (the JAX package's ``trace.opentracing.traced_server_hop``), because
-the port has no tracer until the span slice lands.
+rebound.
 """
 
 from __future__ import annotations
 
-import contextlib
 import json
 import logging
 import time
@@ -654,9 +651,15 @@ class ImportHTTPServer:
                 if self.path != "/import":
                     self._respond(404, b"not found")
                     return
-                # the port has no tracer yet (spans are a later slice):
-                # the request is served untraced, span is None
-                with contextlib.nullcontext() as span:
+                # cross-hop trace propagation: continue the forwarder's
+                # trace when headers carry one (reference handleImport via
+                # ExtractRequestChild, handlers_global.go:60-72,81)
+                from veneur_tpu_torch.trace.opentracing import traced_server_hop
+
+                with traced_server_hop(
+                        dict(self.headers), "veneur.import",
+                        resource="/import",
+                        tracer=srv.tracer if srv else None) as span:
                     req_start = time.time()
                     length = int(self.headers.get("Content-Length", 0))
                     body = self.rfile.read(length)

@@ -14,8 +14,11 @@ The reader shards' owned contexts (``ingest_owned``,
 ``start_owned_reader``) and commit-mutex records (``lock_stats``), and the
 forward wire (``encode_histo_batch``, ``decode_metric_batch``,
 ``upsert_many``, the stream-frame, ack and dedup-header codecs and
-``codec_available``) are bound too. The archive, SSF and loadgen entry
-points wait for their slices.
+``codec_available``) are bound too, and so are the SSF span fast path
+(``ingest_ssf``, ``ingest_ssf_many``, ``ssf_spans``, ``ssf_invalid``,
+``drain_ssf_services``, ``drain_ssf_fallback``, the C++ SSF reader) and
+the C++ line-stream reader of plain TCP connections. The archive and
+loadgen entry points wait for their slices.
 
 The library is built from the sources in ``native/`` at first use, by
 g++ with the flags of native/Makefile, into ``build/native/`` at the
@@ -177,6 +180,35 @@ def load_library() -> ctypes.CDLL:
         lib.vn_reader_packets.argtypes = [vp]
         lib.vn_reader_stop.restype = ll
         lib.vn_reader_stop.argtypes = [vp]
+        lib.vn_stream_reader_start2.restype = vp
+        lib.vn_stream_reader_start2.argtypes = [
+            c.POINTER(vp), ci, ci, ci, ci]
+        lib.vn_stream_reader_stop.restype = ll
+        lib.vn_stream_reader_stop.argtypes = [vp]
+        lib.vn_stream_reader_done.restype = ci
+        lib.vn_stream_reader_done.argtypes = [vp]
+        # the SSF span fast path: decode and span->metric extraction in
+        # one C++ pass, the SSF datagram reader and its hand-backs
+        lib.vn_ingest_ssf.restype = ci
+        lib.vn_ingest_ssf.argtypes = [
+            vp, c.c_char_p, ci, c.c_char_p, ci, c.c_char_p, ci, c.c_double]
+        lib.vn_ingest_ssf_many.restype = ci
+        lib.vn_ingest_ssf_many.argtypes = [
+            vp, c.c_char_p, ll, c.c_char_p, ci, c.c_char_p, ci, c.c_double,
+            c.POINTER(ci), vp, vp, ci, c.POINTER(ci)]
+        lib.vn_ssf_spans.restype = ll
+        lib.vn_ssf_spans.argtypes = [vp]
+        lib.vn_ssf_invalid.restype = ll
+        lib.vn_ssf_invalid.argtypes = [vp]
+        lib.vn_drain_ssf_services.restype = ci
+        lib.vn_drain_ssf_services.argtypes = [vp, c.c_char_p, ci]
+        lib.vn_drain_ssf_fallback.restype = ci
+        lib.vn_drain_ssf_fallback.argtypes = [vp, c.c_char_p, ci]
+        lib.vn_ssf_reader_start.restype = vp
+        lib.vn_ssf_reader_start.argtypes = [
+            vp, ci, ci, c.c_char_p, ci, c.c_char_p, ci, c.c_double]
+        lib.vn_ssf_reader_stop.restype = ll
+        lib.vn_ssf_reader_stop.argtypes = [vp]
         # the emit tier (native/emit.cpp): Datadog series bodies,
         # SignalFx bodies, statsd/forward lines, exposition text and the
         # GIL-free deflate passes
@@ -532,6 +564,111 @@ class NativeIngest:
             self._ctx, nb, len(nb), self.KIND_BY_TYPE[mtype], tb, len(tb),
             scope_class)
 
+    # the SSF span fast path -------------------------------------------------
+
+    def ingest_ssf(self, packet: bytes, indicator_name: bytes = b"",
+                   objective_name: bytes = b"",
+                   uniqueness_rate: float = 0.0) -> int:
+        """Decode one SSF span and extract its metrics into this
+        context. 1 on success, 0 on a decode error, -1 when the span
+        carries STATUS samples (the caller takes the Python path)."""
+        return self._lib.vn_ingest_ssf(
+            self._ctx, packet, len(packet),
+            indicator_name, len(indicator_name),
+            objective_name, len(objective_name),
+            float(uniqueness_rate))
+
+    def ingest_ssf_many(self, packets: list[bytes],
+                        indicator_name: bytes = b"",
+                        objective_name: bytes = b"",
+                        uniqueness_rate: float = 0.0
+                        ) -> tuple[int, int, list[bytes]]:
+        """One C call for a burst of spans: (accepted, decode errors,
+        the packets carrying STATUS samples, for the Python path)."""
+        if not packets:
+            return 0, 0, []
+        buf = b"".join(
+            len(pkt).to_bytes(4, "little") + pkt for pkt in packets)
+        errors = ctypes.c_int(0)
+        nfall = ctypes.c_int(0)
+        cap = len(packets)
+        fb_off = np.empty(cap, np.int32)
+        fb_len = np.empty(cap, np.int32)
+        ok = self._lib.vn_ingest_ssf_many(
+            self._ctx, buf, len(buf),
+            indicator_name, len(indicator_name),
+            objective_name, len(objective_name),
+            float(uniqueness_rate), ctypes.byref(errors),
+            _ptr(fb_off), _ptr(fb_len), cap, ctypes.byref(nfall))
+        fallbacks = [buf[fb_off[i]:fb_off[i] + fb_len[i]]
+                     for i in range(int(nfall.value))]
+        return int(ok), int(errors.value), fallbacks
+
+    @property
+    def ssf_spans(self) -> int:
+        """Spans this context extracted natively (lifetime)."""
+        return int(self._lib.vn_ssf_spans(self._ctx))
+
+    @property
+    def ssf_invalid(self) -> int:
+        return int(self._lib.vn_ssf_invalid(self._ctx))
+
+    def drain_ssf_services(self) -> dict[str, int]:
+        """Per-service span counts since the last drain."""
+        # the buffer must hold at least one whole "service\tcount\n"
+        # line (<= 278 bytes), or counts stay buffered to the next drain
+        cap = 1 << 18
+        buf = ctypes.create_string_buffer(cap)
+        out: dict[str, int] = {}
+        while True:
+            n = self._lib.vn_drain_ssf_services(self._ctx, buf, cap)
+            if n <= 0:
+                break
+            for line in buf.raw[:n].split(b"\n"):
+                if not line:
+                    continue
+                # the count follows the last tab (the C++ side strips
+                # framing bytes out of service names)
+                svc, sep, cnt = line.rpartition(b"\t")
+                if not sep or not cnt.isdigit():
+                    log.warning("malformed ssf service-count line %r", line)
+                    continue
+                svc_s = svc.decode("utf-8", "replace")
+                out[svc_s] = out.get(svc_s, 0) + int(cnt)
+        return out
+
+    def drain_ssf_fallback(self) -> list[bytes]:
+        """Whole SSF payloads the C++ SSF reader handed back for the
+        Python path (STATUS samples aboard)."""
+        buf = self._drain_buf()
+        out = []
+        while True:
+            n = self._lib.vn_drain_ssf_fallback(self._ctx, buf, len(buf))
+            if n == 0:
+                break
+            raw = buf.raw[:n]
+            pos = 0
+            while pos + 4 <= n:
+                ln = int.from_bytes(raw[pos:pos + 4], "little")
+                out.append(raw[pos + 4:pos + 4 + ln])
+                pos += 4 + ln
+        return out
+
+    def start_ssf_reader(self, fd: int, max_len: int, indicator: bytes,
+                         objective: bytes, uniq_rate: float):
+        """Spawn a C++ SSF datagram reader committing into this context
+        (stop it with ``stop_ssf_reader``; the fd stays the caller's)."""
+        h = self._lib.vn_ssf_reader_start(
+            self._ctx, fd, max_len, indicator, len(indicator),
+            objective, len(objective), float(uniq_rate))
+        if not h:
+            raise RuntimeError("vn_ssf_reader_start failed")
+        return h
+
+    def stop_ssf_reader(self, handle) -> int:
+        """Join an SSF reader; its final datagram count."""
+        return int(self._lib.vn_ssf_reader_stop(handle))
+
     def _drain_buf(self) -> ctypes.Array:
         """Per-thread 1 MiB drain scratch (the C++ side serializes each
         cut on the context mutex)."""
@@ -605,6 +742,22 @@ class NativeRouter:
     def stop_reader(self, handle) -> int:
         """Join the reader; its final packet count."""
         return int(self._lib.vn_reader_stop(handle))
+
+    def start_stream_reader(self, fd: int, max_len: int, home: int = 0):
+        """Spawn a C++ line-stream reader on a plain TCP connection. The
+        reader owns ``fd`` (pass a dup) and closes it on exit; reap it
+        with ``stream_reader_done`` and ``stop_stream_reader``."""
+        h = self._lib.vn_stream_reader_start2(self._arr, self._n, fd,
+                                              max_len, home % self._n)
+        if not h:
+            raise RuntimeError("vn_stream_reader_start failed")
+        return h
+
+    def stream_reader_done(self, handle) -> bool:
+        return bool(self._lib.vn_stream_reader_done(handle))
+
+    def stop_stream_reader(self, handle) -> int:
+        return int(self._lib.vn_stream_reader_stop(handle))
 
     def set_lock_stats(self, enabled: bool) -> None:
         """Toggle commit-path mutex wait/hold timing (process-wide; it
