@@ -162,18 +162,40 @@ script exits non-zero:
    fed the same in the same order. Span conservation from
    ingress_stats()["spans"] on every server; each arm's spans/s,
    flush_s and flush phases printed.
-12. on the line before the last two, the card's name and power limit;
+12. the proxy tier, right after phase 10 and from its outputs (the
+   eight local snapshots and the gRPC global's snapshot and sink bytes,
+   kept on the host): 12a, four fresh port globals on the card (import
+   servers, forward-statsd taps) behind one port ProxyServer built as
+   cli/proxy_main.py builds it (dedup and streaming on); port locals
+   whose forward_address is the proxy forward the eight snapshots in
+   turn over gRPC streaming, each fully delivered (the proxy's and the
+   globals' counts) before the next; then each global flushes. Every
+   series sits on the global the proxy's ring names, the four hold
+   65,536 histogram rows, every row (digest arrays, quantiles, the ten
+   aggregates), set estimate and scalar is bitwise phase 10's single
+   global's, the four sinks' lines are its lines as a multiset, the
+   proxy's ledgers are conserved, and K1 and K5 launched on every
+   global. 12b: the same through two proxies, the locals' forward_address
+   naming both (the factory's SpreadForwarder), both proxies used.
+   Prints per local the delivery seconds, the proxy's route seconds (the
+   routing worker's, the fragments' delivery to the globals included)
+   and the fragments and bytes each global was handed; per global
+   import_s, merge_at_swap_s, flush_s, fold_s, extract_s, sets_s; the
+   peak device memory, the proxies' cpu_seconds (where the host has a
+   per-thread schedstat) and each arm's wall time.
+13. on the line before the last two, the card's name and power limit;
    then a ``kernels`` JSON line: every kernel with its launches on the
    main path (phases 4 to 5b: counts reset just before, read just
    after), its agreement with the plain version, its time, the plain
    time and its bound; its launches in phase 6 (``launches_micro``), in
    phase 7's intervals (``launches_guard``), in the real-OOM run of
    tools/port_guard_faults.py (``launches_guard_oom``), in phase 9
-   (``launches_shards``), in phase 10 (``launches_global``) and in phase
-   11 (``launches_spans``), each counted from 0 just before its run; the
-   probe's variants beside it, with their build report and launches
-   (only the variant flush_extract launches has any).
-13. the last line: {"ok": true, "device": {...}}.
+   (``launches_shards``), in phase 10 (``launches_global``), in phase
+   12 (``launches_proxy``) and in phase 11 (``launches_spans``), each
+   counted from 0 just before its run; the probe's variants beside it,
+   with their build report and launches (only the variant flush_extract
+   launches has any).
+14. the last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the veneur_tpu_torch package beside it, the
 script prints no result and exits 2. It imports nothing of JAX.
@@ -1089,9 +1111,10 @@ class TcpTap:
             reader = threading.Thread(target=self._read, args=(conn, buf),
                                       daemon=True)
             with self.lock:
+                # started under the lock: taken() joins only started ones
+                reader.start()
                 self.streams.append(buf)
                 self.readers.append(reader)
-            reader.start()
 
     def _read(self, conn, buf: bytearray) -> None:
         import socket
@@ -2178,12 +2201,14 @@ def global_flush(server) -> tuple:
     return snaps[0], dict(w.last_extract_phases), merge["s"]
 
 
-def phase_global(parse) -> dict:
+def phase_global(parse) -> tuple:
     """Phase 10: eight port locals on the card flush and forward in turn
     to a port global on the card, over gRPC streaming and over HTTP
     /import; each payload the global applied is replayed in order into a
     CPU global. The card global's snapshot equals the CPU global's
-    bitwise, and so do the bytes of its forward-statsd sink."""
+    bitwise, and so do the bytes of its forward-statsd sink. Returns the
+    results and, for phase 12, the eight local snapshots and the gRPC
+    global's snapshot and sink bytes (on the host)."""
     import numpy as np
     import torch
 
@@ -2196,6 +2221,7 @@ def phase_global(parse) -> dict:
 
     out: dict = {}
     local_snaps: list = []
+    keep: dict = {}
     for transport in ("grpc", "http"):
         tap = TcpTap()
         g = build_server(load_config(data=gm_global_config(tap, True)),
@@ -2292,6 +2318,8 @@ def phase_global(parse) -> dict:
         tap_c.close()
         compare_snapshots(snap_g, snap_c,
                           f"phase 10 {transport}, card global against CPU")
+        if transport == "grpc":
+            keep.update(snap=snap_g, taken=taken)
         if taken != taken_c or not taken:
             raise AssertionError(f"phase 10 {transport}: the card global's "
                                  "sink sent other bytes than the CPU's")
@@ -2334,7 +2362,7 @@ def phase_global(parse) -> dict:
     st = [np.stack([getattr(s, f) for s in local_snaps]).astype(np.float32)
           for f in ("digest_means", "digest_weights", "dmin", "dmax",
                     "drecip")]
-    del local_snaps
+    keep["local_snaps"] = local_snaps
     pool_g = td.TDigestPool(*(torch.from_numpy(a).to(DEVICE) for a in st))
     mm_ms = probe.cuda_ms(lambda: td.merge_many(pool_g), 5)
     got = td.merge_many(pool_g)
@@ -2347,7 +2375,301 @@ def phase_global(parse) -> dict:
     out["merge_many_ms"] = mm_ms
     log(f"[global] merge_many at {list(st[0].shape)} on the card "
         f"{mm_ms:.4f} ms, bitwise the CPU's")
+    return out, keep
+
+
+# -- phase 12 -----------------------------------------------------------------
+
+
+# one proxy, then two, in front of four globals (proxy_main's defaults but
+# a handoff window and forward timeout long enough for a 43 MB local)
+PX_GLOBALS = 4
+PX_CONFIG = {"handoff_window_s": 60.0, "forward_timeout": "60s"}
+PX_HISTO_FIELDS = ("quantile_values", "dmin", "dmax", "dsum", "dcount",
+                   "drecip", "lmin", "lmax", "lsum", "lweight", "lrecip",
+                   "digest_means", "digest_weights")
+
+
+def gm_proxy(dests: list):
+    """A ProxyServer built from a proxy config as cli/proxy_main.py
+    builds it (dedup and streaming on by default)."""
+    from veneur_tpu_torch.core.config import load_proxy_config, \
+        parse_duration
+    from veneur_tpu_torch.distributed.proxy import ProxyServer
+    from veneur_tpu_torch.sinks.delivery import DeliveryPolicy
+
+    cfg = load_proxy_config(data=PX_CONFIG, env={})
+    timeout_s = parse_duration(cfg.forward_timeout)
+    policy = DeliveryPolicy(
+        retry_max=cfg.forward_retry_max,
+        breaker_threshold=cfg.forward_breaker_threshold,
+        spill_max_bytes=cfg.forward_spill_max_bytes,
+        spill_max_payloads=cfg.forward_spill_max_payloads,
+        timeout_s=min(timeout_s, cfg.handoff_window_s),
+        deadline_s=cfg.handoff_window_s)
+    proxy = ProxyServer(
+        dests, timeout_s=timeout_s, delivery=policy,
+        routing_workers=cfg.routing_pool_workers,
+        routing_queue_max=cfg.routing_queue_max,
+        handoff_window_s=cfg.handoff_window_s, dedup=cfg.forward_dedup,
+        streaming=cfg.forward_streaming,
+        stream_window=cfg.forward_stream_window)
+    # the route of each batch (ring split, fragments) and what each
+    # destination was handed, timed and counted
+    proxy.route_s = 0.0
+    proxy.handed = {}
+
+    def route_one(kind, item, _orig=proxy._route_one):
+        t0 = time.perf_counter()
+        try:
+            _orig(kind, item)
+        finally:
+            proxy.route_s += time.perf_counter() - t0
+
+    def deliver(dest, frag, _orig=proxy._deliver_fragment):
+        frags, nbytes = proxy.handed.get(dest, (0, 0))
+        proxy.handed[dest] = (frags + 1, nbytes + frag.nbytes)
+        return _orig(dest, frag)
+
+    proxy._pool._route = route_one
+    proxy._deliver_fragment = deliver
+    return proxy
+
+
+def schedstat_readable() -> bool:
+    import threading
+
+    try:
+        with open(f"/proc/self/task/{threading.get_native_id()}/schedstat"):
+            return True
+    except OSError:
+        return False
+
+
+def series_index(snap) -> dict:
+    """Each series of a snapshot by its ring key: ("h", row), ("s", row),
+    ("c", row) or ("g", row)."""
+    out = {}
+    for i, r in enumerate(snap.directory.histo.rows):
+        out[r.key.key_string()] = ("h", i)
+    for i, r in enumerate(snap.directory.sets.rows):
+        out[r.key.key_string()] = ("s", i)
+    for kind, pool in (("c", snap.scalars.counters),
+                       ("g", snap.scalars.gauges)):
+        for i, meta in enumerate(pool.meta[:pool.used]):
+            out[meta[0].key_string()] = (kind, i)
     return out
+
+
+def check_against_single(snap, ref, ref_index: dict, owner: str, ring,
+                         what: str) -> int:
+    """Every series of one global's snapshot sits on the global the ring
+    names, and its row is bitwise the single global's (phase 10) row:
+    every extracted histogram array, the set estimate, the scalar.
+    Returns the global's histogram rows."""
+    import numpy as np
+
+    rows = {"h": [], "s": [], "c": [], "g": []}
+    mine = series_index(snap)
+    for key, (kind, i) in mine.items():
+        if ring.get(key) != owner:
+            raise AssertionError(f"{what}: {key!r} landed on {owner}, its "
+                                 f"ring owner is {ring.get(key)}")
+        ref_kind, j = ref_index[key]
+        if ref_kind != kind:
+            raise AssertionError(f"{what}: {key!r} is {kind} here, "
+                                 f"{ref_kind} on the single global")
+        rows[kind].append((i, j))
+
+    def same(a, b, name):
+        if a.dtype != b.dtype or a.shape != b.shape \
+                or a.tobytes() != b.tobytes():
+            raise AssertionError(f"{what}: {name} differs from the single "
+                                 "global's rows")
+
+    for kind, pairs in rows.items():
+        if not pairs:
+            continue
+        mi, ri = (np.array(x, np.int64) for x in zip(*sorted(pairs)))
+        if kind == "h":
+            for f in PX_HISTO_FIELDS:
+                a, b = getattr(snap, f), getattr(ref, f)
+                if a is None or b is None:
+                    if (a is None) != (b is None):
+                        raise AssertionError(f"{what}: {f} missing")
+                    continue
+                same(a[mi], b[ri], f)
+        elif kind == "s":
+            same(snap.set_estimates[mi], ref.set_estimates[ri],
+                 "set_estimates")
+        else:
+            pool = "counters" if kind == "c" else "gauges"
+            same(getattr(snap.scalars, pool).values[mi],
+                 getattr(ref.scalars, pool).values[ri], pool)
+    return len(rows["h"])
+
+
+def run_proxy_tier(keep: dict, n_proxies: int, ek, hll) -> dict:
+    """Phase 12a (one proxy) or 12b (two proxies, the locals' SpreadForwarder
+    over both): four port globals on the card with import servers and
+    forward-statsd taps; the eight phase-10 snapshots forwarded in turn
+    by port locals over gRPC streaming, each fully delivered before the
+    next; then each global flushed and held against phase 10's single
+    gRPC global."""
+    import numpy as np
+    import torch
+
+    from veneur_tpu_torch.core.config import load_config
+    from veneur_tpu_torch.core.factory import build_server
+    from veneur_tpu_torch.distributed.ring import ConsistentRing
+
+    arm = "12a" if n_proxies == 1 else "12b"
+    t_arm = time.perf_counter()
+    taps = [TcpTap() for _ in range(PX_GLOBALS)]
+    gs = [build_server(load_config(data=gm_global_config(tap, True)),
+                       device=DEVICE) for tap in taps]
+    itaps = [ImportTap(g.import_server) for g in gs]
+    dests = [f"127.0.0.1:{g.import_server.port}" for g in gs]
+    proxies = [gm_proxy(dests) for _ in range(n_proxies)]
+    paddrs = [f"127.0.0.1:{p.start_grpc()}" for p in proxies]
+    ring = ConsistentRing(dests)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    forwards = []
+    res: dict = {"proxies": n_proxies, "globals": PX_GLOBALS}
+    try:
+        expect = 0
+        for host, snap in enumerate(keep["local_snaps"]):
+            rec = ForwardRecorder()
+            local = build_server(load_config(data=gm_local_config(
+                ",".join(paddrs), True, host)), device=DEVICE)
+            if n_proxies > 1:
+                # a fleet's locals sit at different points of their
+                # rotation; fresh ones all start at the same lane
+                # (ROADMAP §3), so stand each at its host's turn
+                local.forwarder._rr = host
+            local.forwarder.stats = rec
+            route0 = sum(p.route_s for p in proxies)
+            handed0 = [dict(p.handed) for p in proxies]
+            t0 = time.perf_counter()
+            local.forwarder([snap])
+            f = rec.forwards[-1]
+            if "error" in f:
+                raise AssertionError(f"phase {arm} local {host}: forward "
+                                     f"error {f}")
+            expect += f["metrics"]
+            deadline = time.time() + 120
+            while time.time() < deadline and (
+                    sum(p.proxied_metrics for p in proxies) < expect
+                    or sum(g.import_server.received_metrics
+                           for g in gs) < expect):
+                time.sleep(0.005)
+            f["delivered_s"] = time.perf_counter() - t0
+            got = [g.import_server.received_metrics for g in gs]
+            if sum(p.proxied_metrics for p in proxies) != expect \
+                    or sum(got) != expect \
+                    or any(g.import_server.import_errors for g in gs):
+                raise AssertionError(
+                    f"phase {arm} local {host}: the globals took {got} of "
+                    f"{expect} metrics")
+            if n_proxies > 1:
+                f["spread"] = {a: d["picks"] for a, d in local.forward_stats()[
+                    "destinations"].items()}
+            local.shutdown()
+            f["route_s"] = sum(p.route_s for p in proxies) - route0
+            f["handed"] = {}
+            for p, before in zip(proxies, handed0):
+                for d, (n, b) in p.handed.items():
+                    n0, b0 = before.get(d, (0, 0))
+                    fr, by = f["handed"].get(d, (0, 0))
+                    f["handed"][d] = (fr + n - n0, by + b - b0)
+            forwards.append(f)
+        for p in proxies:
+            st = p.forward_stats()
+            if not p.conserved() or st["drops"] or st["spilled_metrics"]:
+                raise AssertionError(f"phase {arm}: the proxy is not "
+                                     f"conserved or dropped: {st['drops']}")
+        if n_proxies > 1:
+            used = [p.proxied_metrics for p in proxies]
+            if not all(used):
+                raise AssertionError(f"phase {arm}: a proxy took nothing: "
+                                     f"{used}")
+            res["proxied_by_proxy"] = used
+        # cpu_seconds() reads each thread's /proc schedstat and gives 0.0
+        # where the host has none: then the proxies' CPU is not measured
+        res["proxy_cpu_s"] = ([p.cpu_seconds() for p in proxies]
+                              if schedstat_readable() else None)
+        res["locals_s"] = time.perf_counter() - t_arm
+        ref = keep["snap"]
+        ref_index = series_index(ref)
+        per_global = []
+        rows = 0
+        lines = []
+        for gi, (g, tap, itap) in enumerate(zip(gs, taps, itaps)):
+            before = read_launches(ek, hll)
+            t0 = time.perf_counter()
+            snap, phases, merge = global_flush(g)
+            flush_s = time.perf_counter() - t0
+            after = read_launches(ek, hll)
+            for name in ("flush_extract", "hll_estimate"):
+                if after[name] <= before[name]:
+                    raise AssertionError(f"phase {arm}: {name} was not "
+                                         f"launched on global {gi}")
+            rows += check_against_single(snap, ref, ref_index, dests[gi],
+                                         ring, f"phase {arm} global {gi}")
+            lines += tap.taken().split(b"\n")
+            per_global.append({
+                "received": g.import_server.received_metrics,
+                "histo_rows": snap.directory.num_histo_rows,
+                "import_s": itap.seconds["import_s"],
+                "merge_at_swap_s": merge, "flush_s": flush_s,
+                **{k: phases[k] for k in ("fold_s", "extract_s", "sets_s")
+                   if k in phases}})
+            if not np.isfinite(snap.quantile_values).all():
+                raise AssertionError(f"phase {arm}: global {gi} has "
+                                     "non-finite quantiles")
+        if rows != GM_SERIES:
+            raise AssertionError(f"phase {arm}: the globals hold {rows} "
+                                 f"histogram rows, not {GM_SERIES}")
+        if sorted(ln for ln in lines if ln) != sorted(
+                ln for ln in keep["taken"].split(b"\n") if ln):
+            raise AssertionError(f"phase {arm}: the four sinks' lines are "
+                                 "not the single global's")
+        res["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    finally:
+        for p in proxies:
+            p.stop()
+        for g in gs:
+            g.shutdown()
+        for tap in taps:
+            tap.close()
+    res["forwards"] = forwards
+    res["per_global"] = per_global
+    res["wall_s"] = time.perf_counter() - t_arm
+    for i, f in enumerate(forwards):
+        log(f"[proxy {arm}] local {i}: {f['metrics']} metrics, "
+            f"{f.get('bytes')} bytes, delivered in {f['delivered_s']:.4f} s"
+            f", proxy route {f['route_s']:.4f} s; fragments, bytes by "
+            "destination " + ", ".join(
+                f"{d} {n} {b}" for d, (n, b) in sorted(f["handed"].items()))
+            + (f"; spread picks {f['spread']}" if "spread" in f else ""))
+    for gi, pg in enumerate(per_global):
+        log(f"[proxy {arm}] global {gi}: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in pg.items()))
+    log(f"[proxy {arm}] {n_proxies} prox{'y' if n_proxies == 1 else 'ies'}"
+        f" -> {PX_GLOBALS} globals: every series on its ring owner, every "
+        f"row bitwise phase 10's single global, the sinks' lines its "
+        f"lines; peak device memory {res['peak_device_bytes']} B, proxy "
+        f"cpu_seconds {res['proxy_cpu_s'] or 'not measured (no schedstat)'}"
+        f", wall {res['wall_s']:.1f} s")
+    return res
+
+
+def phase_proxy(keep: dict, ek, hll) -> dict:
+    """Phase 12: the proxy tier on the card (12a one proxy, 12b two)."""
+    return {"one_proxy": run_proxy_tier(keep, 1, ek, hll),
+            "two_proxies": run_proxy_tier(keep, 2, ek, hll)}
 
 
 # -- phase 11 -----------------------------------------------------------------
@@ -2991,9 +3313,16 @@ def main() -> int:
     launches_shards = read_launches(ek, hll)
     reset_launches(ek, hll)
     t0 = time.perf_counter()
-    phases["global"] = phase_global(parse_metric)
+    phases["global"], keep = phase_global(parse_metric)
     wall["global_s"] = time.perf_counter() - t0
     launches_global = read_launches(ek, hll)
+    # 12: the proxy tier against phase 10's gRPC global, counted from 0
+    reset_launches(ek, hll)
+    t0 = time.perf_counter()
+    phases["proxy"] = phase_proxy(keep, ek, hll)
+    del keep
+    wall["proxy_s"] = time.perf_counter() - t0
+    launches_proxy = read_launches(ek, hll)
     # 11: the SSF span path, counted from 0
     reset_launches(ek, hll)
     t0 = time.perf_counter()
@@ -3002,7 +3331,8 @@ def main() -> int:
     launches_spans = read_launches(ek, hll)
     for name in ("flush_extract", "hll_estimate"):
         for where, got in (("shards", launches_shards),
-                           ("global", launches_global)):
+                           ("global", launches_global),
+                           ("proxy", launches_proxy)):
             if got[name] < 1:
                 raise AssertionError(f"{name} was not launched in phase "
                                      f"{where}")
@@ -3018,7 +3348,8 @@ def main() -> int:
                 "launches_guard_oom": launches_guard_oom[name],
                 "launches_shards": launches_shards[name],
                 "launches_global": launches_global[name],
-                "launches_spans": launches_spans[name]}
+                "launches_spans": launches_spans[name],
+                "launches_proxy": launches_proxy[name]}
 
     source = "veneur_tpu_torch/csrc/flush_extract.cu"
     kernels = {"kernels": [{

@@ -851,3 +851,122 @@ def test_span_server_cuda_equals_cpu(card, native):
         finally:
             srv.shutdown()
     assert outs[0] == outs[1]
+
+
+class _CaptureSock:
+    """Stands in for a forward-statsd sink's TCP socket."""
+
+    def __init__(self):
+        self.data = bytearray()
+
+    def settimeout(self, t):
+        pass
+
+    def sendall(self, b):
+        self.data += b
+
+    def close(self):
+        pass
+
+
+def _proxy_tier(device, local_snaps, qs):
+    """Three locals forward in turn through a port proxy to two port
+    globals on ``device``; every metric of a local is delivered before
+    the next forwards. Returns each global's snapshots and sink bytes."""
+    import time
+
+    from veneur_tpu_torch.core.config import load_config
+    from veneur_tpu_torch.core.factory import build_server
+    from veneur_tpu_torch.distributed import codec, rpc
+    from veneur_tpu_torch.distributed.forward import GRPCForwarder
+    from veneur_tpu_torch.distributed.proxy import ProxyServer
+
+    globals_ = []
+    for _ in range(2):
+        g = build_server(load_config(data={
+            "interval": "1h", "percentiles": [0.5, 0.9, 0.99],
+            "aggregates": ["min", "max", "count", "sum"], "num_workers": 2,
+            "tpu_hll_precision": 10, "hostname": "g",
+            "ssf_span_uniqueness_rate": 0.0, "grpc_address": "127.0.0.1:0",
+            "forward_statsd_address": "127.0.0.1:9",
+            "forward_statsd_network": "tcp"}), device=device)
+        sock = _CaptureSock()
+        g.metric_sinks[0]._sock = sock
+        globals_.append((g, sock))
+    names = ["global-0:1", "global-1:1"]
+    real = {n: f"127.0.0.1:{g.import_server.port}"
+            for n, (g, _) in zip(names, globals_)}
+    proxy = ProxyServer(
+        names, handoff_window_s=30.0,
+        client_factory=lambda d, t, i: rpc.ForwardClient(real[d], t))
+    fwd = GRPCForwarder(f"127.0.0.1:{proxy.start_grpc()}", 10.0, 100.0, 10,
+                        streaming=True)
+    try:
+        expect = 0
+        for snap in local_snaps:
+            expect += codec.snapshot_to_wire(snap, 100.0, 10)[1]
+            fwd([snap])
+            deadline = time.time() + 60
+            while time.time() < deadline and (
+                    proxy.proxied_metrics < expect or sum(
+                        g.import_server.received_metrics
+                        for g, _ in globals_) < expect):
+                time.sleep(0.01)
+            assert proxy.proxied_metrics == expect
+        assert proxy.conserved() and proxy.drops == 0
+        outs = []
+        for g, sock in globals_:
+            snaps = []
+            for w in g.workers:
+                def wrapped(*a, _orig=w.extract_snapshot, **k):
+                    snaps.append(_orig(*a, **k))
+                    return snaps[-1]
+                w.extract_snapshot = wrapped
+            g.flush(now=1_700_000_000)
+            outs.append((snaps, bytes(sock.data)))
+        return outs, proxy.ring
+    finally:
+        fwd.close()
+        proxy.stop()
+        for g, _ in globals_:
+            g.shutdown()
+
+
+def test_proxy_tier_card_globals_equal_cpu(card):
+    """Three locals -> a port proxy -> two port globals: the globals on
+    the card against the same on the CPU, every snapshot array and the
+    forward-statsd bytes bitwise; every series on its ring owner."""
+    import dataclasses
+
+    from veneur_tpu_torch.core.flusher import device_quantiles
+    from veneur_tpu_torch.core.metrics import HistogramAggregates
+
+    qs = device_quantiles([0.5, 0.9, 0.99], HistogramAggregates.from_names(
+        ["min", "max", "count", "sum"]))
+    local_snaps = []
+    for host in range(3):
+        rng = np.random.default_rng(300 + host)
+        w = tw.DeviceWorker(compression=100, stage_depth=16, batch_size=64,
+                            initial_histo_rows=8, initial_set_rows=8,
+                            is_local=True, hll_precision=10, device="cpu")
+        for i in range(120):
+            k = i % 48
+            for line in (
+                    f"px.lat{k}:{rng.gamma(2.0, 15.0):.4f}|"
+                    f"{'ms' if k % 2 else 'h'}|#a:{k % 3}",
+                    f"px.c{k % 7}:{1 + k % 3}|c|#veneurglobalonly",
+                    f"px.g{k % 5}:{rng.normal():.5f}|g|#veneurglobalonly",
+                    f"px.s{k % 9}:u{int(rng.integers(0, 400))}|s"):
+                w.process_metric(parse_metric(line.encode()))
+        local_snaps.append(w.flush(qs))
+    got, ring = _proxy_tier(card, local_snaps, qs)
+    ref, _ = _proxy_tier("cpu", local_snaps, qs)
+    for gi, ((gs, gb), (rs, rb)) in enumerate(zip(got, ref)):
+        assert gb == rb and gb, gi
+        for a, b in zip(gs, rs):
+            for f in dataclasses.fields(a):
+                va, vb = getattr(a, f.name), getattr(b, f.name)
+                if isinstance(va, np.ndarray):
+                    assert va.tobytes() == vb.tobytes(), (gi, f.name)
+            for r in a.directory.histo.rows:
+                assert ring.get(r.key.key_string()) == f"global-{gi}:1"

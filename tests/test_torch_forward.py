@@ -23,8 +23,10 @@ the CPU: the forward codec, the forwarders, the import servers.
   global's next two flushes (the import, the hop's span and each flush's
   own span derived) equal the JAX global's.
 * The factory: the forwarder from one ``forward_address``, the import
-  servers from their keys; a multi-destination ``forward_address``,
-  ``forward_discovery_file`` and ``spill_journal_dir`` refused by name.
+  servers from their keys; a multi-destination ``forward_address`` and
+  ``forward_discovery_file`` build the sharded proxy tier's
+  ``SpreadForwarder``, and ``spill_journal_dir`` the spill journal, as
+  in the JAX package.
 """
 
 from __future__ import annotations
@@ -569,10 +571,33 @@ def test_http_import_hop_is_traced_as_jax():
     ("forward_discovery_file", "/nonexistent"),
     ("spill_journal_dir", "/nonexistent"),
 ])
-def test_fleet_forwarding_and_journal_refused_by_name(key, value):
+def test_fleet_forwarding_and_journal_refused_by_name(key, value, tmp_path):
+    """The proxy tier's keys, refused until the proxy tier was ported,
+    now build what the JAX factory builds: a SpreadForwarder for a
+    comma-separated ``forward_address`` or ``forward_discovery_file``,
+    and the spill journal (attached at ``start()``) for
+    ``spill_journal_dir``. Every other unported key stays refused."""
+    from veneur_tpu.core.factory import build_server as jbuild
+    from veneur_tpu.core.config import load_config as jload
+
+    if key == "spill_journal_dir":
+        value = str(tmp_path / "wal")
     data = {"interval": "10s", "forward_use_grpc": True, key: value}
-    with pytest.raises(UnportedConfigError, match=key):
-        build_server(tload(data=data), device="cpu")
+    built = [jbuild(jload(data=data)),
+             build_server(tload(data=data), device="cpu")]
+    try:
+        kinds = [type(s.forwarder).__name__ for s in built]
+        assert kinds[0] == kinds[1]
+        assert kinds[1] == ("NoneType" if key == "spill_journal_dir"
+                            else "SpreadForwarder")
+        assert built[1].config.spill_journal_dir == (
+            value if key == "spill_journal_dir" else "")
+    finally:
+        for s in built:
+            s.shutdown()
+    with pytest.raises(UnportedConfigError, match="stats_address"):
+        build_server(tload(data={**data, "stats_address": "127.0.0.1:9"}),
+                     device="cpu")
 
 
 @pytest.mark.parametrize("data,cls", [

@@ -366,9 +366,22 @@ def test_factory_builds_every_sink_at_once():
     ("falconer_address", "127.0.0.1:9"),
     ("spill_journal_dir", "/nonexistent"),
 ])
-def test_unported_sink_keys_refused_by_name(key, value):
+def test_unported_sink_keys_refused_by_name(key, value, tmp_path):
     data = {**BASE, key: value, "newrelic_insert_key": "nk",
             "newrelic_account_id": 7}
+    if key == "spill_journal_dir":
+        # the spill journal is ported: the server journals each network
+        # sink's spill at start() (tests/test_torch_journal.py)
+        data[key] = str(tmp_path / "wal")
+        srv = tbuild(tload(data=data), device="cpu")
+        try:
+            srv._attach_journals()
+            assert sorted(srv._journals) == sorted(srv.delivery_stats())
+            assert "newrelic" not in srv.delivery_stats()
+        finally:
+            srv.shutdown()
+        assert srv._journals == {}
+        return
     with pytest.raises(UnportedConfigError, match=key):
         tbuild(tload(data=data), device="cpu")
 

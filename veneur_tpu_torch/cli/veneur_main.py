@@ -62,10 +62,12 @@ def main(argv=None) -> int:
     signal.signal(signal.SIGINT, lambda *_: stop.set())
     while not stop.is_set():
         stop.wait(0.5)
+    # graceful drain: final-epoch flush, then bounded spill settling
+    # with honest shutdown.* counters for whatever the deadline clips
     try:
-        server.flush()
+        log.info("graceful drain: %s", server.graceful_drain())
     except Exception:
-        log.exception("final flush failed")
+        log.exception("graceful drain failed")
     server.shutdown()
     return 0
 

@@ -19,10 +19,6 @@ import yaml
 
 log = logging.getLogger("veneur_tpu_torch.config")
 
-# the spill journal's fsync policies (veneur_tpu/utils/journal.py), kept
-# here so the port validates the same keys without the journal module
-FSYNC_POLICIES = ("always", "interval", "never")
-
 _DURATION_RE = re.compile(r"(\d+(?:\.\d+)?)(ns|us|µs|ms|s|m|h)")
 _DURATION_UNITS = {
     "ns": 1e-9, "us": 1e-6, "µs": 1e-6, "ms": 1e-3,
@@ -722,6 +718,8 @@ def load_proxy_config(path: Optional[str] = None,
 def _validate_journal_keys(cfg) -> None:
     """Shared journal/drain key validation (Config and ProxyConfig carry
     the same spill_journal_* / shutdown_drain_deadline_s knobs)."""
+    from veneur_tpu_torch.utils.journal import FSYNC_POLICIES
+
     if cfg.spill_journal_fsync not in FSYNC_POLICIES:
         raise ValueError(
             f"spill_journal_fsync must be one of {FSYNC_POLICIES}")

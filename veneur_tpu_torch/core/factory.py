@@ -17,7 +17,9 @@ Relic gets its own DeliveryManager from one ``DeliveryPolicy`` (retry,
 breaker, deadline clip, spill). ``opener`` is injected into every HTTP
 sink for tests. With ``flush_emit_native`` (on by default) the native
 library is loaded here, so a library that does not build fails the
-start, not each flush. Kafka and the spill journal stay refused.
+start, not each flush. Kafka stays refused. ``spill_journal_dir`` backs
+every network sink's delivery spill with a write-ahead journal
+(utils/journal.py; the server attaches and replays it at ``start()``).
 
 Spans: ``ssf_listen_addresses`` (udp://, unix://, unixgram://) start the
 SSF listeners, and statsd listeners take tcp:// (TLS with ``tls_key``
@@ -43,14 +45,14 @@ package, and so are reader shards:
 as in the JAX package (core/config.resolve_reader_shards; the server
 attaches the shards).
 
-The global tier for one local and one global: a single
-``forward_address`` installs the forwarder (gRPC with
-``forward_use_grpc``, streaming with ``forward_streaming``, or HTTP
-``/import``; ``forward_format: forwardrpc`` or ``jsonmetric`` speaks to
-a stock Go veneur global), and ``grpc_address`` and ``http_address``
-start the import servers. A ``forward_address`` naming more than one
-destination, ``forward_discovery_file`` (the sharded proxy tier) and
-``spill_journal_dir`` stay refused by name.
+The global tier: a single ``forward_address`` installs the forwarder
+(gRPC with ``forward_use_grpc``, streaming with ``forward_streaming``,
+or HTTP ``/import``; ``forward_format: forwardrpc`` or ``jsonmetric``
+speaks to a stock Go veneur global); a ``forward_address`` naming more
+than one proxy, or ``forward_discovery_file``, installs the sharded
+proxy tier's ``SpreadForwarder`` (distributed/spread.py); ``grpc_address``
+and ``http_address`` start the import servers. The proxy itself runs as
+``python -m veneur_tpu_torch.cli.proxy_main -f proxy.yaml``.
 
 Sets are ported: both set stores (``tpu_set_store: staged | dense``),
 both set hashes (``set_hash: fnv | metro``), every ``tpu_hll_precision``
@@ -89,9 +91,6 @@ REFUSED_KEYS = {
     "tenant_budgets": _on,
     # query listeners
     "query_listen_addrs": _on,
-    # the proxy tier's forwarding (discovery) and the spill journal
-    "forward_discovery_file": _on,
-    "spill_journal_dir": _on,
     # archive and plugins
     "archive_dir": _on,
     "archive_blob_bucket": _on,
@@ -129,9 +128,6 @@ def check_config(cfg: Config) -> None:
     for key, enabled in REFUSED_KEYS.items():
         if enabled(getattr(cfg, key)):
             _refuse(key, getattr(cfg, key))
-    if len(cfg.forward_destinations()) > 1:
-        # a comma-separated fleet is the sharded proxy tier's spread
-        _refuse("forward_address", cfg.forward_address)
     on = [k for k in RUNS_WITHOUT_KEYS if getattr(cfg, k)]
     if on:
         log.warning("the PyTorch port runs without %s (result-neutral; "
@@ -285,8 +281,9 @@ def build_server(cfg: Config, extra_metric_sinks=None,
     server = Server(cfg, metric_sinks=metric_sinks, device=device,
                     span_sinks=span_sinks)
 
-    # forwarding (a local): one static upstream
-    if cfg.forward_address:
+    # forwarding (a local): one static upstream, or the sharded proxy
+    # tier (comma-separated forward_address / discovered fleet)
+    if cfg.forward_address or cfg.forward_discovery_file:
         from veneur_tpu_torch.distributed.forward import install_forwarder
 
         install_forwarder(server)

@@ -328,6 +328,12 @@ class Server:
         self._forward_thread: Optional[threading.Thread] = None
         self.import_server = None
         self.import_http = None
+        # write-ahead spill journals (utils/journal.py), one per
+        # journalable delivery manager, attached in start() when
+        # spill_journal_dir is set; shutdown_stats is filled by
+        # graceful_drain (the SIGTERM path)
+        self._journals: dict = {}
+        self.shutdown_stats: dict = {}
         # shared-nothing reader shards (the worker's own contexts, one a
         # C++ reader thread); 0 keeps the digest-routed readers
         self._reader_shards = 0
@@ -480,6 +486,11 @@ class Server:
             out["reader_shards"] = self.workers[0].reader_stats(
                 lock_stats=self._lock_stats_enabled)
         out["spans"] = self._span_stats()
+        if self._journals:
+            out["journal"] = {rname: j.stats()
+                              for rname, j in self._journals.items()}
+        if self.shutdown_stats:
+            out["shutdown"] = dict(self.shutdown_stats)
         return out
 
     def _span_stats(self) -> dict:
@@ -1229,6 +1240,10 @@ class Server:
     def start(self) -> dict[str, int]:
         """Start sinks, the span worker, listeners and the flush ticker
         (reference Server.Start, server.go:826)."""
+        # durable spill: attach + replay journals BEFORE sinks start, so
+        # a prior incarnation's journaled payloads sit in the spill and
+        # go out ahead of fresh data at the first flush (retry_spill)
+        self._attach_journals()
         for sink in self.metric_sinks + self.span_sinks:
             sink.start()
         self.span_worker.start()
@@ -1243,6 +1258,112 @@ class Server:
         if self.native_mode:
             self._spawn(self._series_sync_loop, "series-sync")
         return ports
+
+    def _attach_journals(self) -> None:
+        """Back every journalable sink's delivery spill with a
+        write-ahead journal under <spill_journal_dir>/sink-<name>/ and
+        replay whatever a prior incarnation left unacked. Managers that
+        refuse (journal_exempt — splunk's send-once semantics) stay
+        RAM-only. No spill_journal_dir = no-op, byte-identical to the
+        in-RAM behaviour."""
+        jdir = self.config.spill_journal_dir
+        if not jdir:
+            return
+        from veneur_tpu_torch.sinks.journal_codec import make_entry_codec
+        from veneur_tpu_torch.utils.journal import SpillJournal
+
+        encode, decode = make_entry_codec()
+        for rname, man in self._delivery_managers():
+            if getattr(man, "journal_exempt", False):
+                log.info("sink %s: spill journal skipped (send-once "
+                         "semantics)", rname)
+                continue
+            journal = SpillJournal(
+                os.path.join(jdir, f"sink-{rname}"),
+                fsync=self.config.spill_journal_fsync,
+                max_bytes=self.config.spill_journal_max_bytes,
+                max_segments=self.config.spill_journal_max_segments,
+                log=log.warning)
+            if not man.attach_journal(journal, encode):
+                journal.close()
+                continue
+            self._journals[rname] = journal
+            n = man.recover(decode)
+            if n:
+                log.info("sink %s: %d journaled payload(s) recovered, "
+                         "will retry ahead of fresh data", rname, n)
+
+    def graceful_drain(self, deadline_s: Optional[float] = None) -> dict:
+        """SIGTERM contract: final-epoch flush, then bounded delivery/
+        spill-settling passes, with honest shutdown.* counters for
+        whatever the deadline clips. Returns (and stores on
+        self.shutdown_stats) the drain ledger; call before shutdown().
+
+        With the journal on, clipped payloads stay durable and the next
+        incarnation recovers them — the deadline bounds shutdown
+        LATENCY, never silently converts spill into loss."""
+        if deadline_s is None:
+            deadline_s = self.config.shutdown_drain_deadline_s
+        t0 = time.monotonic()
+        deadline = t0 + max(0.0, float(deadline_s))
+        stats: dict = {"deadline_s": float(deadline_s),
+                       "final_flush": False, "drained_payloads": 0,
+                       "drain_passes": 0}
+        # 1) final-epoch swap + flush of whatever the last interval
+        #    accumulated
+        if deadline_s > 0:
+            try:
+                self.flush()
+                stats["final_flush"] = True
+            except Exception:  # noqa: BLE001 — drain anyway
+                log.exception("graceful drain: final flush failed")
+        # 2) bounded spill-settling passes across every manager until
+        #    the spill is empty or the deadline clips
+        managers = self._delivery_managers()
+        while time.monotonic() < deadline:
+            remaining = deadline - time.monotonic()
+            spilled = 0
+            for _, man in managers:
+                if len(man.spill):
+                    man.begin_flush(remaining)
+                    stats["drained_payloads"] += man.retry_spill()
+                spilled += len(man.spill)
+            stats["drain_passes"] += 1
+            if not spilled:
+                break
+            time.sleep(min(0.05, max(0.0, deadline - time.monotonic())))
+        # 3) the honest remainder: what the deadline clipped
+        left_payloads = left_bytes = 0
+        for _, man in managers:
+            s = man.stats()
+            left_payloads += s["spilled_payloads"]
+            left_bytes += s["spilled_bytes"]
+        for journal in self._journals.values():
+            journal.sync()
+        stats.update({
+            "clipped_payloads": left_payloads,
+            "clipped_bytes": left_bytes,
+            "deadline_clipped": left_payloads > 0,
+            "journal_pending_records": sum(
+                j.pending_records() for j in self._journals.values()),
+            "duration_s": round(time.monotonic() - t0, 3),
+        })
+        self.shutdown_stats = stats
+        self.stats.count("shutdown.drained_payloads",
+                         stats["drained_payloads"])
+        self.stats.count("shutdown.clipped_payloads", left_payloads)
+        self.stats.count("shutdown.clipped_bytes", left_bytes)
+        if left_payloads:
+            log.warning(
+                "graceful drain clipped by deadline: %d payload(s) / %d "
+                "bytes still spilled%s", left_payloads, left_bytes,
+                " (journaled for the next incarnation)"
+                if self._journals else "")
+        else:
+            log.info("graceful drain complete in %.3fs (%d payload(s) "
+                     "re-delivered)", stats["duration_s"],
+                     stats["drained_payloads"])
+        return stats
 
     # -- flush --------------------------------------------------------------
 
@@ -1595,6 +1716,15 @@ class Server:
             self.import_server.stop()
         if self.import_http is not None:
             self.import_http.stop()
+        for journal in self._journals.values():
+            # final durability point: whatever is still spilled survives
+            # for the next incarnation's recovery
+            try:
+                journal.sync()
+                journal.close()
+            except Exception:  # noqa: BLE001 — teardown must not wedge
+                log.exception("spill journal close failed")
+        self._journals.clear()
         return all(not t.is_alive() for t in self._threads if t is not me)
 
     @property

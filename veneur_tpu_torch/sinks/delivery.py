@@ -1,9 +1,8 @@
 """Shared sink delivery-reliability layer: retry, breaker, bounded spill.
 
 PyTorch port: a copy of veneur_tpu/sinks/delivery.py with its imports
-rebound. ``attach_journal`` is copied but never called: the factory
-refuses ``spill_journal_dir``, and ``utils/journal.py``, which
-``mint_key`` imports only with a journal attached, is not ported yet.
+rebound. ``spill_journal_dir`` attaches a journal (``attach_journal``,
+the server's ``_attach_journals``).
 
 The reference treats backend flakiness as the normal case — its sinks
 carry retry-with-backoff (sinks/splunk resend-once on a stale

@@ -1,19 +1,265 @@
-"""Deterministic seeded fault injection at the device dispatch seam.
+"""Deterministic seeded fault injection, copied from
+veneur_tpu/utils/faults.py with its imports rebound.
 
-The device part of veneur_tpu/utils/faults.py, copied: ``DeviceFaultPlan``
-scripts faults per guarded dispatch, ``InjectedDeviceFault`` is what an
-injected fault raises, and ``DeviceFaultInjector`` patches
-veneur_tpu_torch/ops/device_guard.dispatch so every guarded call of the
-port consults the plan. The network fault classes wait for the global
-tier.
+The network part the proxy tier's tests use: ``FaultPlan`` scripts
+delivery faults (refusal, 5xx, slow, reset, rejection, duplicates, flap
+and congestion windows) from one seeded ``random.Random``, and
+``FaultyForwardClient`` wraps a proxy's or spread forwarder's forward
+client with it, so one scripted schedule drives both packages' proxies
+alike. (The HTTP opener, repeater socket and stream-sink wrappers of the
+JAX module are not copied.)
+
+The device part: ``DeviceFaultPlan`` scripts faults per guarded
+dispatch, ``InjectedDeviceFault`` is what an injected fault raises, and
+``DeviceFaultInjector`` patches veneur_tpu_torch/ops/device_guard.dispatch
+so every guarded call of the port consults the plan.
 """
 
 from __future__ import annotations
 
 import random
 import threading
+import time
 from dataclasses import dataclass, field
-from typing import Optional
+from typing import Callable, Optional
+
+FAULT_KINDS = ("refused", "http_5xx", "slow", "reset", "rejected",
+               "duplicated", "busy", "ack_delay", "passed")
+
+
+@dataclass
+class FaultPlan:
+    """Probabilities are evaluated in the order refuse → 5xx → slow →
+    reset → reject (cumulative thresholds over one uniform draw);
+    down_ranges override everything for their call-index window."""
+
+    seed: int = 0
+    p_refuse: float = 0.0
+    p_5xx: float = 0.0
+    p_slow: float = 0.0
+    p_reset: float = 0.0
+    p_reject: float = 0.0
+    # duplicate-injection: after a SUCCESSFUL send, re-send
+    # the same payload — the network artifact exactly-once dedup exists
+    # to absorb. Drawn separately from the failure kinds (a duplicate
+    # is not a failure), and only when > 0, so plans without it keep
+    # their exact historical decision sequences.
+    p_duplicate: float = 0.0
+    slow_s: float = 0.2
+    reset_after_s: float = 0.01   # partial body went out, then RST
+    status_5xx: int = 503
+    # [(start, end)) call-index windows that hard-refuse: a deterministic
+    # outage → recovery edge that cycles the breaker
+    down_ranges: list[tuple[int, int]] = field(default_factory=list)
+    # [(start, end)) call-index windows of explicit receiver
+    # backpressure: the forward client surfaces ForwardError("busy")
+    # (FaultyForwardClient) — the AIMD window's multiplicative-decrease
+    # trigger, scripted so collapse/recovery edges are reproducible
+    busy_ranges: list[tuple[int, int]] = field(default_factory=list)
+    # [(start, end)) call-index windows whose ack is delayed by
+    # ack_delay_s before the send/frame proceeds: past the caller's
+    # ack budget this manifests as an ack-timeout (the sender's OTHER
+    # shrink signal), inside it as harmless latency
+    ack_delay_ranges: list[tuple[int, int]] = field(default_factory=list)
+    ack_delay_s: float = 0.2
+
+    def total_p(self) -> float:
+        return (self.p_refuse + self.p_5xx + self.p_slow + self.p_reset
+                + self.p_reject)
+
+
+class _FaultBase:
+    def __init__(self, plan: FaultPlan,
+                 sleep_fn: Callable[[float], None] = time.sleep) -> None:
+        self.plan = plan
+        self._sleep = sleep_fn
+        self._lock = threading.Lock()
+        import random
+
+        self._rng = random.Random(plan.seed)
+        self.calls = 0
+        self.injected = {k: 0 for k in FAULT_KINDS}
+
+    def _decide(self) -> str:
+        with self._lock:
+            idx = self.calls
+            self.calls += 1
+            for start, end in self.plan.down_ranges:
+                if start <= idx < end:
+                    self.injected["refused"] += 1
+                    return "refused"
+            r = self._rng.random()
+            p = self.plan
+            edge = p.p_refuse
+            kind = "passed"
+            if r < edge:
+                kind = "refused"
+            elif r < (edge := edge + p.p_5xx):
+                kind = "http_5xx"
+            elif r < (edge := edge + p.p_slow):
+                kind = "slow"
+            elif r < (edge := edge + p.p_reset):
+                kind = "reset"
+            elif r < edge + p.p_reject:
+                kind = "rejected"
+            self.injected[kind] += 1
+            return kind
+
+    def _dup_decide(self) -> bool:
+        """Separate post-success draw: should the payload that just
+        landed be sent again? Guarded on p_duplicate > 0 so plans
+        without duplication consume no extra RNG draws (their decision
+        sequences stay bit-identical to pre-dedup runs)."""
+        with self._lock:
+            if self.plan.p_duplicate <= 0.0:
+                return False
+            if self._rng.random() >= self.plan.p_duplicate:
+                return False
+            self.injected["duplicated"] += 1
+            return True
+
+
+class FaultyForwardClient(_FaultBase):
+    """Wraps a distributed/rpc.ForwardClient for the proxy's forward
+    path: every send consults the plan, plus a harness-scripted
+    `partitioned` toggle (the churn soak's link-partition windows).
+    Injected faults surface as classified ForwardErrors — the shape the
+    proxy's DeliveryManager retry/spill path consumes — with the same
+    taxonomy mapping the sinks' fault wrappers use: refusals/resets are
+    transport-shaped ("unavailable", transient), over-budget slowness is
+    a deadline, and HTTP-ish 5xx/rejection degrade to a permanent "send"
+    on a gRPC link."""
+
+    def __init__(self, plan: FaultPlan, inner,
+                 sleep_fn: Callable[[float], None] = time.sleep) -> None:
+        super().__init__(plan, sleep_fn)
+        self.inner = inner
+        self.address = getattr(inner, "address", "?")
+        self._partitioned = False
+        # last successfully delivered payload, for p_duplicate re-sends
+        # and harness-scripted replay_last() across a receiver restart
+        self._last_sent: Optional[tuple] = None
+
+    def set_partitioned(self, on: bool) -> None:
+        with self._lock:
+            self._partitioned = bool(on)
+
+    def _gate(self, timeout_s: Optional[float]) -> None:
+        # deferred import: utils.faults stays importable without grpc
+        from veneur_tpu_torch.distributed.rpc import ForwardError
+
+        with self._lock:
+            partitioned = self._partitioned
+        if partitioned:
+            with self._lock:
+                self.calls += 1
+                self.injected["refused"] += 1
+            raise ForwardError("unavailable", self.address,
+                               "injected: partitioned link")
+        # scripted stream-congestion windows consume the call index
+        # BEFORE the probabilistic draw so plans without them keep
+        # their exact historical decision sequences
+        timeout = timeout_s or getattr(self.inner, "timeout_s", 10.0)
+        with self._lock:
+            idx = self.calls
+            busy = any(s <= idx < e for s, e in self.plan.busy_ranges)
+            delayed = (not busy and any(
+                s <= idx < e for s, e in self.plan.ack_delay_ranges))
+            if busy or delayed:
+                self.calls += 1
+                self.injected["busy" if busy else "ack_delay"] += 1
+        if busy:
+            raise ForwardError("busy", self.address,
+                               "injected: receiver busy-ack")
+        if delayed:
+            if self.plan.ack_delay_s >= timeout:
+                self._sleep(timeout)
+                raise ForwardError("deadline_exceeded", self.address,
+                                   "injected: ack delayed past budget")
+            self._sleep(self.plan.ack_delay_s)
+            return
+        kind = self._decide()
+        if kind == "passed":
+            return
+        if kind == "slow":
+            if self.plan.slow_s >= timeout:
+                self._sleep(timeout)
+                raise ForwardError("deadline_exceeded", self.address,
+                                   "injected: slower than deadline")
+            self._sleep(self.plan.slow_s)
+            return
+        if kind in ("refused", "reset"):
+            raise ForwardError("unavailable", self.address,
+                               f"injected: {kind}")
+        raise ForwardError("send", self.address, f"injected: {kind}")
+
+    def send_or_raise(self, batch, timeout_s=None) -> None:
+        self._gate(timeout_s)
+        self.inner.send_or_raise(batch, timeout_s)
+        with self._lock:
+            self._last_sent = ("batch", batch, None)
+        if self._dup_decide():
+            try:
+                self.inner.send_or_raise(batch, timeout_s)
+            except Exception:
+                pass  # ghost retry; the original already landed
+
+    def send_raw_or_raise(self, blob: bytes, n_metrics: int,
+                          timeout_s=None) -> None:
+        self._gate(timeout_s)
+        self.inner.send_raw_or_raise(blob, n_metrics, timeout_s)
+        with self._lock:
+            self._last_sent = ("raw", blob, n_metrics)
+        if self._dup_decide():
+            try:
+                self.inner.send_raw_or_raise(blob, n_metrics, timeout_s)
+            except Exception:
+                pass  # ghost retry; the original already landed
+
+    def replay_last(self, timeout_s=None) -> bool:
+        """Harness hook: re-deliver the last successfully sent payload
+        verbatim — the scripted 'network replays an old frame across a
+        receiver restart' fault the churn soak drives. Returns False if
+        nothing has been delivered yet. Counted under 'duplicated'."""
+        with self._lock:
+            last = self._last_sent
+        if last is None:
+            return False
+        with self._lock:
+            self.injected["duplicated"] += 1
+        kind, payload, n_metrics = last
+        try:
+            if kind == "raw":
+                self.inner.send_raw_or_raise(payload, n_metrics, timeout_s)
+            else:
+                self.inner.send_or_raise(payload, timeout_s)
+        except Exception:
+            pass  # replayed frame bounced; still counts as injected
+        return True
+
+    def send(self, batch, timeout_s=None) -> bool:
+        try:
+            self.send_or_raise(batch, timeout_s)
+        except Exception:
+            return False
+        return True
+
+    def send_raw(self, blob: bytes, n_metrics: int, timeout_s=None) -> bool:
+        try:
+            self.send_raw_or_raise(blob, n_metrics, timeout_s)
+        except Exception:
+            return False
+        return True
+
+    def stats(self) -> dict:
+        st = self.inner.stats()
+        with self._lock:
+            st["injected_faults"] = dict(self.injected)
+            st["partitioned"] = self._partitioned
+        return st
+
+    def close(self) -> None:
+        self.inner.close()
 
 
 @dataclass
