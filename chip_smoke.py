@@ -132,7 +132,8 @@ script exits non-zero:
    series space, 40 samples each from the local's seed, 4,096 global
    counters and gauges, 1,024 mixed sets at p = 14) flush and forward in
    turn to a port global on the card with grpc_address and
-   http_address, over gRPC streaming and over HTTP /import. Every
+   http_address, over gRPC streaming and (the first four locals: cut
+   for the run's time) over HTTP /import. Every
    payload the global applied is replayed, in order, into a CPU global:
    the card global's snapshot (K1 over the 65,536 merged rows, K5 over
    the 1,024 merged sets) is bitwise the CPU global's and its
@@ -183,7 +184,31 @@ script exits non-zero:
    import_s, merge_at_swap_s, flush_s, fold_s, extract_s, sets_s; the
    peak device memory, the proxies' cpu_seconds (where the host has a
    per-thread schedstat) and each arm's wall time.
-13. on the line before the last two, the card's name and power limit;
+13. the live query path and per-tenant QoS at phase 4's width: phase
+   4's interval with every series tagged tenant:t{i % 8} and the budget
+   t7: 5,000 (10,625 of t7's series refused), a tenant sketch (top-k 8)
+   and a QueryEngine on each worker. 13a: through the Python path on the
+   card and on the CPU: a query at the flush quantiles over every row
+   is bitwise the flush's quantile_values, a 32-quantile request runs
+   K1's quantile blocks, and every op's JSON response (host and device
+   quantiles, scalars, cardinality over the 25,000 sets, top-k of each
+   tenant, tenant totals, count-min estimates of 1,000 keys, epoch) is
+   byte for byte the CPU twin's; GET /metrics on the HTTP front is the
+   exposition sink's body; the tallies conserve; the sketch pool the
+   view captured is unchanged after the next interval's fold, and two
+   query threads running through the next interval's ingest and flush
+   only ever see one committed epoch's answers. The same series lines
+   as datagrams through attach_native() workers (card and CPU): refused
+   rows kept and absent from every sink line, responses byte for byte.
+   Prints p50/p99 ms of 200 requests each (host quantiles, ad-hoc device
+   quantiles with rotating qs, scalars, /metrics), K1's launches and ms
+   at P = 4 and 32 over the view's fields, the sketch fold's seconds and
+   the peak device memory with the view held against phase 4's. 13b:
+   phase 5's server with query_listen_addrs (HTTP and gRPC) and the
+   budgets, fed over UDP: after one flush both fronts answer what its
+   sinks got, and its tenant.* and query.* counters and gauges equal a
+   CPU twin's.
+14. on the line before the last two, the card's name and power limit;
    then a ``kernels`` JSON line: every kernel with its launches on the
    main path (phases 4 to 5b: counts reset just before, read just
    after), its agreement with the plain version, its time, the plain
@@ -191,11 +216,11 @@ script exits non-zero:
    phase 7's intervals (``launches_guard``), in the real-OOM run of
    tools/port_guard_faults.py (``launches_guard_oom``), in phase 9
    (``launches_shards``), in phase 10 (``launches_global``), in phase
-   12 (``launches_proxy``) and in phase 11 (``launches_spans``), each
-   counted from 0 just before its run; the probe's variants beside it,
-   with their build report and launches (only the variant flush_extract
-   launches has any).
-14. the last line: {"ok": true, "device": {...}}.
+   12 (``launches_proxy``), in phase 11 (``launches_spans``) and in
+   phase 13 (``launches_query``), each counted from 0 just before its
+   run; the probe's variants beside it, with their build report and
+   launches (only the variant flush_extract launches has any).
+15. the last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the veneur_tpu_torch package beside it, the
 script prints no result and exits 2. It imports nothing of JAX.
@@ -249,6 +274,20 @@ def sync() -> None:
 
     if DEVICE == "cuda":
         torch.cuda.synchronize()
+
+
+def reset_peak() -> None:
+    import torch
+
+    if DEVICE == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+
+
+def peak_bytes() -> int:
+    """Peak device memory since reset_peak (0 off the card)."""
+    import torch
+
+    return torch.cuda.max_memory_allocated() if DEVICE == "cuda" else 0
 
 
 # -- phase 2 ------------------------------------------------------------------
@@ -571,8 +610,10 @@ def phase_worker(tw, generate, parse, qs):
     plan = interval_plan(seed=5)
     per_row = np.bincount(plan[2]) + 1  # + the series line's sample
     spilled = int(np.maximum(per_row - INTERVAL_KW["stage_depth"], 0).sum())
+    reset_peak()
     gpu = tw.DeviceWorker(**INTERVAL_KW, device=DEVICE)
     snap_g, t_g = run_interval(gpu, plan, parse, qs)
+    t_g["peak_device_bytes"] = peak_bytes()
     check_guard_clean(gpu, snap_g, "phase 4, card")
     del gpu
     cpu = tw.DeviceWorker(**INTERVAL_KW, device="cpu")
@@ -1987,6 +2028,8 @@ def phase_shard_server() -> dict:
 
 # bench.py's global_merge width (bench.py:394-397): 8 hosts, 65,536 series
 GM_HOSTS, GM_SERIES, GM_SAMPLES = 8, 65_536, 40
+# the HTTP arm forwards the first four locals (cut for the run's time)
+GM_HTTP_HOSTS = 4
 GM_COUNTERS = GM_GAUGES = 4_096
 GM_SETS, GM_MEMBERS = 1_024, 256
 GM_NOW = 1_700_000_000
@@ -2223,6 +2266,7 @@ def phase_global(parse) -> tuple:
     local_snaps: list = []
     keep: dict = {}
     for transport in ("grpc", "http"):
+        hosts = GM_HOSTS if transport == "grpc" else GM_HTTP_HOSTS
         tap = TcpTap()
         g = build_server(load_config(data=gm_global_config(tap, True)),
                          device=DEVICE)
@@ -2234,7 +2278,7 @@ def phase_global(parse) -> tuple:
         t_locals = time.perf_counter()
         try:
             with counting_codec(itap, counts):
-                for host in range(GM_HOSTS):
+                for host in range(hosts):
                     rec = ForwardRecorder()
                     if transport == "grpc":
                         # the local's own flush forwards, on its thread
@@ -2325,11 +2369,11 @@ def phase_global(parse) -> tuple:
                                  "sink sent other bytes than the CPU's")
         n = snap_g.directory.num_histo_rows
         if n != GM_SERIES or not np.isfinite(snap_g.quantile_values).all() \
-                or not (snap_g.dcount == GM_HOSTS * GM_SAMPLES).all():
+                or not (snap_g.dcount == hosts * GM_SAMPLES).all():
             raise AssertionError(f"phase 10 {transport}: {n} merged rows, "
                                  "counts or quantiles off")
         est = snap_g.set_estimates
-        truth = GM_HOSTS * (GM_MEMBERS + 1)
+        truth = hosts * (GM_MEMBERS + 1)
         if est is None or est.shape != (GM_SETS,) or \
                 np.abs(est / truth - 1).max() > 0.05:
             raise AssertionError(f"phase 10 {transport}: set estimates off")
@@ -2345,7 +2389,7 @@ def phase_global(parse) -> tuple:
                                                      "sets_s")
                   if k in phases_c}, "codec": counts}
         out[transport] = res
-        log(f"[global {transport}] {GM_HOSTS} locals x {GM_SERIES} series "
+        log(f"[global {transport}] {hosts} locals x {GM_SERIES} series "
             f"forwarded in turn ({len(itap.payloads)} payloads applied; "
             f"native codec {counts}) -> {n} merged rows, "
             f"{snap_g.directory.num_set_rows} sets; the card global's "
@@ -3145,6 +3189,565 @@ def phase_spans(parse) -> dict:
             "mixed": phase_mixed_spans(parse)}
 
 
+# -- phase 13 -----------------------------------------------------------------
+
+QUERY_BUDGETS = {"t7": 5_000}
+QUERY_TENANTS = 8
+QUERY_TOPK = 8
+QUERY_REPS = 200
+QUERY_ROWS = 10_000
+QUERY_NOW = 1_700_000_000
+QUERY_QS32 = [round(0.01 + 0.98 * k / 31, 6) for k in range(32)]
+
+
+def tenant_plan(plan):
+    """Phase 4's interval with every series line tagged tenant:t{i % 8},
+    i its place among the interval's series (histograms, hot, counters,
+    gauges, sets); the bulk samples as they are."""
+    series, scalars, rows, vals, wts, (set_lines, srows, sidx, srank,
+                                       ids) = plan
+    tagged = []
+    for i, line in enumerate(series + scalars + set_lines):
+        sep = b"," if b"|#" in line else b"|#"
+        tagged.append(line + sep + f"tenant:t{i % QUERY_TENANTS}".encode())
+    a, b = len(series), len(series) + len(scalars)
+    return (tagged[:a], tagged[a:b], rows, vals, wts,
+            (tagged[b:], srows, sidx, srank, ids))
+
+
+def query_worker(tw, engine, device, native: bool = False):
+    """A phase 4 worker with the budgets, a tenant sketch on its device
+    and the engine's publisher, as the server wires them."""
+    import functools
+
+    from veneur_tpu_torch.core.config import Config
+    from veneur_tpu_torch.core.tenancy import TenantLedger, TenantSketch
+
+    cfg = Config()
+    w = tw.DeviceWorker(**INTERVAL_KW, device=device)
+    if native and not w.attach_native():
+        raise AssertionError("attach_native() failed")
+    w.tenancy = TenantLedger(budgets=QUERY_BUDGETS)
+    w.tenant_sketch = TenantSketch(
+        depth=cfg.tenant_sketch_depth, width=cfg.tenant_sketch_width,
+        topk=QUERY_TOPK, device=device)
+    w.query_publisher = functools.partial(engine.stage, 0)
+    return w
+
+
+def run_tenant_interval(worker, tplan, parse, qs):
+    """The tagged interval through the Python path: the series lines
+    through process_metric (the ledger refuses t7's series past its
+    budget: no row), then the bulk samples of the admitted series staged
+    at the rows the worker gave them, the set members likewise, and the
+    flush. Returns (snapshot, seconds by step)."""
+    import numpy as np
+
+    series, scalars, rows, vals, wts, (set_lines, srows, sidx, srank,
+                                       _ids) = tplan
+    t0 = time.perf_counter()
+    for line in series + scalars + set_lines:
+        worker.process_metric(parse(line))
+    worker._flush_pending_histos()
+    worker._flush_pending_sets()
+    worker._sync()
+    t1 = time.perf_counter()
+    hrow = {m.key.name: r for r, m in
+            enumerate(worker.directory.histo.rows)}
+    hmap = np.array([hrow.get(f"svc.lat.{i}", -1) for i in range(N_HIST)]
+                    + [hrow.get(f"hot.{i}", -1) for i in range(N_HOT)],
+                    dtype=np.int64)
+    srow = {m.key.name: r for r, m in enumerate(worker.directory.sets.rows)}
+    smap = np.array([srow.get(f"users.{i}", -1) for i in range(N_SETS)],
+                    dtype=np.int64)
+    mrows = hmap[rows]
+    keep = mrows >= 0
+    mrows, mvals, mwts = (mrows[keep].astype(np.int32), vals[keep],
+                          wts[keep])
+    b = worker.batch_size
+    for i in range(0, len(mrows), b):
+        worker._device_histo_step(mrows[i:i + b], mvals[i:i + b],
+                                  mwts[i:i + b])
+    worker._sync()
+    t2 = time.perf_counter()
+    ms = smap[srows]
+    skeep = ms >= 0
+    set_s = insert_sets(worker, ms[skeep].astype(np.int32), sidx[skeep],
+                        srank[skeep])
+    t3 = time.perf_counter()
+    snap = worker.flush(qs)
+    t4 = time.perf_counter()
+    return snap, {"process_metric_s": t1 - t0, "staging_s": t2 - t1,
+                  "set_insert_s": set_s, "flush_s": t4 - t3,
+                  "staged_samples": int(keep.sum()),
+                  "set_samples": int(skeep.sum()),
+                  **worker.last_extract_phases}
+
+
+def query_requests(snap) -> list:
+    """Every op of the query surface over a committed epoch: the device
+    query at the flush quantiles and the cardinalities over every row,
+    the other tables over their first QUERY_ROWS rows."""
+    every = 10 ** 7
+    keys = [m.key.key_string() for m in snap.directory.histo.rows
+            if m.tenant == "t3"][:1000]
+    return ([{"op": "quantiles", "limit": QUERY_ROWS},
+             {"op": "quantiles", "force_device": True, "limit": every},
+             {"op": "quantiles", "qs": QUERY_QS32, "force_device": True,
+              "limit": QUERY_ROWS},
+             {"op": "quantiles", "qs": [0.25, 0.75], "name": "svc.lat.3"},
+             {"op": "scalars", "limit": QUERY_ROWS},
+             {"op": "cardinality", "limit": every}]
+            + [{"op": "topk", "tenant": f"t{k}"}
+               for k in range(QUERY_TENANTS)]
+            + [{"op": "tenant_totals"},
+               {"op": "cms", "keys": keys, "tenant": "t3"},
+               {"op": "epoch"}])
+
+
+def answers(engine, reqs) -> list:
+    return [json.dumps(engine.dispatch(dict(r))).encode() for r in reqs]
+
+
+def check_answers(got: list, ref: list, reqs, what: str) -> None:
+    for g, r, q in zip(got, ref, reqs):
+        if g != r:
+            raise AssertionError(f"{what}: the {q['op']} response "
+                                 f"{ {k: v for k, v in q.items() if k != 'keys'} } "
+                                 f"differs from the CPU twin's")
+        if b'"error"' in g[:20]:
+            raise AssertionError(f"{what}: {q['op']} answered an error")
+
+
+def refused_absent(snap, metrics, what: str) -> int:
+    """No sink line carries a refused series; returns how many refused
+    series the snapshot kept rows for."""
+    refused = {(r.key.name, ",".join(r.tags))
+               for pool in (snap.directory.histo, snap.directory.sets)
+               for r in pool.rows if not r.admitted}
+    for pool in (snap.scalars.counters, snap.scalars.gauges):
+        refused |= {(m[0].name, ",".join(m[1]))
+                    for m, code in zip(pool.meta, pool.admit_codes)
+                    if not code}
+    for m in metrics:
+        tags = ",".join(m.tags)
+        if (m.name, tags) in refused or \
+                (m.name.rsplit(".", 1)[0], tags) in refused:
+            raise AssertionError(f"{what}: refused series {m.name} "
+                                 f"reached a sink line")
+    return len(refused)
+
+
+def latency_ms(fn, reps: int = QUERY_REPS) -> dict:
+    out = []
+    for i in range(reps):
+        t0 = time.perf_counter()
+        fn(i)
+        out.append((time.perf_counter() - t0) * 1e3)
+    out.sort()
+    return {"p50_ms": out[len(out) // 2],
+            "p99_ms": out[min(len(out) - 1, int(0.99 * len(out)))]}
+
+
+def phase_query_worker(tw, parse, qs, aggs, ek) -> dict:
+    """Phase 13a (see the module docstring)."""
+    import threading
+    import urllib.request
+
+    import torch
+
+    from veneur_tpu_torch.core.flusher import (generate_columnar,
+                                               generate_inter_metrics)
+    from veneur_tpu_torch.query import QueryEngine
+    from veneur_tpu_torch.query.http import make_http_server
+    from veneur_tpu_torch.sinks.prometheus import PrometheusExpositionSink
+
+    out: dict = {}
+    tplan = tenant_plan(interval_plan(seed=5))
+    series_lines = tplan[0] + tplan[1] + tplan[5][0]
+    n_series = len(series_lines)
+    per_tenant = n_series // QUERY_TENANTS
+
+    def engine():
+        return QueryEngine(QS, aggs, is_local=True, topk=QUERY_TOPK)
+
+    # the card arm; the fields the evaluator closes over, kept for K1's
+    # timing
+    reset_peak()
+    eng_g = engine()
+    wg = query_worker(tw, eng_g, DEVICE)
+    held = {}
+    make_eval = wg._make_query_eval
+
+    def capture(fields):
+        held["fields"] = fields
+        return make_eval(fields)
+
+    wg._make_query_eval = capture
+    snap_g, t_g = run_tenant_interval(wg, tplan, parse, qs)
+    eng_g.commit(QUERY_NOW)
+    check_guard_clean(wg, snap_g, "phase 13, card")
+    reqs = query_requests(snap_g)
+    t0 = time.perf_counter()
+    got = answers(eng_g, reqs)
+    t_g["answers_s"] = time.perf_counter() - t0
+    # the CPU twin
+    eng_c = engine()
+    wc = query_worker(tw, eng_c, "cpu")
+    snap_c, t_c = run_tenant_interval(wc, tplan, parse, qs)
+    eng_c.commit(QUERY_NOW)
+    compare_snapshots(snap_g, snap_c, "phase 13, card against CPU")
+    ref = answers(eng_c, reqs)
+    check_answers(got, ref, reqs, "phase 13a")
+    # the query at the flush quantiles over every row is the flush's
+    # readback, bitwise
+    dev = json.loads(got[1])["results"]
+    n = snap_g.directory.num_histo_rows
+    qv = torch.tensor([r["values"] for r in dev], dtype=torch.float32)
+    same, err = probe.bitwise_equal(qv, torch.from_numpy(
+        snap_g.quantile_values))
+    if len(dev) != n or not same:
+        raise AssertionError(f"phase 13a: the device query at the flush "
+                             f"quantiles is not the flush's readback "
+                             f"({len(dev)} of {n} rows, max abs err {err})")
+    p32 = json.loads(got[2])["results"]
+    if len(p32) != min(n, QUERY_ROWS) or len(p32[0]["values"]) != 32:
+        raise AssertionError("phase 13a: the 32-quantile request")
+    # the ledger and the tallies
+    led = wg.tenancy
+    live, rejected = led.live_counts(), led.series_rejected_counts()
+    want_live = {f"t{k}": per_tenant for k in range(QUERY_TENANTS)}
+    want_live["t7"] = QUERY_BUDGETS["t7"]
+    if live != want_live or rejected != {
+            "t7": per_tenant - QUERY_BUDGETS["t7"]} \
+            or led.live_counts() != wc.tenancy.live_counts():
+        raise AssertionError(f"phase 13a: ledger live {live}, refused "
+                             f"{rejected}")
+    life = wg.tenant_lifetime()
+    for t, acc in life["accepted"].items():
+        if acc != life["kept"].get(t, 0) + life["rejected"].get(t, 0) \
+                + life["dropped"].get(t, 0):
+            raise AssertionError(f"phase 13a: tallies of {t} do not "
+                                 f"conserve: {life}")
+    if life != wc.tenant_lifetime():
+        raise AssertionError("phase 13a: tallies differ from the CPU's")
+    # /metrics on the HTTP front: the exposition sink's body
+    posted = []
+    sink = PrometheusExpositionSink("http://127.0.0.1:9/unused")
+    sink._post = lambda body, count: posted.append(body)
+    sink.flush_columnar(generate_columnar(snap_g, True, QS, aggs,
+                                          now=QUERY_NOW))
+    hsrv, hport = make_http_server(eng_g, "127.0.0.1:0")
+    url = f"http://127.0.0.1:{hport}"
+    try:
+        with urllib.request.urlopen(url + "/metrics") as resp:
+            body = resp.read()
+        if body != posted[0] or body != eng_c.render_exposition()[0]:
+            raise AssertionError("phase 13a: /metrics is not the "
+                                 "exposition sink's body")
+        out["metrics_bytes"] = len(body)
+        # latencies on the card arm (K1 counted from here for its ms)
+        rot = [0.1 + 0.8 * (i % 97) / 97.0 for i in range(97)]
+        k1_before = ek.flush_extract.launches
+        out["latency"] = {
+            "quantiles_host": latency_ms(lambda i: eng_g.dispatch(
+                {"op": "quantiles", "name": f"svc.lat.{i % 997}"})),
+            "quantiles_device": latency_ms(lambda i: eng_g.dispatch(
+                {"op": "quantiles", "qs": [rot[i % 97]],
+                 "name": "svc.lat.7", "force_device": True})),
+            "scalars": latency_ms(lambda i: eng_g.dispatch(
+                {"op": "scalars", "name": f"svc.lat.{i % 997}"})),
+            "metrics": latency_ms(lambda i: urllib.request.urlopen(
+                url + "/metrics").read())}
+        out["device_query_launches"] = ek.flush_extract.launches - k1_before
+    finally:
+        hsrv.shutdown()
+        hsrv.server_close()
+    # K1 timed over the view's fields: these launches are no query's, so
+    # the counts are put back
+    fields = held["fields"]
+    out["k1_rows"] = int(fields[0].shape[0])
+    counted = (ek.flush_extract.launches, dict(ek.variant_launches))
+    for p, qv_ in (("p4", [0.25, 0.5, 0.75, 0.99]), ("p32", QUERY_QS32)):
+        q = torch.tensor(qv_, dtype=torch.float32, device=fields[0].device)
+        out[f"k1_ms_{p}"] = probe.cuda_ms(
+            lambda: ek.flush_extract(*fields, q), 21,
+            spin_cycles=2_000_000) if DEVICE == "cuda" else 0.0
+    ek.flush_extract.launches = counted[0]
+    ek.variant_launches.update(counted[1])
+    out["peak_device_bytes_view_held"] = peak_bytes()
+    # the native arm: the tagged series lines as datagrams, card and CPU
+    grams = [b"\n".join(series_lines[i:i + 100])
+             for i in range(0, n_series, 100)]
+    native = {}
+    for where, dev_ in (("card", DEVICE), ("cpu", "cpu")):
+        eng_n = engine()
+        wn = query_worker(tw, eng_n, dev_, native=True)
+        t0 = time.perf_counter()
+        for d in grams:
+            wn.ingest_datagram(d)
+        sn = wn.flush(qs)
+        eng_n.commit(QUERY_NOW)
+        native[where] = (wn, sn, eng_n, time.perf_counter() - t0)
+    (wn, sn, eng_n, t_n), (wnc, snc, eng_nc, t_nc) = native["card"], \
+        native["cpu"]
+    compare_snapshots(sn, snc, "phase 13 native, card against CPU")
+    nreqs = query_requests(sn)
+    check_answers(answers(eng_n, nreqs), answers(eng_nc, nreqs), nreqs,
+                  "phase 13a native")
+    if wn.tenancy.live_counts() != want_live or \
+            wn.tenancy.series_rejected_counts() != rejected:
+        raise AssertionError("phase 13a native: the ledger's counts differ "
+                             "from the Python path's")
+    kept_rows = refused_absent(sn, generate_inter_metrics(
+        sn, True, QS, aggs, now=QUERY_NOW), "phase 13a native")
+    if kept_rows != rejected["t7"]:
+        raise AssertionError(f"phase 13a native: {kept_rows} refused rows "
+                             f"kept, the ledger refused {rejected['t7']}")
+    # the Python path refuses before a row exists
+    t7_rows = sum(m.tenant == "t7" for pool in (
+        snap_g.directory.histo, snap_g.directory.sets) for m in pool.rows)
+    if t7_rows > QUERY_BUDGETS["t7"] or snap_g.directory.histo.rejected_rows:
+        raise AssertionError(f"phase 13a: {t7_rows} rows of t7")
+    del native, wn, wnc, sn, snc, eng_n, eng_nc
+    # the next interval, with two query threads reading throughout: the
+    # view's sketch pool stays as captured, and every response is one
+    # committed epoch's
+    view = eng_g.epoch().views[0]
+    pool_ref = view.sketch.pool
+    pool_before = pool_ref.clone()
+    treqs = [{"op": "scalars", "name": "svc.lat.7"},
+             {"op": "quantiles", "name": "svc.lat.7"},
+             {"op": "tenant_totals"}, {"op": "cardinality",
+                                       "name": "users.2"},
+             {"op": "topk", "tenant": "t7"}]
+    by_epoch = {1: answers(eng_g, treqs)}
+    seen: list = []
+    stop = threading.Event()
+
+    def reader(k):
+        i = k
+        while not stop.is_set():
+            j = i % len(treqs)
+            b = json.dumps(eng_g.dispatch(dict(treqs[j]))).encode()
+            seen.append((json.loads(b)["epoch"], j, b))
+            i += 1
+            time.sleep(0.005)  # leave the ingest thread the interpreter
+
+    threads = [threading.Thread(target=reader, args=(k,)) for k in (0, 1)]
+    for t in threads:
+        t.start()
+    t0 = time.perf_counter()
+    try:
+        # the next interval: every seventh series line (every tenant)
+        for line in series_lines[::7]:
+            wg.process_metric(parse(line))
+        wg.flush(qs)
+        eng_g.commit(QUERY_NOW + 10)
+        t_next = time.perf_counter() - t0
+        time.sleep(0.2)
+    finally:
+        stop.set()
+        for t in threads:
+            t.join()
+    by_epoch[2] = answers(eng_g, treqs)
+    epochs = sorted({e for e, _j, _b in seen})
+    for e, j, b in seen:
+        if b != by_epoch[e][j]:
+            raise AssertionError(f"phase 13a: a response of epoch {e} is "
+                                 f"not that epoch's")
+    if epochs != [1, 2]:
+        raise AssertionError(f"phase 13a: the readers saw epochs {epochs}")
+    if not torch.equal(pool_ref, pool_before) or \
+            wg.tenant_sketch.pool is pool_ref:
+        raise AssertionError("phase 13a: the captured sketch pool changed "
+                             "with the next fold")
+    out.update({
+        "card": t_g, "cpu": t_c, "series": n_series, "histo_rows": n,
+        "ledger_live": live, "ledger_refused": rejected,
+        "sketch_s": t_g.get("sketch_s"), "native_s": {"card": t_n,
+                                                      "cpu": t_nc},
+        "native_refused_rows": kept_rows, "next_interval_s": t_next,
+        "reader_responses": len(seen), "requests": len(reqs)})
+    log(f"[query] 13a: {n_series} series in {QUERY_TENANTS} tenants, t7 "
+        f"budget {QUERY_BUDGETS['t7']}: ledger live {live}, refused "
+        f"{rejected}; {n} histogram rows, {len(reqs)} requests byte for "
+        f"byte the CPU twin's (answers {t_g['answers_s']:.2f} s); the "
+        f"device query at the flush quantiles bitwise the readback; "
+        f"/metrics {out['metrics_bytes']} B = the exposition sink's body; "
+        f"native arm: {kept_rows} refused rows kept, none in the sink "
+        f"lines; {len(seen)} reader responses over epochs {epochs}, each "
+        f"its epoch's; the captured sketch pool unchanged")
+    log("[query] 13a latency (ms): " + ", ".join(
+        f"{k} p50 {v['p50_ms']:.3f} p99 {v['p99_ms']:.3f}"
+        for k, v in out["latency"].items()))
+    log(f"[query] 13a: K1 over the view's {out['k1_rows']} rows "
+        f"{out['k1_ms_p4']:.4f} ms at P = 4, {out['k1_ms_p32']:.4f} ms at "
+        f"P = 32; the sketch fold {t_g.get('sketch_s', 0.0):.4f} s; peak "
+        f"device memory with the view held "
+        f"{out['peak_device_bytes_view_held']} B; card: " + ", ".join(
+            f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
+            for k, v in t_g.items()) + "; cpu flush_s "
+        f"{t_c['flush_s']:.4f}")
+    return out
+
+
+def tenant_server_datagrams(seed: int) -> list[bytes]:
+    """Phase 5's traffic (no spill) with each line's series in tenant
+    t{k % 8} (the service check and the event as they are)."""
+    out = []
+    for d in server_datagrams(seed=seed, spill=False):
+        if not d.startswith(b"api."):
+            out.append(d)
+            continue
+        lines = []
+        for k, line in enumerate(d.split(b"\n")):
+            sep = b"," if b"|#" in line else b"|#"
+            lines.append(line + sep + f"tenant:t{(k + len(line)) % 8}"
+                         .encode())
+        out.append(b"\n".join(lines))
+    return out
+
+
+def phase_query_server(ek) -> dict:
+    """Phase 13b (see the module docstring)."""
+    import socket
+    import urllib.request
+
+    from veneur_tpu_torch.core.config import load_config
+    from veneur_tpu_torch.core.factory import build_server
+    from veneur_tpu_torch.query.service import QueryClient
+    from veneur_tpu_torch.sinks.channel import ChannelMetricSink
+    from veneur_tpu_torch.sinks.exposition import render_columnar
+
+    data = {**server_config(native=False, spill=False),
+            "tenant_budgets": QUERY_BUDGETS, "tenant_topk": QUERY_TOPK,
+            "ssf_span_uniqueness_rate": 0.0,
+            "query_listen_addrs": ["http://127.0.0.1:0",
+                                   "grpc://127.0.0.1:0"]}
+    grams = tenant_server_datagrams(seed=9)
+    reqs = [{"op": "quantiles"}, {"op": "scalars"}, {"op": "cardinality"},
+            {"op": "quantiles", "qs": [0.1, 0.42], "force_device": True},
+            {"op": "topk", "tenant": "t3"}, {"op": "tenant_totals"},
+            {"op": "epoch"}]
+    sink = ChannelMetricSink()
+    server = build_server(load_config(data=data), extra_metric_sinks=[sink],
+                          device=DEVICE)
+    ports = server.start()
+    before = ek.flush_extract.launches
+    try:
+        port = ports["udp://127.0.0.1:0"]
+        with socket.socket(socket.AF_INET, socket.SOCK_DGRAM) as s:
+            for d in grams:
+                s.sendto(d, ("127.0.0.1", port))
+                time.sleep(0.0005)
+        deadline = time.time() + 60
+        while server.packets_received < len(grams) \
+                and time.time() < deadline:
+            time.sleep(0.05)
+        if server.packets_received != len(grams):
+            raise AssertionError(f"phase 13b: received "
+                                 f"{server.packets_received} of "
+                                 f"{len(grams)} datagrams")
+        batch = server.flush(now=QUERY_NOW)
+        delivered = []
+        while not sink.queue.empty():
+            delivered.extend(sink.queue.get_nowait())
+        http = f"http://127.0.0.1:{ports['http://127.0.0.1:0']}"
+        client = QueryClient(f"127.0.0.1:{ports['grpc://127.0.0.1:0']}")
+        try:
+            via_grpc = [client.query(r) for r in reqs]
+        finally:
+            client.close()
+        via_http = []
+        for r in reqs:
+            post = urllib.request.Request(http + "/query",
+                                          data=json.dumps(r).encode())
+            with urllib.request.urlopen(post) as resp:
+                via_http.append(json.load(resp))
+        with urllib.request.urlopen(http + "/metrics") as resp:
+            metrics_body = resp.read()
+        launched = ek.flush_extract.launches - before
+        server.flush(now=QUERY_NOW + 10)  # reports the queries served
+    finally:
+        server.shutdown()
+    if via_grpc != via_http:
+        raise AssertionError("phase 13b: the two fronts answer differently")
+    if metrics_body != render_columnar(batch, sink_name=None)[0]:
+        raise AssertionError("phase 13b: /metrics is not the flush batch's "
+                             "exposition")
+    # the fronts' quantiles and scalars are what the sink got
+    sunk = {(m.name, tuple(sorted(m.tags))): m.value for m in delivered}
+    checked = 0
+    for res in via_grpc[0]["results"]:
+        tags = tuple(sorted(res["tags"]))
+        for q, v in zip(res["qs"], res["values"]):
+            name = f"{res['name']}.{int(round(q * 100))}percentile"
+            if (name, tags) in sunk:
+                if sunk[(name, tags)] != v:
+                    raise AssertionError(f"phase 13b: {name} {tags}: the "
+                                         f"front says {v}, the sink got "
+                                         f"{sunk[(name, tags)]}")
+                checked += 1
+    for res in via_grpc[1]["results"]:
+        tags = tuple(sorted(res["tags"]))
+        for agg in ("min", "max"):
+            key = (f"{res['name']}.{agg}", tags)
+            if key in sunk:
+                if sunk[key] != res[agg]:
+                    raise AssertionError(f"phase 13b: {key}: the front "
+                                         "differs from the sink")
+                checked += 1
+    if checked < 3 or launched < 1:
+        raise AssertionError(f"phase 13b: {checked} values checked against "
+                             f"the sink, K1 launched {launched} times")
+    # the CPU twin: the same config and datagrams, the same requests
+    twin = build_server(load_config(data={
+        **data, "statsd_listen_addresses": [], "query_listen_addrs": [
+            "http://127.0.0.1:0"]}), extra_metric_sinks=[ChannelMetricSink()],
+        device="cpu")
+    try:
+        for d in grams:
+            twin.process_metric_packet(d)
+        twin.flush(now=QUERY_NOW)
+        for r in reqs:
+            if twin.query_engine.dispatch(dict(r)) != via_grpc[reqs.index(r)]:
+                raise AssertionError(f"phase 13b: {r['op']} differs from "
+                                     "the CPU twin's")
+            twin.query_engine.dispatch(dict(r))  # both fronts served it
+        twin.flush(now=QUERY_NOW + 10)
+    finally:
+        twin.shutdown()
+
+    def ours(d):
+        return {k: v for k, v in d.items()
+                if k[0].startswith(("tenant.", "query."))}
+
+    counters, gauges = ours(server.stats.totals()), ours(server.stats.gauges())
+    if counters != ours(twin.stats.totals()) or \
+            gauges != ours(twin.stats.gauges()) or not gauges:
+        raise AssertionError(f"phase 13b: counters {counters} / gauges "
+                             f"{gauges} differ from the CPU twin's")
+    log(f"[query] 13b: {len(grams)} UDP datagrams, one flush: HTTP and gRPC "
+        f"answer alike, {checked} values equal the sink's, /metrics "
+        f"{len(metrics_body)} B the batch's exposition; K1 launched "
+        f"{launched} times; counters {counters}; gauges {gauges}, equal "
+        f"to the CPU twin's")
+    return {"datagrams": len(grams), "checked": checked,
+            "launches": launched,
+            "counters": {f"{k[0]}|{','.join(k[1])}": v
+                         for k, v in counters.items()},
+            "gauges": {f"{k[0]}|{','.join(k[1])}": v
+                       for k, v in gauges.items()}}
+
+
+def phase_query(tw, parse, qs, aggs, ek) -> dict:
+    """Phase 13: 13a and 13b."""
+    return {"worker": phase_query_worker(tw, parse, qs, aggs, ek),
+            "server": phase_query_server(ek)}
+
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -3222,6 +3825,10 @@ def main() -> int:
     for r, rep in sorted(ek.build_report().items()):
         log(f"[setup] ptxas flush_extract r{r}: " + ", ".join(
             f"{k} {v}" for k, v in rep.items()))
+    wide_build = ek.build_report(wide=True)
+    for r, rep in sorted(wide_build.items()):
+        log(f"[setup] ptxas flush_extract wide r{r} (P > 16): " + ", ".join(
+            f"{k} {v}" for k, v in rep.items()))
     hll_build = hll_kernel.build_report()
     for name, rep in sorted(hll_build.items()):
         log(f"[setup] ptxas {name}: " + ", ".join(
@@ -3237,6 +3844,10 @@ def main() -> int:
     if not all(v["bitwise"] for v in variants):
         raise AssertionError("a variant is not bitwise equal to the plain "
                              "version")
+    wide = probe.probe_wide(fields)
+    if not all(all(v["bitwise"].values()) for v in wide):
+        raise AssertionError("a wide kernel (P > 16) is not bitwise equal "
+                             "to the plain version")
     yardstick = probe.read_yardstick(fields)
     del fields, plain_check
     wall["variant_probe_s"] = time.perf_counter() - t0
@@ -3329,6 +3940,15 @@ def main() -> int:
     phases["spans"] = phase_spans(parse_metric)
     wall["spans_s"] = time.perf_counter() - t0
     launches_spans = read_launches(ek, hll)
+    # 13: the live query path and tenancy, counted from 0
+    reset_launches(ek, hll)
+    t0 = time.perf_counter()
+    phases["query"] = phase_query(tw, parse_metric, qs, aggs, ek)
+    wall["query_s"] = time.perf_counter() - t0
+    launches_query = read_launches(ek, hll)
+    if launches_query["flush_extract"] < 1:
+        raise AssertionError("flush_extract was not launched on the query "
+                             "path (phase 13)")
     for name in ("flush_extract", "hll_estimate"):
         for where, got in (("shards", launches_shards),
                            ("global", launches_global),
@@ -3349,7 +3969,8 @@ def main() -> int:
                 "launches_shards": launches_shards[name],
                 "launches_global": launches_global[name],
                 "launches_spans": launches_spans[name],
-                "launches_proxy": launches_proxy[name]}
+                "launches_proxy": launches_proxy[name],
+                "launches_query": launches_query[name]}
 
     source = "veneur_tpu_torch/csrc/flush_extract.cu"
     kernels = {"kernels": [{
@@ -3359,7 +3980,10 @@ def main() -> int:
         "ms": kres["ms"], "plain_ms": kres["plain_ms"],
         "bound_ms": kres["bound_ms"], "bound_by": kres["bound_by"],
         "library_ms": None, "rows_per_warp": ek.ROWS_PER_WARP,
-        "at_main_path": kres["at_main_path"]}]}
+        "at_main_path": kres["at_main_path"],
+        "wide": [{k: v for k, v in w.items() if k != "bitwise"}
+                 for w in wide
+                 if w["rows_per_warp"] == ek.ROWS_PER_WARP]}]}
     for v in variants:
         r = v["rows_per_warp"]
         kernels["kernels"].append({
@@ -3372,6 +3996,8 @@ def main() -> int:
             "bound_ms": v["bound_ms"], "bound_by": v["bound_by"],
             "library_ms": None, "rows_per_warp": r,
             "bitwise": v["bitwise"], "build": v["build"],
+            "wide": {k: x for w in wide if w["rows_per_warp"] == r
+                     for k, x in w.items() if k != "bitwise"},
             **{k: v.get(k) for k in (
                 "registers", "spill_stores", "spill_loads", "local_bytes",
                 "static_smem_bytes", "dynamic_smem_bytes",

@@ -1,7 +1,8 @@
 """The PyTorch port on the card: the flush extract kernel (the variant
 flush_extract launches, and every built variant) against its plain
 version, bitwise, at row counts around the kernel's chunk and block
-round, up to 1,000,003 rows, P = 1, 3 and 16, a row-offset view and the
+round, up to 1,000,003 rows, P = 1, 3 and 16 (the narrow kernel) and
+17, 32 and 64 (the wide one, quantile blocks of 16), a row-offset view and the
 edge rows of tools/port_probe_extract.edge_pool (denormal rows
 included); the HLL kernels against their plain versions, bytewise and in
 f32 bits, at p = 4, 8, 14 and 18 (tools/port_probe_hll cases: duplicate
@@ -18,7 +19,11 @@ mirror on the card, and micro-folded intervals against batch-folded ones
 on the card and the CPU; and the device guard under real faults
 (tools/port_guard_faults.py): an allocator OOM through the HBM valve,
 a device-side assert in a child process, an OOM among a spill fold's
-writes, and a set fault that moves the dense set pool alone.
+writes, and a set fault that moves the dense set pool alone; the live
+query path (the evaluator at the flush quantiles bitwise the flush's
+readback, every response the CPU worker's) and the tenant sketch (the
+count-min programs on the card bitwise the CPU's, a fenced pool
+unchanged after a later fold).
 
 Every test here is marked ``cuda`` and skips without a card. On a card
 machine (no JAX needed) run them with
@@ -90,7 +95,11 @@ def _pool(s: int, seed: int) -> list[torch.Tensor]:
 
 
 BIG = 1_000_003
-_QS = {1: [1.0], 3: [0.5, 0.9, 0.99], 16: list(np.linspace(0.0, 1.0, 16))}
+_QS = {1: [1.0], 3: [0.5, 0.9, 0.99], 16: list(np.linspace(0.0, 1.0, 16)),
+       17: list(np.linspace(0.0, 1.0, 17)),
+       32: list(np.linspace(0.0, 1.0, 32)),
+       64: list(np.random.default_rng(3).random(64))}
+PS = [1, 3, 16, 17, 32, 64]
 
 
 def _qs(p: int, dev) -> torch.Tensor:
@@ -120,7 +129,7 @@ def _edges(r: int) -> list[int]:
 
 @pytest.mark.parametrize("s", _edges(ek.ROWS_PER_WARP)
                          + [4099, 65536, 131_072, BIG])
-@pytest.mark.parametrize("p", [1, 3, 16])
+@pytest.mark.parametrize("p", PS)
 def test_kernel_bitwise_equals_plain(big, s, p):
     fields = [f[:s] for f in big[0]]
     before = ek.flush_extract.launches
@@ -131,7 +140,7 @@ def test_kernel_bitwise_equals_plain(big, s, p):
 
 
 @pytest.mark.parametrize("r", ek.VARIANTS)
-@pytest.mark.parametrize("p", [1, 3, 16])
+@pytest.mark.parametrize("p", PS)
 def test_every_variant_bitwise_equals_plain(big, r, p):
     for s in _edges(r) + [4099, BIG]:
         fields = [f[:s] for f in big[0]]
@@ -154,7 +163,7 @@ def test_row_offset_view(card, r):
 
 
 @pytest.mark.parametrize("r", ek.VARIANTS)
-@pytest.mark.parametrize("p", [1, 3, 16])
+@pytest.mark.parametrize("p", PS)
 def test_edge_rows(card, r, p):
     """Occupancy 0, 1, 127 and 128, equal means, denormal and huge
     weights, scans that are not monotone (tools/port_probe_extract)."""
@@ -170,10 +179,27 @@ def test_edge_rows(card, r, p):
 def test_kernel_refuses_what_it_cannot_take(card):
     fields = [f.to(card) for f in _pool(8, 1)]
     with pytest.raises(ValueError):
-        ek.flush_extract(*fields, torch.zeros(17, device=card))
+        ek.flush_extract(*fields, torch.zeros(0, device=card))
     wide = [torch.zeros((8, 256), device=card)] * 2 + fields[2:]
     with pytest.raises(ValueError):
         ek.flush_extract(*wide, torch.tensor([0.5], device=card))
+
+
+def test_quantile_columns_do_not_depend_on_p(big):
+    """A quantile's column is the same bits whatever else is asked: the
+    wide kernel's blocks (P = 17, 32, 64) against the narrow kernel
+    (P <= 16) on the same rows, one launch each."""
+    fields = [f[:131_072] for f in big[0]]
+    dev = fields[0].device
+    q64 = torch.tensor(_QS[64], dtype=torch.float32, device=dev)
+    before = ek.flush_extract.launches
+    wide = ek.flush_extract(*fields, q64)
+    for j0 in range(0, 64, 16):
+        narrow = ek.flush_extract(*fields, q64[j0:j0 + 16])
+        assert _bitwise(wide[:, j0:j0 + 16], narrow[:, :16]), j0
+        assert _bitwise(wide[:, 64:], narrow[:, 16:])
+    torch.cuda.synchronize()
+    assert ek.flush_extract.launches == before + 5
 
 
 def _lines(seed: int) -> list[bytes]:
@@ -970,3 +996,115 @@ def test_proxy_tier_card_globals_equal_cpu(card):
                     assert va.tobytes() == vb.tobytes(), (gi, f.name)
             for r in a.directory.histo.rows:
                 assert ring.get(r.key.key_string()) == f"global-{gi}:1"
+
+
+# -- the live query path and the tenant sketch --------------------------------
+
+
+def _query_worker(device, engine, budgets=None):
+    import functools
+
+    from veneur_tpu_torch.core.tenancy import TenantLedger, TenantSketch
+
+    w = tw.DeviceWorker(compression=100, stage_depth=16, batch_size=512,
+                        initial_histo_rows=64, initial_set_rows=16,
+                        device=device)
+    w.tenancy = TenantLedger(budgets=budgets or {"t2": 40})
+    w.tenant_sketch = TenantSketch(depth=4, width=2048, topk=8,
+                                   device=device)
+    w.query_publisher = functools.partial(engine.stage, 0)
+    return w
+
+
+def _query_lines(seed: int) -> list[bytes]:
+    rng = np.random.default_rng(seed)
+    out = []
+    for i in range(4000):
+        k = i % 300
+        out.append(f"qt{k}:{rng.gamma(2.0, 9.0):.4f}|ms|#tenant:t{k % 3}"
+                   .encode())
+        if i % 3 == 0:
+            out.append(f"qs{k % 50}:u{int(rng.integers(0, 900))}|s|"
+                       f"#tenant:t{k % 3}".encode())
+    return out
+
+
+def test_query_evaluator_is_the_flush_readback(card):
+    """A device query at the flush quantiles is bitwise what the flush
+    read back (K1 again over the retained fields); a 32-quantile request
+    launches K1 once and every response is the CPU worker's, byte for
+    byte."""
+    import json
+
+    from veneur_tpu_torch.core.flusher import device_quantiles
+    from veneur_tpu_torch.core.metrics import HistogramAggregates
+    from veneur_tpu_torch.query import QueryEngine
+
+    aggs = HistogramAggregates.from_names(["min", "max", "count", "sum"])
+    qs = device_quantiles([0.5, 0.9, 0.99], aggs)
+    engines, snaps = [], []
+    for dev in (card, "cpu"):
+        eng = QueryEngine([0.5, 0.9, 0.99], aggs, topk=8)
+        w = _query_worker(dev, eng)
+        for line in _query_lines(21):
+            w.process_metric(parse_metric(line))
+        snaps.append(w.flush(qs))
+        eng.commit(1_700_000_000)
+        engines.append(eng)
+    r = engines[0].query_quantiles(force_device=True, limit=10 ** 6)
+    got = torch.tensor([x["values"] for x in r["results"]],
+                       dtype=torch.float32)
+    assert _bitwise(got, torch.from_numpy(snaps[0].quantile_values))
+    q32 = [float(q) for q in np.linspace(0.0, 1.0, 32)]
+    before = ek.flush_extract.launches
+    reqs = [{"op": "quantiles", "qs": q32, "force_device": True,
+             "limit": 10 ** 6}, {"op": "quantiles", "qs": [0.3]},
+            {"op": "scalars"}, {"op": "cardinality"},
+            {"op": "topk", "tenant": "t1"}, {"op": "tenant_totals"},
+            {"op": "cms", "keys": [m.key.key_string() for m in
+                                   snaps[0].directory.histo.rows[:50]],
+             "tenant": "t0"}]
+    outs = [[json.dumps(e.dispatch(dict(q))) for q in reqs]
+            for e in engines]
+    assert ek.flush_extract.launches == before + 2  # P = 32 and P = 4
+    assert outs[0] == outs[1]
+
+
+def test_count_min_on_the_card_equals_the_cpu(card):
+    from veneur_tpu_torch.ops import heavyhitter as hh
+
+    rng = np.random.default_rng(5)
+    keys = [f"k{rng.integers(5000)}" for _ in range(20_000)]
+    rows = rng.integers(0, 16, len(keys)).astype(np.int32)
+    counts = rng.integers(1, 1 << 20, len(keys)).astype(np.int32)
+    cols = hh.split_hashes(hh.hash_keys(keys))
+    pools = [hh.insert_chunked(hh.init_pool(16, device=dev), rows, cols,
+                               counts, 4096) for dev in (card, "cpu")]
+    assert pools[0].device.type == "cuda"
+    assert torch.equal(pools[0].cpu(), pools[1])
+    assert torch.equal(hh.merge(pools[0], pools[0]).cpu(),
+                       hh.merge(pools[1], pools[1]))
+    assert torch.equal(hh.tenant_totals(pools[0]).cpu(),
+                       hh.tenant_totals(pools[1]))
+    for row in (0, 7):
+        assert np.array_equal(hh.read_query(pools[0], row, keys[:500]),
+                              hh.read_query(pools[1], row, keys[:500]))
+    assert np.array_equal(hh.read_totals(pools[0]),
+                          hh.read_totals(pools[1]))
+
+
+def test_fenced_pool_unchanged_after_a_later_fold(card):
+    from veneur_tpu_torch.core.tenancy import TenantSketch
+
+    sk = TenantSketch(depth=4, width=2048, topk=8, device=card)
+    keys = [f"series-{i}" for i in range(3000)]
+    counts = np.arange(1, 3001, dtype=np.int64)
+    sk.fold(["t0"] * 3000, keys, counts, chunk=1024)
+    view = sk.snapshot()
+    before = view.pool.clone()
+    sk.fold(["t0"] * 3000, keys, counts, chunk=1024)
+    torch.cuda.synchronize()
+    assert sk.pool is not view.pool
+    assert torch.equal(view.pool, before)
+    assert view.totals()["t0"] == int(counts.sum())
+    assert sk.totals()["t0"] == 2 * int(counts.sum())

@@ -238,6 +238,35 @@ def test_ptxas_report_parses_per_variant():
             "local_bytes": 24, "static_smem_bytes": 16}}
 
 
+_PTXAS_INTERLEAVED = """\
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125flush_extract_wide_kernelILi8EEEvNS_6FieldsEii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125flush_extract_wide_kernelILi8EEEvNS_6FieldsEii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 113 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120flush_extract_kernelILi8EEEvNS_6FieldsEii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120flush_extract_kernelILi8EEEvNS_6FieldsEii
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 105 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_125flush_extract_wide_kernelILi4EEEvNS_6FieldsEii' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_125flush_extract_wide_kernelILi4EEEvNS_6FieldsEii
+    8 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 72 registers, used 0 barriers, 8 bytes cumulative stack size
+"""
+
+
+def test_ptxas_report_keeps_narrow_and_wide_apart():
+    """Each kernel's figures end where the next function's section
+    starts: the wide r4 kernel's spills are not the narrow r8's."""
+    clean = {"spill_stores": 0, "spill_loads": 0, "local_bytes": 0,
+             "static_smem_bytes": 0}
+    assert ek.parse_ptxas(_PTXAS_INTERLEAVED) == {
+        8: {"registers": 105, **clean}}
+    assert ek.parse_ptxas(_PTXAS_INTERLEAVED, wide=True) == {
+        8: {"registers": 113, **clean},
+        4: {"registers": 72, "spill_stores": 4, "spill_loads": 4,
+            "local_bytes": 8, "static_smem_bytes": 0}}
+
+
 def test_variant_entry_takes_cuda_tensors_only():
     fields = [torch.from_numpy(f) for f in _fields(8, 1)]
     qs = torch.tensor([0.5])

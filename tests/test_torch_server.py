@@ -177,6 +177,32 @@ def test_unported_key_refused_by_name(key, value):
             for s in built:
                 s.shutdown()
         return
+    if key in ("tenant_default_budget", "query_listen_addrs"):
+        # tenancy and the live query path are ported: the port builds the
+        # ledger, and the query engine whose fronts bind at start(), as
+        # the JAX server does (tests/test_torch_tenancy.py,
+        # tests/test_torch_query.py)
+        from veneur_tpu.core.factory import build_server as jbuild
+
+        built = [jbuild(jload(data=data)),
+                 build_server(tload(data=data), device="cpu")]
+        try:
+            if key == "tenant_default_budget":
+                for s in built:
+                    assert s.tenant_ledger.default_budget == value
+                    assert all(w.tenancy is s.tenant_ledger
+                               and w.tenant_sketch is not None
+                               for w in s.workers)
+            else:
+                ports = [s._start_query_listeners() for s in built]
+                assert [sorted(p) for p in ports] == [value] * 2
+                assert all(p[value[0]] > 0 for p in ports)
+                assert all(len(s._query_servers) == 1
+                           and s.query_engine is not None for s in built)
+        finally:
+            for s in built:
+                s.shutdown()
+        return
     with pytest.raises(UnportedConfigError, match=key):
         build_server(tload(data=data), device="cpu")
 

@@ -22,6 +22,11 @@ fastest while bitwise equal to the plain version. For every variant R
   launch queued behind a spin so the host's launch cost is not timed),
   and that time's share of the memory bound.
 
+Then, for the wide kernel of every variant (any P, quantile blocks of
+16): its ptxas report, bitwise equality with the plain version at
+S = 1,000,003 and P = 32 (and, for the variant flush_extract launches,
+P = 17 and 64), and the median times at P = 32 for S = 131,072 and
+1,048,576 beside the narrow kernel's at P = 3 for the same S.
 Then the fastest variant that is bitwise and spill-free, and, as a
 yardstick of the card's read rate, ``torch.sum`` over means and weights.
 Before all that, ``cuobjdump -sass`` of the library: how many of the
@@ -49,6 +54,10 @@ ROOT = Path(__file__).resolve().parent.parent
 S_CHECK = 1_000_003
 S_TIME = 1_048_576
 QS = [0.5, 0.9, 0.99]
+# the wide kernel: P past the narrow kernel's 16, timed at these rows
+WIDE_P = 32
+WIDE_CHECK_P = (17, 32, 64)
+WIDE_TIME_S = (131_072, S_TIME)
 REPS = 21
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM data sheet
 F32_FLOPS_PER_S = 67e12  # H100 SXM, f32 outside the tensor cores
@@ -325,6 +334,68 @@ def probe_variants(fields, qs, plain_check=None) -> list[dict]:
     return out
 
 
+def wide_qs(p: int, dev):
+    """P quantiles in [0, 1] (a seeded draw, the ends included)."""
+    import numpy as np
+    import torch
+
+    q = np.sort(np.random.default_rng(p).random(p)).astype(np.float32)
+    q[0], q[-1] = 0.0, 1.0
+    return torch.from_numpy(q).to(dev)
+
+
+def probe_wide(fields) -> list[dict]:
+    """The wide kernel of every variant (see the module docstring);
+    ``fields`` as for probe_variants."""
+    import torch
+
+    from veneur_tpu_torch.ops import extract_kernel as ek
+
+    dev = fields[0].device
+    sub = [f[:S_CHECK] for f in fields]
+    report = ek.build_report(wide=True)
+    q3 = torch.tensor(QS, dtype=torch.float32, device=dev)
+    out = []
+    plain = {}
+    for r in ek.VARIANTS:
+        v = {"rows_per_warp": r, **report.get(r, {}),
+             "blocks_per_sm": ek.blocks_per_sm(r, dev, wide=True)}
+        ps = WIDE_CHECK_P if r == ek.ROWS_PER_WARP else (WIDE_P,)
+        v["bitwise"] = {}
+        for p in ps:
+            qs = wide_qs(p, dev)
+            if p not in plain:
+                plain[p] = ek.flush_extract_plain(*sub, qs)
+            got = ek._flush_extract_variant(r, *sub, qs)
+            torch.cuda.synchronize()
+            v["bitwise"][p], v[f"max_abs_err_p{p}"] = bitwise_equal(
+                got, plain[p])
+            del got
+        q32 = wide_qs(WIDE_P, dev)
+        for s in WIDE_TIME_S:
+            rows = [f[:s] for f in fields]
+            b_ms, b_by = bound(s, WIDE_P)
+            v[f"ms_p{WIDE_P}_s{s}"] = cuda_ms(
+                lambda: ek._flush_extract_variant(r, *rows, q32), REPS,
+                spin_cycles=2_000_000)
+            v[f"ms_p3_s{s}"] = cuda_ms(
+                lambda: ek._flush_extract_variant(r, *rows, q3), REPS,
+                spin_cycles=2_000_000)
+            v[f"bound_ms_p{WIDE_P}_s{s}"] = b_ms
+            v[f"bound_by_p{WIDE_P}_s{s}"] = b_by
+        log(f"[probe] wide r{r}: {v.get('registers', '?')} registers, "
+            f"{v.get('spill_stores', '?')} B spill stores, "
+            f"{v.get('spill_loads', '?')} B spill loads, "
+            f"{v.get('local_bytes', '?')} B local, "
+            f"{v['blocks_per_sm']} blocks per SM; bitwise at S={S_CHECK} "
+            f"{v['bitwise']}; " + "; ".join(
+                f"S={s}: P={WIDE_P} {v[f'ms_p{WIDE_P}_s{s}']:.4f} ms "
+                f"(bound {v[f'bound_ms_p{WIDE_P}_s{s}']:.4f}), P=3 "
+                f"{v[f'ms_p3_s{s}']:.4f} ms" for s in WIDE_TIME_S))
+        out.append(v)
+    return out
+
+
 def read_yardstick(fields) -> dict:
     """torch.sum over means and weights at S_TIME rows: the card's
     practical read rate for the extract's bytes."""
@@ -424,7 +495,9 @@ def main() -> int:
     card = card_line()
     log(f"[probe] card: {card}")
     ek.load()
-    sass = {"this": sass_ftz(ek.library_path(), "flush_extract_kernel")}
+    sass = {"this": sass_ftz(ek.library_path(), "flush_extract_kernel"),
+            "this_wide": sass_ftz(ek.library_path(),
+                                  "flush_extract_wide_kernel")}
     if args.against:
         oek, = load_other(args.against.resolve(), "ops.extract_kernel")
         oek.load()
@@ -440,16 +513,19 @@ def main() -> int:
               for a in make_pool(S_TIME, seed=11)]
     qs = torch.tensor(QS, dtype=torch.float32, device="cuda")
     variants = probe_variants(fields, qs)
+    wide = probe_wide(fields)
     yard = read_yardstick(fields)
     against = time_against(args.against.resolve(), fields, qs) \
         if args.against else None
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(
-            {"card": card, "variants": variants, "yardstick": yard,
+            {"card": card, "variants": variants, "wide": wide,
+             "yardstick": yard,
              "against": against, "sass_ftz": sass}, indent=1))
     print(json.dumps({"card": card, "variants": variants}), flush=True)
-    return 0 if any(v["bitwise"] for v in variants) else 1
+    wide_ok = all(all(v["bitwise"].values()) for v in wide)
+    return 0 if any(v["bitwise"] for v in variants) and wide_ok else 1
 
 
 if __name__ == "__main__":

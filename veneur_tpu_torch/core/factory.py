@@ -54,6 +54,13 @@ proxy tier's ``SpreadForwarder`` (distributed/spread.py); ``grpc_address``
 and ``http_address`` start the import servers. The proxy itself runs as
 ``python -m veneur_tpu_torch.cli.proxy_main -f proxy.yaml``.
 
+Per-tenant QoS and the live query path are ported: the server builds
+the tenant ledger and sketches from ``tenant_default_budget`` and
+``tenant_budgets`` (with ``tenant_tag_key``, ``tenant_sketch_depth``,
+``tenant_sketch_width``, ``tenant_topk``), and the query engine from
+``query_listen_addrs``, whose fronts bind at ``start()``, as the JAX
+server does.
+
 Sets are ported: both set stores (``tpu_set_store: staged | dense``),
 both set hashes (``set_hash: fnv | metro``), every ``tpu_hll_precision``
 the config accepts (4 to 18) and ``count_unique_timeseries`` load as
@@ -86,11 +93,6 @@ REFUSED_KEYS = {
     "tpu_mesh_devices": lambda v: v > 1,
     "flush_pipeline": _on,
     "flush_chunk_target_ms": lambda v: v > 0,
-    # tenancy budgets
-    "tenant_default_budget": lambda v: v > 0,
-    "tenant_budgets": _on,
-    # query listeners
-    "query_listen_addrs": _on,
     # archive and plugins
     "archive_dir": _on,
     "archive_blob_bucket": _on,

@@ -65,12 +65,24 @@ is itself a span (``tracer``) that rejoins this server's span pipeline
 and derives at the next flush, as in the JAX package. DogStatsD also
 arrives over TCP (TLS, mutual TLS) and unixgram.
 
-Not in this slice (the factory refuses their config keys): proxies and
-multi-destination forwarding, query listeners, tenancy, the flush
+Per-tenant QoS (``tenant_default_budget``, ``tenant_budgets``): one
+``TenantLedger`` shared by the workers admits each new series against its
+tenant's budget, and each worker folds a ``TenantSketch`` (count-min pool
+on the device, host top-k) at its flush; the flush counts
+``tenant.samples_rejected_total`` and ``tenant.overload_dropped_total``
+and sets the ``tenant.*`` gauges, and every delivery manager's spill
+evicts over-budget tenants' payloads first. The live query path
+(``query_listen_addrs``: ``http://`` and ``grpc://``): each worker's
+extraction stages its epoch view in ``query_engine``, committed as one
+epoch after every worker extracted; ``start()`` binds the fronts
+(query/http.py, query/service.py).
+
+Not in this slice (the factory refuses their config keys): the flush
 pipeline, plugins, the Kafka, Splunk, X-Ray, LightStep and falconer span
 sinks, self-telemetry (so the unique-timeseries tally, the guard's
-counters, the sinks', the forwarder's and the span path's counts are
-kept, not sent: ``stats`` keeps the counters the JAX package sends).
+counters, the sinks', the forwarder's, the span path's, the tenants' and
+the queries' counts are kept, not sent: ``stats`` keeps the counters and
+the last value of each gauge the JAX package sends).
 """
 
 from __future__ import annotations
@@ -142,15 +154,17 @@ class EventWorker:
 
 
 class KeptCounts:
-    """The counters the JAX package sends as self-telemetry (its
-    ``stats.count``), kept in the process: ``stats_address`` is not
-    ported. ``totals()`` maps (name, tags) to a counter's lifetime sum.
-    The gauges and timings the copied forward and import modules report
-    through the same client are dropped."""
+    """The counters and gauges the JAX package sends as self-telemetry
+    (its ``stats.count`` and ``stats.gauge``), kept in the process:
+    ``stats_address`` is not ported. ``totals()`` maps (name, tags) to a
+    counter's lifetime sum, ``gauges()`` to a gauge's last value. The
+    timings the copied forward and import modules report through the
+    same client are dropped."""
 
     def __init__(self) -> None:
         self._lock = threading.Lock()
         self._totals: dict[tuple[str, tuple[str, ...]], float] = {}
+        self._gauges: dict[tuple[str, tuple[str, ...]], float] = {}
 
     def count(self, name: str, value, tags=None) -> None:
         k = (name, tuple(tags or ()))
@@ -158,13 +172,21 @@ class KeptCounts:
             self._totals[k] = self._totals.get(k, 0) + value
 
     def gauge(self, name: str, value, tags=None) -> None:
+        with self._lock:
+            self._gauges[(name, tuple(tags or ()))] = value
+
+    def histogram(self, name: str, value, tags=None) -> None:
         pass
 
-    histogram = time_in_nanoseconds = gauge
+    time_in_nanoseconds = histogram
 
     def totals(self) -> dict[tuple[str, tuple[str, ...]], float]:
         with self._lock:
             return dict(self._totals)
+
+    def gauges(self) -> dict[tuple[str, tuple[str, ...]], float]:
+        with self._lock:
+            return dict(self._gauges)
 
 
 class _SpanPipelineClient:
@@ -213,11 +235,58 @@ class Server:
             )
             for _ in range(cfg.num_workers)
         ]
-        # each flush may inherit at most half an interval of spill-fold
+        # the flush governor (health/governor.py), built as the JAX server
+        # builds it; the port wires only its per-tenant shed attribution.
+        # Each flush may inherit at most half an interval of spill-fold
         # work (swap sheds the excess, counted)
+        from veneur_tpu_torch.health import FlushDeadlineGovernor
+
+        self.flush_governor = FlushDeadlineGovernor(
+            chunk_target_ms=cfg.flush_chunk_target_ms,
+            interval_s=self.interval)
         for w in self.workers:
             w.fold_budget_s = 0.5 * self.interval
+            w.governor = self.flush_governor
         self._worker_locks = [threading.Lock() for _ in self.workers]
+        # per-tenant QoS (core/tenancy.py): one series-budget ledger shared
+        # by the workers (a tenant's budget is host-wide) and a sketch per
+        # worker on its device. Dormant, and the flush bitwise as without
+        # it, unless a budget is set
+        self.tenant_ledger = None
+        self._tenant_reported: dict = {}
+        if cfg.tenant_default_budget > 0 or cfg.tenant_budgets:
+            from veneur_tpu_torch.core.tenancy import (TenantLedger,
+                                                       TenantSketch)
+
+            self.tenant_ledger = TenantLedger(
+                default_budget=cfg.tenant_default_budget,
+                budgets=cfg.tenant_budgets,
+                tag_key=cfg.tenant_tag_key)
+            for w in self.workers:
+                w.tenancy = self.tenant_ledger
+                w.tenant_sketch = TenantSketch(
+                    depth=cfg.tenant_sketch_depth,
+                    width=cfg.tenant_sketch_width,
+                    topk=cfg.tenant_topk, device=w.device)
+        # the live query path (veneur_tpu_torch/query/): each worker's
+        # extraction stages its epoch view; the flush commits all of them
+        # as one epoch after the extract loop (no torn cross-worker read)
+        self.query_engine = None
+        self._query_servers: list = []
+        self._query_reported = (0, 0)  # (served, failed) at last report
+        if cfg.query_listen_addrs:
+            import functools
+
+            from veneur_tpu_torch.query import QueryEngine
+
+            self.query_engine = QueryEngine(
+                percentiles=self.percentiles,
+                aggregates=self.aggregates,
+                is_local=self.is_local,
+                topk=cfg.tenant_topk)
+            for i, w in enumerate(self.workers):
+                w.query_publisher = functools.partial(
+                    self.query_engine.stage, i)
         # the unique-timeseries tally's own guard: its faults count apart
         # from every worker's streak, and each flush tries the card again
         self._tally_guard = DeviceGuard(
@@ -1252,11 +1321,42 @@ class Server:
             # the same spec on both lists: the SSF port does not shadow
             # the statsd one
             ports["ssf:" + spec if spec in ports else spec] = port
+        ports.update(self._start_query_listeners())
         self._spawn(self._flush_loop, "flush-ticker")
         if self.config.micro_fold:
             self._spawn(self._micro_fold_loop, "micro-fold")
         if self.native_mode:
             self._spawn(self._series_sync_loop, "series-sync")
+        return ports
+
+    def _start_query_listeners(self) -> dict[str, int]:
+        """Bind the live query fronts (``query_listen_addrs``): http://
+        serves /metrics, /query and /healthz, grpc:// serves
+        veneurtpu.Query/Query. A front that fails to bind is logged and
+        skipped: ingest goes on. Returns {spec: bound port}."""
+        ports: dict[str, int] = {}
+        if self.query_engine is None:
+            return ports
+        for spec in self.config.query_listen_addrs:
+            scheme, _, hostport = spec.partition("://")
+            try:
+                if scheme == "grpc":
+                    from veneur_tpu_torch.query.service import (
+                        make_query_server)
+
+                    server, port = make_query_server(
+                        self.query_engine, hostport)
+                else:
+                    from veneur_tpu_torch.query.http import make_http_server
+
+                    server, port = make_http_server(
+                        self.query_engine, hostport)
+            except Exception:
+                log.exception("query listener %s failed to start", spec)
+                continue
+            self._query_servers.append((scheme, server))
+            ports[spec] = port
+            log.info("query listener on %s (port %d)", spec, port)
         return ports
 
     def _attach_journals(self) -> None:
@@ -1442,6 +1542,8 @@ class Server:
                         span_counts[svc] = span_counts.get(svc, 0) + n
                         self._spans_native_total += n
                 swapped.append(worker.swap(qs))
+                if self.tenant_ledger is not None:
+                    self._count_tenant_tallies(i, worker)
         # lines and SSF payloads the contexts handed back at epoch close
         # belong to the new epoch; handled outside the worker locks (they
         # re-enter _route)
@@ -1465,6 +1567,10 @@ class Server:
             # CPU, probe, re-admission): under the ingest lock
             with self._worker_locks[i]:
                 worker.device_guard_tick()
+        if self.query_engine is not None:
+            # after every worker extracted: the query surface flips to
+            # the new epoch at once across workers
+            self.query_engine.commit(int(flush_start))
         phases["extract_s"] = time.perf_counter() - _t
 
         # generation: columnar whenever a metric sink exists (sinks that
@@ -1526,11 +1632,56 @@ class Server:
             th.join(timeout=self.interval)
         if threads:
             phases["sink_flush_s"] = time.perf_counter() - _t
+        if self.tenant_ledger is not None:
+            # tenant-aware spill eviction (sinks/delivery.py), wired after
+            # each flush's emission (as the JAX server does) so sinks
+            # attached after construction get it too
+            for _rname, man in self._delivery_managers():
+                if man.abusive_tenants is None:
+                    man.abusive_tenants = self.tenant_ledger.over_budget
         if self.config.count_unique_timeseries:
             self.last_unique_timeseries = self._tally_timeseries(snaps)
         self._count_span_telemetry(span_counts)
+        if self.query_engine is not None:
+            served = self.query_engine.queries_served
+            failed = self.query_engine.queries_failed
+            if served - self._query_reported[0]:
+                self.stats.count("query.served_total",
+                                 served - self._query_reported[0])
+            if failed - self._query_reported[1]:
+                self.stats.count("query.errors_total",
+                                 failed - self._query_reported[1])
+            self._query_reported = (served, failed)
+        led = self.tenant_ledger
+        if led is not None:
+            # which tenant spends the cardinality budget: live and refused
+            # series from the shared ledger, shed samples from the governor
+            for t, n in led.live_counts().items():
+                self.stats.gauge("tenant.series_live", float(n),
+                                 tags=[f"tenant:{t}"])
+            for t, n in led.series_rejected_counts().items():
+                self.stats.gauge("tenant.series_rejected", float(n),
+                                 tags=[f"tenant:{t}"])
+            for t, n in self.flush_governor.tenant_shed_counts().items():
+                self.stats.gauge("tenant.shed_samples", float(n),
+                                 tags=[f"tenant:{t}"])
         self.last_flush_phases = phases
         return batch if batch is not None else final
+
+    def _count_tenant_tallies(self, i: int, worker: DeviceWorker) -> None:
+        """Per-tenant refusals and sheds as deltas of worker i's lifetime
+        tallies, read just after its swap (which folded the closing
+        epoch, swap-time sheds included, into the totals). Caller holds
+        the worker's lock."""
+        life = worker.tenant_lifetime()
+        for kind, stat in (("rejected", "tenant.samples_rejected_total"),
+                           ("dropped", "tenant.overload_dropped_total")):
+            for t, total in life[kind].items():
+                k = (i, kind, t)
+                delta = total - self._tenant_reported.get(k, 0)
+                if delta:
+                    self._tenant_reported[k] = total
+                    self.stats.count(stat, delta, tags=[f"tenant:{t}"])
 
     def _count_span_telemetry(self, span_counts: dict[str, int]) -> None:
         """The span path's counters of this flush, as the JAX package
@@ -1716,6 +1867,16 @@ class Server:
             self.import_server.stop()
         if self.import_http is not None:
             self.import_http.stop()
+        for scheme, server in self._query_servers:
+            try:
+                if scheme == "grpc":
+                    server.stop(grace=0.5)
+                else:
+                    server.shutdown()
+                    server.server_close()
+            except Exception:
+                log.exception("query listener (%s) failed to stop", scheme)
+        self._query_servers.clear()
         for journal in self._journals.values():
             # final durability point: whatever is still spilled survives
             # for the next incarnation's recovery

@@ -66,8 +66,24 @@ op: digest rows through ``_histo_import_step`` (one compress over
 [K, C + W]), HLL rows of the dense pool by a row max (the staged store
 merges its own at the flush).
 
+Per-tenant QoS (core/tenancy.py), installed by the server when budgets
+are configured: a shared ``TenantLedger`` admits each new series on
+every ingest path (the Python path refuses the sample before a row
+exists; the native and reader-shard paths keep the row C++ assigned and
+mark it ``admitted=False``, which the flusher skips), the epoch's
+per-tenant tallies fold into lifetime totals at the swap, the spill shed
+takes over-budget tenants first, and a ``TenantSketch`` (count-min pool
+on this worker's device, host top-k) folds each flush's per-series
+counts.
+
+The live query view: with a ``query_publisher`` wired, extract_snapshot
+ends by handing it the epoch's snapshot, a device evaluator closed over
+the retained post-fold field tensors (``_make_query_eval``: the flush
+extract again, at any quantile vector, under the guard's ``query`` op)
+and a fenced sketch view.
+
 Not in this slice (config refuses them, see core/factory.py): series
-sharding, tenancy, the query view, the mesh.
+sharding, the mesh.
 """
 
 from __future__ import annotations
@@ -85,7 +101,9 @@ from veneur_tpu_torch.core.columnar import unpack_extract_columns
 from veneur_tpu_torch.core.directory import (RowMeta, ScopeClass,
                                              SeriesDirectory, build_frag,
                                              classify)
-from veneur_tpu_torch.core.metrics import MetricKey, UDPMetric, route_info
+from veneur_tpu_torch.core.metrics import (DEFAULT_TENANT, MetricKey,
+                                           UDPMetric, route_info, tenant_of)
+from veneur_tpu_torch.core.tenancy import TenantTallies
 from veneur_tpu_torch.device import resolve
 from veneur_tpu_torch.ops import device_guard as dg
 from veneur_tpu_torch.ops import exactnum as exn
@@ -110,6 +128,13 @@ _FOLD_CHUNK = 1 << 18
 # under this skip the allocation pre-flight, which a kB-scale grow cannot
 # need
 _GROW_PREFLIGHT_MIN_BYTES = 4 << 20
+
+
+def _series_budget_id(scope_class: ScopeClass, key: MetricKey) -> str:
+    """The tenant ledger's series identity: distinct (key, scope_class)
+    pairs occupy distinct rows (see SeriesDirectory), so each consumes
+    budget separately."""
+    return f"{int(scope_class)}\x1f{key.key_string()}"
 
 
 def _next_pow2(n: int, floor: int = 1) -> int:
@@ -790,6 +815,26 @@ class DeviceWorker:
         self._micro_fault_epoch = False
         # flushes that ran some of their device work on the CPU
         self.host_fallback_flushes = 0
+        # per-tenant shed attribution (health/governor.py), set by the
+        # server; the rest of the governor is not ported
+        self.governor = None
+        # per-tenant QoS (core/tenancy.py), installed by the server when
+        # budgets are configured; None keeps every tenant path dormant.
+        # The ledger is shared across workers (admission is a host-wide
+        # decision: a tenant's series spread across workers by digest)
+        self.tenancy = None
+        self.tenant_sketch = None
+        # the live query view (veneur_tpu_torch/query/): with a publisher
+        # wired, extract_snapshot hands it the epoch's snapshot, a device
+        # evaluator over the retained post-fold fields and a fenced sketch
+        # view; the server commits every worker's view as one epoch. None
+        # retains nothing
+        self.query_publisher = None
+        self.query_epoch_seq = 0
+        # per-epoch and lifetime per-tenant sample tallies; the epoch's
+        # fold into the totals at the swap (the processed_total pattern)
+        self.tenant_tallies = TenantTallies()
+        self.tenant_tallies_total = TenantTallies()
         self._reset_epoch()
 
     @property
@@ -836,6 +881,9 @@ class DeviceWorker:
         self._ctx_maps = [tuple(array("i") for _ in range(4))
                           for _ in range(1 + len(self._reader_ctxs))]
         self._processed_py = 0
+        # the swap folded the epoch's tallies into the lifetime totals
+        # before this reset
+        self.tenant_tallies.reset()
         self.directory = SeriesDirectory()
         self.scalars = HostScalars()
         self._micro_fault_epoch = False
@@ -963,6 +1011,24 @@ class DeviceWorker:
         self.processed += 1
         mtype = m.key.type
         scope_class = classify(mtype, m.scope)
+        tenant = ""
+        if self.tenancy is not None:
+            # budgeted admission (core/tenancy.py): a sample for a series
+            # the ledger refuses is rejected here, before any row exists;
+            # admitted series always pass (the ledger is idempotent).
+            # Status checks are never budgeted
+            tenant = tenant_of(m.tags, self.tenancy.tag_key)
+            tt = self.tenant_tallies
+            tt.accepted[tenant] = tt.accepted.get(tenant, 0) + 1
+            # reader-shard mode takes this branch too: its Python-path
+            # series live in the Python pools (the canonical row space)
+            if ((self._native is None or self._reader_ctxs)
+                    and mtype != "status"):
+                if not self._admit_sample(tenant, m.key, scope_class,
+                                          mtype):
+                    tt.rejected[tenant] = tt.rejected.get(tenant, 0) + 1
+                    return
+                tt.kept[tenant] = tt.kept.get(tenant, 0) + 1
         if self._umts is not None and self._should_count_timeseries(
                 mtype, scope_class):
             self._insert_timeseries(m.digest)
@@ -972,7 +1038,7 @@ class DeviceWorker:
         elif mtype == "gauge":
             self._host_gauge(m.key, scope_class, m.tags, float(m.value))
         elif mtype in ("histogram", "timer"):
-            row = self._upsert_histo(m.key, scope_class, m.tags)
+            row = self._upsert_histo(m.key, scope_class, m.tags, tenant)
             self._ensure_histo(max(self.directory.num_histo_rows, row + 1))
             self._ph_rows.append(row)
             self._ph_vals.append(float(m.value))
@@ -980,7 +1046,7 @@ class DeviceWorker:
             if len(self._ph_rows) >= self.batch_size:
                 self._flush_pending_histos()
         elif mtype == "set":
-            row = self._upsert_set(m.key, scope_class, m.tags)
+            row = self._upsert_set(m.key, scope_class, m.tags, tenant)
             self._ensure_sets(max(self.directory.num_set_rows, row + 1))
             h = self._set_hash64(str(m.value).encode("utf-8"))
             idx, rank = hll_ops.split_hashes(
@@ -993,8 +1059,26 @@ class DeviceWorker:
         elif mtype == "status":
             self._host_status(m)
 
+    def _admit_sample(self, tenant: str, key: MetricKey,
+                      scope_class: ScopeClass, mtype: str) -> bool:
+        """Python-path budget gate: a series already rowed this epoch was
+        admitted (refused series never get rows here); otherwise ask the
+        shared ledger, which is free for admitted series and takes budget
+        only for new ones."""
+        if mtype in ("histogram", "timer"):
+            index = self.directory.histo.index
+        elif mtype == "set":
+            index = self.directory.sets.index
+        elif mtype == "counter":
+            index = self.scalars.counters.index
+        else:
+            index = self.scalars.gauges.index
+        if (key, scope_class) in index:
+            return True
+        return self.tenancy.admit(tenant, _series_budget_id(scope_class, key))
+
     def _upsert_histo(self, key: MetricKey, scope_class: ScopeClass,
-                      tags: list[str]) -> int:
+                      tags: list[str], tenant: str = "") -> int:
         # in reader-shard mode the canonical row space is the Python
         # directory: a native upsert would hand back a context-local row
         if self._native is not None and not self._reader_ctxs:
@@ -1006,18 +1090,20 @@ class DeviceWorker:
             if self._native.pending_new_series >= 1024:
                 self.sync_native_series()
             return row
-        row, _ = self.directory.upsert_histo(key, scope_class, tags)
+        row, _ = self.directory.upsert_histo(key, scope_class, tags,
+                                             tenant=tenant)
         return row
 
     def _upsert_set(self, key: MetricKey, scope_class: ScopeClass,
-                    tags: list[str]) -> int:
+                    tags: list[str], tenant: str = "") -> int:
         if self._native is not None and not self._reader_ctxs:
             row = self._native.upsert(key.name, "set", key.joined_tags,
                                       int(scope_class))
             if self._native.pending_new_series >= 1024:
                 self.sync_native_series()
             return row
-        row, _ = self.directory.upsert_set(key, scope_class, tags)
+        row, _ = self.directory.upsert_set(key, scope_class, tags,
+                                           tenant=tenant)
         return row
 
     def _should_count_timeseries(self, mtype: str, cls: ScopeClass) -> bool:
@@ -1209,9 +1295,21 @@ class DeviceWorker:
                 key = MetricKey(name=name, type=NativeIngest.TYPE_BY_KIND[kind],
                                 joined_tags=joined)
                 tags = joined.split(",") if joined else []
+                tenant = ""
+                admitted = True
+                if self.tenancy is not None:
+                    # the native budget gate: C++ already assigned the
+                    # row, so a refused series keeps it, marked
+                    # admitted=False (the flusher skips it); the decision
+                    # caches with the RowMeta (admission is per series
+                    # lifetime)
+                    tenant = tenant_of(tags, self.tenancy.tag_key)
+                    admitted = self.tenancy.admit(
+                        tenant, _series_budget_id(ScopeClass(scope), key))
                 meta = RowMeta(key=key, tags=tags,
                                scope_class=ScopeClass(scope),
-                               sinks=route_info(tags))
+                               sinks=route_info(tags),
+                               tenant=tenant, admitted=admitted)
                 if len(cache) >= 4_000_000:
                     # unbounded series churn: drop the cache rather than
                     # grow without limit
@@ -1243,7 +1341,8 @@ class DeviceWorker:
                            else self.scalars.gauges)
                 scalars.adopt_row(row, meta.key, meta.tags,
                                   meta.scope_class, meta.sinks,
-                                  frag=meta.wire_frag())
+                                  frag=meta.wire_frag(),
+                                  admitted=meta.admitted)
 
     def sync_native_series(self) -> None:
         """Adopt pending new-series registrations mid-epoch, so swap only
@@ -1449,7 +1548,10 @@ class DeviceWorker:
     def _shed_spill_budget(self, spill_histo):
         """Bound the spill-fold work a flush inherits: past what the
         measured fold rate absorbs in ``fold_budget_s`` the oldest samples
-        shed (the newest kept), counted as overload drops."""
+        shed (the newest kept), counted as overload drops. With a tenant
+        ledger the over-budget tenants' samples shed first
+        (health/policy.shed_spill_keep), attributed per tenant in the
+        epoch's tallies and on the governor."""
         if spill_histo is None:
             return None
         budget = max(_FOLD_CHUNK,
@@ -1460,7 +1562,34 @@ class DeviceWorker:
         shed = total - budget
         self.overload_dropped += shed
         self.overload_dropped_total += shed
-        return tuple(a[-budget:] for a in spill_histo)
+        led = self.tenancy
+        if led is None:
+            return tuple(a[-budget:] for a in spill_histo)
+        # with no over-budget tenant the keep set is the slice above
+        from veneur_tpu_torch.health.policy import shed_spill_keep
+
+        sp_rows = spill_histo[0]
+        row_tenants = np.array(
+            [m.tenant or DEFAULT_TENANT for m in self.directory.histo.rows],
+            dtype=object)
+        abusive = led.over_budget()
+        if abusive:
+            is_abusive = np.isin(row_tenants[sp_rows],
+                                 np.array(sorted(abusive), dtype=object))
+            keep = shed_spill_keep(is_abusive, budget)
+        else:
+            keep = np.arange(total - budget, total, dtype=np.int64)
+        drop_mask = np.ones(total, bool)
+        drop_mask[keep] = False
+        t_list, t_counts = np.unique(row_tenants[sp_rows[drop_mask]],
+                                     return_counts=True)
+        tt = self.tenant_tallies
+        gov = self.governor
+        for t, c in zip(t_list.tolist(), t_counts.tolist()):
+            tt.dropped[t] = tt.dropped.get(t, 0) + int(c)
+            if gov is not None:
+                gov.note_tenant_shed(t, int(c))
+        return tuple(a[keep] for a in spill_histo)
 
     # -- micro-folds --------------------------------------------------------
 
@@ -2276,10 +2405,18 @@ class DeviceWorker:
             spill_histo=spill_histo, micro_residual=micro_residual,
             reader_planes=reader_planes, micro_replay=micro_replay,
             host=self._host_live)
+        # the per-tenant lifetime fold, under the caller's ingest lock and
+        # before the reset zeroes the epoch's tallies
+        self.tenant_tallies.accumulate_into(self.tenant_tallies_total)
         self.processed = 0
         self.imported = 0
         self._reset_epoch()
         return swapped
+
+    def tenant_lifetime(self) -> dict:
+        """Lifetime + current-epoch per-tenant tallies as plain dicts.
+        Caller holds this worker's ingest lock."""
+        return self.tenant_tallies_total.merged_with(self.tenant_tallies)
 
     def _fold_one_plane(self, fields: tuple, pending: list, s_eff: int,
                         call) -> tuple:
@@ -2448,13 +2585,17 @@ class DeviceWorker:
             phases["reader_merge_s"] = time.perf_counter() - t0
         self.last_plane_upload_bytes = 0
         self.last_micro_chunks = self.last_micro_bytes = 0
+        # the fully folded fields the extract read, kept for the query view
+        view_fields = None
         if swapped.histo is not None and swapped.directory.num_histo_rows:
             try:
-                self._extract_histo(snap, swapped, pending, spill,
-                                    quantiles, phases, mark_degraded)
+                view_fields = self._extract_histo(
+                    snap, swapped, pending, spill, quantiles, phases,
+                    mark_degraded)
             finally:
                 # an upload or fold failure must not leak the C++ planes
                 _free_staged_planes(pending)
+            self._fold_tenant_sketch(snap, phases)
         else:
             _free_staged_planes(pending)
             if spill is not None and len(spill[0]):
@@ -2469,24 +2610,102 @@ class DeviceWorker:
             self._extract_sets(snap, swapped, phases, mark_degraded)
             phases["sets_s"] = time.perf_counter() - t0
         self.last_extract_phases = phases
+        pub = self.query_publisher
+        if pub is not None:
+            # publish the epoch's read view; a failed publish leaves the
+            # query surface one interval stale, never fails the flush
+            self.query_epoch_seq += 1
+            sk = self.tenant_sketch
+            try:
+                pub(self.query_epoch_seq, snap,
+                    self._make_query_eval(view_fields),
+                    sk.snapshot() if sk is not None else None)
+            except Exception:
+                log.exception("query view publish failed")
         return snap
+
+    def _fold_tenant_sketch(self, snap: FlushSnapshot, phases: dict) -> None:
+        """The heavy-hitter fold (core/tenancy.TenantSketch): one
+        (tenant, series key, folded sample count) triple per histogram
+        series, scatter-added into the count-min pool on the device. On
+        a degraded flush it is best effort: one interval of heavy-hitter
+        attribution is expendable, the flush is not."""
+        sk = self.tenant_sketch
+        n = snap.directory.num_histo_rows
+        if sk is None or not n:
+            return
+        t0 = time.perf_counter()
+        hrows = snap.directory.histo.rows
+        tenants = [m.tenant or DEFAULT_TENANT for m in hrows]
+        skeys = [m.key.key_string() for m in hrows]
+        kcounts = np.maximum(np.nan_to_num(snap.dcount[:n]), 0).astype(
+            np.int64)
+        chunk = _next_pow2(min(len(skeys), 1 << 15), 256)
+        if snap.degraded:
+            try:
+                sk.fold(tenants, skeys, kcounts, chunk)
+            except Exception:
+                log.exception("tenant sketch fold skipped during CPU "
+                              "failover")
+        else:
+            sk.fold(tenants, skeys, kcounts, chunk)
+        phases["sketch_s"] = time.perf_counter() - t0
+
+    def _make_query_eval(self, fields):
+        """The epoch's query evaluator: a closure over the retained
+        post-fold field tensors that runs the flush extract again at any
+        quantile vector, f32[P] -> (packed [s_eff, P+10] host array, P).
+        The same kernel over the same tensors is what makes a query at
+        the flush quantiles bitwise the flush's readback. Nothing writes
+        these tensors after the extract: a swapped epoch owns its pool.
+
+        It runs under the guard's ``query`` op on the worker's device (the
+        kernel on the card); a classified fault, or an epoch that failed
+        over (its fields on the CPU of a card's worker), runs the plain
+        version over host copies: the same bits. None when the epoch had
+        no histogram rows."""
+        if fields is None:
+            return None
+
+        def host(flds, qnp):
+            out = ek.flush_extract(*flds, torch.from_numpy(qnp))
+            return out.numpy(), qnp.shape[0]
+
+        if fields[0].device.type != self.device.type:
+            return lambda qs_np: host(fields, np.asarray(qs_np, np.float32))
+
+        def evaluate(qs_np: np.ndarray) -> tuple[np.ndarray, int]:
+            qnp = np.asarray(qs_np, dtype=np.float32)
+
+            def run():
+                qs = _to_device(qnp, fields[0].device)
+                return self._extract(fields, qs).cpu().numpy()
+
+            try:
+                return (self.guard.call("query", run, retryable=True),
+                        qnp.shape[0])
+            except dg.DeviceFaultError:
+                return host(self._fields_to_host(fields), qnp)
+
+        return evaluate
 
     def _extract_histo(self, snap: FlushSnapshot, swapped: SwappedEpoch,
                        pending: list, spill: Optional[tuple],
                        quantiles: np.ndarray, phases: dict,
-                       mark_degraded) -> None:
+                       mark_degraded) -> tuple:
         """The histogram half of the extraction, on the device under the
         guard. A classified fault moves the newest fold state to the CPU
         and the same steps resume there from where the device stopped
         (``progress``: the fold state and the spill samples in it), with
         the mirror replaced by its host replay. A quarantined epoch runs
-        on the CPU throughout."""
+        on the CPU throughout. Returns the folded fields the extract read
+        (on the CPU after a failover)."""
         progress = {"fields": swapped.histo.fields(), "spill_off": 0}
         if swapped.host:
             mark_degraded()
             self._histo_steps(snap, swapped, pending, spill, quantiles,
                               phases, progress, _unguarded)
-            return
+            return progress["fields"]
         try:
             self._histo_steps(snap, swapped, pending, spill, quantiles,
                               phases, progress, self.guard.call)
@@ -2497,6 +2716,7 @@ class DeviceWorker:
             progress["fields"] = self._fields_to_host(progress["fields"])
             self._histo_steps(snap, swapped, pending, spill, quantiles,
                               phases, progress, _unguarded)
+        return progress["fields"]
 
     def _histo_steps(self, snap: FlushSnapshot, swapped: SwappedEpoch,
                      pending: list, spill: Optional[tuple],

@@ -21,11 +21,14 @@ kernel's output is bitwise the plain version's on the same inputs (NaN
 where a row is empty).
 ``flush_extract.launches`` counts kernel launches, nothing else.
 
-The library holds one kernel per R in ``VARIANTS``; ``flush_extract``
-launches ``ROWS_PER_WARP``, the fastest variant that builds without
-spills and is bitwise equal to the plain version on the card
-(tools/port_probe_extract.py measures them; PERF.md has the numbers).
-``_flush_extract_variant`` reaches the others for that probe.
+The library holds two kernels per R in ``VARIANTS``: the narrow one for
+P <= ``QUANTILE_BLOCK`` (16) quantiles, and the wide one for any P, which
+walks the quantiles in blocks of 16 over one read of each row. Both give
+every quantile column by the same arithmetic, so a column's bits do not
+depend on P. ``flush_extract`` launches ``ROWS_PER_WARP``, the fastest variant
+that builds without spills and is bitwise equal to the plain version on
+the card (tools/port_probe_extract.py measures them; PERF.md has the
+numbers). ``_flush_extract_variant`` reaches the others for that probe.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ from veneur_tpu_torch.ops import nvcc
 from veneur_tpu_torch.ops import tdigest as td
 
 CAPACITY = 128  # centroids per row the kernel takes
-MAX_QUANTILES = 16  # quantiles per call the kernel takes
+QUANTILE_BLOCK = 16  # the narrow kernel's P at most; the wide one's block
 AGG_COLUMNS = 10
 VARIANTS = (1, 2, 4, 8)  # rows per warp, one kernel each in the library
 ROWS_PER_WARP = 8  # the variant flush_extract launches
@@ -50,8 +53,8 @@ _SRC = nvcc.CSRC / "flush_extract.cu"
 
 _lib = None
 _lib_lock = threading.Lock()
-_blocks_per_sm: dict[tuple[int, int], int] = {}
-# launches of each variant's kernel, whoever asked for them
+_blocks_per_sm: dict[tuple[int, bool, int], int] = {}
+# launches of each variant's kernels (narrow and wide), whoever asked
 variant_launches = {r: 0 for r in VARIANTS}
 
 
@@ -68,15 +71,18 @@ def build() -> Path:
     return nvcc.build(_SRC, nvcc.EXTRACT_FLAGS)
 
 
-def parse_ptxas(text: str) -> dict[int, dict[str, int]]:
-    """Per variant R, what ptxas reported for its kernel (registers,
-    spills, local and static shared memory; ops/nvcc.parse_ptxas)."""
-    return nvcc.parse_ptxas(text, r"flush_extract_kernelILi(\d+)E", int)
+def parse_ptxas(text: str, wide: bool = False) -> dict[int, dict[str, int]]:
+    """Per variant R, what ptxas reported for its narrow kernel (or, with
+    ``wide``, its wide one): registers, spills, local and static shared
+    memory (ops/nvcc.parse_ptxas)."""
+    name = "flush_extract_wide_kernel" if wide else "flush_extract_kernel"
+    return nvcc.parse_ptxas(text, name + r"ILi(\d+)E", int)
 
 
-def build_report() -> dict[int, dict[str, int]]:
-    """ptxas's report of the current build, per variant R."""
-    return parse_ptxas(nvcc.ptxas_report(_SRC, nvcc.EXTRACT_FLAGS))
+def build_report(wide: bool = False) -> dict[int, dict[str, int]]:
+    """ptxas's report of the current build, per variant R (the wide
+    kernels' with ``wide``)."""
+    return parse_ptxas(nvcc.ptxas_report(_SRC, nvcc.EXTRACT_FLAGS), wide)
 
 
 def load():
@@ -87,28 +93,37 @@ def load():
             lib = ctypes.CDLL(str(build()))
             vp, ci = ctypes.c_void_p, ctypes.c_int
             for r in VARIANTS:
-                fn = getattr(lib, f"flush_extract_launch_r{r}")
-                fn.argtypes = [ctypes.POINTER(vp), vp, vp, ci, ci, ci, vp]
-                fn.restype = ci
-                getattr(lib, f"flush_extract_occupancy_r{r}").restype = ci
+                for kind in ("", "wide_"):
+                    fn = getattr(lib, f"flush_extract_launch_{kind}r{r}")
+                    fn.argtypes = [ctypes.POINTER(vp), vp, vp, ci, ci, ci,
+                                   vp]
+                    fn.restype = ci
+                    getattr(lib, f"flush_extract_occupancy_{kind}r{r}"
+                            ).restype = ci
                 getattr(lib, f"flush_extract_smem_bytes_r{r}").restype = ci
             lib.flush_extract_threads_per_block.restype = ci
             _lib = lib
         return _lib
 
 
-def blocks_per_sm(r: int, device: torch.device) -> int:
-    """Resident blocks of variant r on one SM of ``device``, as the
-    occupancy calculator reports it (cached per device)."""
-    key = (r, device.index if device.index is not None
+def _kind(wide: bool) -> str:
+    return "wide_" if wide else ""
+
+
+def blocks_per_sm(r: int, device: torch.device, wide: bool = False) -> int:
+    """Resident blocks of variant r's narrow (or wide) kernel on one SM of
+    ``device``, as the occupancy calculator reports it (cached per
+    device)."""
+    key = (r, wide, device.index if device.index is not None
            else torch.cuda.current_device())
     if key not in _blocks_per_sm:
         lib = load()
         with torch.cuda.device(device):
-            n = getattr(lib, f"flush_extract_occupancy_r{r}")()
+            n = getattr(lib, f"flush_extract_occupancy_{_kind(wide)}r{r}")()
         if n < 1:
-            raise RuntimeError(f"flush_extract r{r}: the occupancy query "
-                               f"gave {n} (below 0: a CUDA error)")
+            raise RuntimeError(f"flush_extract {_kind(wide)}r{r}: the "
+                               f"occupancy query gave {n} (below 0: a "
+                               f"CUDA error)")
         _blocks_per_sm[key] = n
     return _blocks_per_sm[key]
 
@@ -184,9 +199,8 @@ def _launch(r: int, fields, qs) -> torch.Tensor:
     if c != CAPACITY:
         raise ValueError(f"the kernel takes {CAPACITY} centroids per row,"
                          f" got {c}")
-    if not 1 <= p <= MAX_QUANTILES:
-        raise ValueError(f"the kernel takes 1..{MAX_QUANTILES} quantiles,"
-                         f" got {p}")
+    if p < 1:
+        raise ValueError("the kernel takes at least one quantile")
     if means.data_ptr() % 16 or weights.data_ptr() % 16:
         raise ValueError("means/weights must be 16-byte aligned")
     out = torch.empty((s, p + AGG_COLUMNS), dtype=torch.float32,
@@ -194,19 +208,20 @@ def _launch(r: int, fields, qs) -> torch.Tensor:
     if s == 0:
         return out
     lib = load()
+    wide = p > QUANTILE_BLOCK
     with torch.cuda.device(means.device):
         sms = torch.cuda.get_device_properties(
             means.device).multi_processor_count
         warps = lib.flush_extract_threads_per_block() // 32
         chunks = -(-s // r)
         grid = max(1, min(-(-chunks // warps),
-                          sms * blocks_per_sm(r, means.device)))
+                          sms * blocks_per_sm(r, means.device, wide)))
         stream = torch.cuda.current_stream(means.device).cuda_stream
         ptrs = (ctypes.c_void_p * len(fields))(
             *(t.data_ptr() for t in fields))
-        rc = getattr(lib, f"flush_extract_launch_r{r}")(
+        rc = getattr(lib, f"flush_extract_launch_{_kind(wide)}r{r}")(
             ptrs, qs.data_ptr(), out.data_ptr(), s, p, grid, stream)
-    nvcc.check(rc, f"flush_extract r{r} launch failed")
+    nvcc.check(rc, f"flush_extract {_kind(wide)}r{r} launch failed")
     variant_launches[r] += 1
     return out
 
@@ -216,7 +231,8 @@ def flush_extract(means, weights, dmin, dmax, drecip, drecip_c,
                   lrecip, lrecip_c, qs) -> torch.Tensor:
     """Packed flush extract f32[S, P+10] (column layout in the CUDA
     source). CPU tensors take the plain version; CUDA tensors launch the
-    kernel, which takes C = 128 and 1 <= P <= 16, or raise."""
+    kernel (one launch: the narrow kernel at P <= 16, the wide one past
+    it), which takes C = 128 and any P >= 1, or raise."""
     fields = (means, weights, dmin, dmax, drecip, drecip_c, lmin, lmax,
               lsum, lsum_c, lweight, lweight_c, lrecip, lrecip_c)
     if means.device.type == "cpu":

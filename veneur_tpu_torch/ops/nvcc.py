@@ -92,10 +92,11 @@ def parse_ptxas(text: str, kernel: str, key=str) -> dict:
     out: dict = {}
     cur = None
     for line in text.splitlines():
-        m = re.search(kernel, line)
-        if m and ("Compiling entry function" in line
-                  or "Function properties for" in line):
-            cur = out.setdefault(key(m.group(1)), {
+        if ("Compiling entry function" in line
+                or "Function properties for" in line):
+            # a section of another function ends the matched one's
+            m = re.search(kernel, line)
+            cur = None if m is None else out.setdefault(key(m.group(1)), {
                 "registers": 0, "spill_stores": 0, "spill_loads": 0,
                 "local_bytes": 0, "static_smem_bytes": 0})
             continue
