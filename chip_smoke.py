@@ -229,7 +229,25 @@ script exits non-zero:
    and all 900 counter datagrams sent before, across and after the
    restart reach its forward-statsd listener, POST /quitquitquit exits 0,
    and the first image's torch.profiler trace holds K1's kernel.
-15. on the line before the last two, the card's name and power limit;
+15. the remaining sinks, the flush archive and the plugins, right after
+   phase 8. 15a: phase 8's card batch (about 854,000 metrics) and its CPU
+   twin through the VMB1 archive sink natively and in Python, the
+   local-file, S3 and blob plugins (a capturing opener, the clock
+   pinned) and the Kafka metric sink into an in-process broker (the
+   first 65,536 metrics of the batch): the native frame equals the
+   Python frame, the native section encoder built every section of the
+   native arms (a Python section there fails the run), and every frame,
+   TSV, request body and produce request of the card batch equals the
+   CPU batch's; seconds per sink and bytes per frame printed. 15b: a
+   server built by build_server on the card with every key of this
+   slice on (Kafka, Splunk HEC, X-Ray, LightStep, falconer, archive_dir,
+   flush_file, aws_s3_bucket, archive_blob_bucket; each endpoint a local
+   fake) takes phase 5's datagrams and 400 SSF spans and flushes once:
+   K1 launched, the guard clean, the plugin pass ran, and every endpoint
+   took the bytes a CPU-built server's took; its archive replays into a
+   port global on the card whose counters and gauges are the flushed
+   ones bitwise, and a dedup replay run twice merges once.
+16. on the line before the last two, the card's name and power limit;
    then a ``kernels`` JSON line: every kernel with its launches on the
    main path (phases 4 to 5b: counts reset just before, read just
    after), its agreement with the plain version, its time, the plain
@@ -238,11 +256,12 @@ script exits non-zero:
    tools/port_guard_faults.py (``launches_guard_oom``), in phase 9
    (``launches_shards``), in phase 10 (``launches_global``), in phase
    12 (``launches_proxy``), in phase 11 (``launches_spans``) and in
-   phase 13 (``launches_query``), in 14a (``launches_governed``) and in
-   14b (``launches_pipeline``), each counted from 0 just before its
-   run; the probe's variants beside it, with their build report and
-   launches (only the variant flush_extract launches has any).
-16. the last line: {"ok": true, "device": {...}}.
+   phase 13 (``launches_query``), in 14a (``launches_governed``), in
+   14b (``launches_pipeline``) and in phase 15 (``launches_sinks``),
+   each counted from 0 just before its run; the probe's variants beside
+   it, with their build report and launches (only the variant
+   flush_extract launches has any).
+17. the last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the veneur_tpu_torch package beside it, the
 script prints no result and exits 2. It imports nothing of JAX.
@@ -1680,12 +1699,13 @@ def signalfx_points(requests) -> list:
     return sorted(out)
 
 
-def phase_egress(snap_g, snap_c) -> dict:
+def phase_egress(snap_g, snap_c) -> tuple:
     """Phase 8: phase 4's 100k-series snapshot from the card through
     generate_columnar (held to the object path, and to the CPU
     snapshot's batch bitwise), then through every ported metric sink to
     local listeners: native tier on and off on the card's batch, native
-    on the CPU's. Raises on any difference."""
+    on the CPU's. Raises on any difference. Returns the results and the
+    card and CPU batches (phase 15a's input)."""
     import zlib
 
     from veneur_tpu_torch.core.flusher import (generate_columnar,
@@ -1782,7 +1802,7 @@ def phase_egress(snap_g, snap_c) -> dict:
         "group of every native-capable sink")
     return {"metrics": len(batch), "groups": len(batch.groups),
             "generate_object_s": t_obj, "generate_columnar_s": t_col,
-            "materialize_s": t_mat, "sinks": sinks}
+            "materialize_s": t_mat, "sinks": sinks}, batch, batch_c
 
 
 # -- phase 9 ------------------------------------------------------------------
@@ -4193,6 +4213,598 @@ def phase_flush_ops(ek, hll) -> tuple:
     return out, launches_pipeline
 
 
+# -- phase 15 -----------------------------------------------------------------
+
+
+# 15a's Kafka arm takes the first KAFKA_CUT metrics of the batch's
+# materialization: one JSON message each, formatted in Python (PERF.md
+# section 4 lists the cut)
+KAFKA_CUT = 65_536
+SINKS_NOW = 1_700_000_000
+SINKS_HOST = "chip-smoke"
+# 15b: the SSF spans fed to the server beside phase 5's datagrams
+SINK_SPANS = 400
+
+
+class _StillClock:
+    """A ``time`` module whose wall clock stands at SINKS_NOW; monotonic
+    and sleep are the real ones."""
+
+    monotonic = staticmethod(time.monotonic)
+    sleep = staticmethod(time.sleep)
+
+    @staticmethod
+    def time() -> float:
+        return float(SINKS_NOW)
+
+
+@contextlib.contextmanager
+def pinned_sink_clocks():
+    """The wall clocks that reach the bytes of phase 15's sinks and
+    plugins held still: the S3 plugin's and SigV4's date, gzip's header
+    time, the Kafka messages' timestamps and the Splunk submit loop's
+    idle cut (patched per module: gRPC's deadlines need the real
+    clock)."""
+    import datetime
+    import gzip
+    import types
+
+    from veneur_tpu_torch.plugins import s3
+    from veneur_tpu_torch.sinks import kafka_wire, splunk
+
+    fixed = datetime.datetime.fromtimestamp(SINKS_NOW, datetime.timezone.utc)
+
+    class _Clock(datetime.datetime):
+        @classmethod
+        def now(cls, tz=None):
+            return fixed
+
+    _datetime = types.SimpleNamespace(datetime=_Clock,
+                                      timezone=datetime.timezone)
+
+    class _Gzip:
+        @staticmethod
+        def compress(data: bytes) -> bytes:
+            return gzip.compress(data, mtime=SINKS_NOW)
+
+    saved = [(s3, "datetime", s3.datetime), (s3, "gzip", s3.gzip),
+             (kafka_wire, "time", kafka_wire.time),
+             (splunk, "time", splunk.time)]
+    s3.datetime, s3.gzip = _datetime, _Gzip
+    kafka_wire.time = splunk.time = _StillClock
+    try:
+        yield
+    finally:
+        for mod, name, value in saved:
+            setattr(mod, name, value)
+
+
+class KafkaTap:
+    """A minimal in-process Kafka broker: one node and PARTS partitions a
+    topic; it answers Metadata v0 and Produce v1 (every partition
+    accepted) and keeps each produce request's bytes."""
+
+    PARTS = 4
+
+    def __init__(self) -> None:
+        import socket
+        import threading
+
+        self.lock = threading.Lock()
+        self.produce: list[bytes] = []
+        self.sock = socket.socket(socket.AF_INET, socket.SOCK_STREAM)
+        self.sock.bind(("127.0.0.1", 0))
+        self.sock.listen(8)
+        self.port = self.sock.getsockname()[1]
+        self.address = f"127.0.0.1:{self.port}"
+        threading.Thread(target=self._serve, daemon=True,
+                         name="kafka-tap").start()
+
+    def close(self) -> None:
+        self.sock.close()
+
+    def _serve(self) -> None:
+        import threading
+
+        while True:
+            try:
+                conn, _ = self.sock.accept()
+            except OSError:
+                return
+            threading.Thread(target=self._conn, args=(conn,),
+                             daemon=True).start()
+
+    @staticmethod
+    def _read(conn, n: int):
+        buf = bytearray()
+        while len(buf) < n:
+            chunk = conn.recv(min(n - len(buf), 1 << 20))
+            if not chunk:
+                return None
+            buf += chunk
+        return bytes(buf)
+
+    def _conn(self, conn) -> None:
+        from veneur_tpu_torch.sinks.kafka_wire import _Reader, enc_string
+
+        with conn:
+            while True:
+                head = self._read(conn, 4)
+                if head is None:
+                    return
+                frame = self._read(conn, struct.unpack(">i", head)[0])
+                if frame is None:
+                    return
+                r = _Reader(frame)
+                api, _version, corr = r.i16(), r.i16(), r.i32()
+                r.string()
+                out = [struct.pack(">i", corr)]
+                if api == 3:
+                    topics = [r.string() for _ in range(r.i32())]
+                    out += [struct.pack(">ii", 1, 0), enc_string("127.0.0.1"),
+                            struct.pack(">ii", self.port, len(topics))]
+                    for t in topics:
+                        out += [struct.pack(">h", 0), enc_string(t),
+                                struct.pack(">i", self.PARTS)]
+                        out += [struct.pack(">hiiiiii", 0, p, 0, 1, 0, 1, 0)
+                                for p in range(self.PARTS)]
+                else:
+                    with self.lock:
+                        self.produce.append(frame)
+                    acks = r.i16()
+                    r.i32()
+                    ntopics = r.i32()
+                    out.append(struct.pack(">i", ntopics))
+                    for _ in range(ntopics):
+                        out.append(enc_string(r.string()))
+                        nparts = r.i32()
+                        out.append(struct.pack(">i", nparts))
+                        for _ in range(nparts):
+                            pid = r.i32()
+                            r._take(r.i32())
+                            out.append(struct.pack(">ihq", pid, 0, 0))
+                    out.append(struct.pack(">i", 0))
+                    if acks == 0:
+                        continue
+                body = b"".join(out)
+                conn.sendall(struct.pack(">i", len(body)) + body)
+
+
+class CaptureOpener:
+    """An opener that keeps every request (URL, method, headers, body)
+    and answers 200."""
+
+    def __init__(self) -> None:
+        import threading
+
+        self.lock = threading.Lock()
+        self.requests: list = []
+
+    def __call__(self, req, timeout):
+        with self.lock:
+            self.requests.append((req.full_url, req.get_method(),
+                                  sorted(req.header_items()),
+                                  req.data or b""))
+        return b"{}"
+
+    def to(self, prefix: str) -> list:
+        with self.lock:
+            return [r for r in self.requests if r[0].startswith(prefix)]
+
+
+def archive_arms(batch, tmp: Path, tag: str) -> dict:
+    """Phase 15a's sinks and plugins over one batch, in turn: what each
+    produced (frames, file bytes, request bodies), its seconds, and the
+    columnar sections each encoder built in the archive's arms."""
+    from veneur_tpu_torch.archive import (ArchiveBlobPlugin,
+                                          MetricArchiveSink,
+                                          SegmentedArchiveWriter,
+                                          read_archive, wire)
+    from veneur_tpu_torch.plugins.localfile import LocalFilePlugin
+    from veneur_tpu_torch.plugins.s3 import S3Plugin
+    from veneur_tpu_torch.sinks.kafka import (KafkaMetricSink,
+                                              default_producer)
+
+    out, secs, sections = {}, {}, {}
+    n = batch.count_for("archive")
+    for name, native in (("archive_native", True), ("archive_python", False)):
+        sink = MetricArchiveSink(
+            SegmentedArchiveWriter(str(tmp / f"{tag}-{name}"),
+                                   max_segment_bytes=1 << 30),
+            hostname=SINKS_HOST)
+        wire.reset_section_counts()
+        t0 = time.perf_counter()
+        if native:
+            sink.flush_columnar_native(batch)
+        else:
+            sink.flush_columnar(batch)
+        secs[name] = time.perf_counter() - t0
+        sections[name] = dict(wire.SECTION_COUNTS)
+        sink.stop()
+        if sink.metrics_flushed != n or not sink.delivery.conserved():
+            raise AssertionError(f"phase 15a {tag} {name}: "
+                                 f"{sink.metrics_flushed} of {n} archived")
+        out[name] = read_archive(str(tmp / f"{tag}-{name}"))
+    path = tmp / f"{tag}-flush.tsv"
+    local = LocalFilePlugin(str(path), 10.0)
+    t0 = time.perf_counter()
+    local.flush(batch, SINKS_HOST)
+    secs["localfile"] = time.perf_counter() - t0
+    out["localfile"] = path.read_bytes()
+    opener = CaptureOpener()
+    s3p = S3Plugin("smoke-bucket", "us-west-2", "AK", "SK", 10.0,
+                   opener=opener)
+    t0 = time.perf_counter()
+    s3p.flush(batch, SINKS_HOST)
+    secs["s3"] = time.perf_counter() - t0
+    blob = ArchiveBlobPlugin("smoke-bucket", "us-west-2", "AK", "SK",
+                             opener=opener)
+    wire.reset_section_counts()
+    t0 = time.perf_counter()
+    blob.flush(batch, SINKS_HOST)
+    secs["archive_blob"] = time.perf_counter() - t0
+    sections["archive_blob"] = dict(wire.SECTION_COUNTS)
+    if (local.flush_errors, s3p.uploads, s3p.flush_errors, blob.uploads,
+            blob.flush_errors) != (0, 1, 0, 1, 0):
+        raise AssertionError(f"phase 15a {tag}: a plugin failed")
+    out["s3"] = opener.to("https://smoke-bucket.s3.us-west-2.amazonaws.com/"
+                          f"{SINKS_HOST}/")
+    out["archive_blob"] = opener.to(
+        "https://smoke-bucket.s3.us-west-2.amazonaws.com/archive/")
+    tap = KafkaTap()
+    try:
+        producer = default_producer(tap.address)
+        kafka = KafkaMetricSink(producer, metric_topic="smoke-metrics")
+        mats = batch.materialize()[:KAFKA_CUT]
+        t0 = time.perf_counter()
+        kafka.flush(mats)
+        secs["kafka"] = time.perf_counter() - t0
+        producer.close()
+        if (kafka.flushed_metrics, producer.delivered, producer.dropped) \
+                != (len(mats), len(mats), 0):
+            raise AssertionError(
+                f"phase 15a {tag}: Kafka delivered {producer.delivered} of "
+                f"{len(mats)} (dropped {producer.dropped})")
+        out["kafka"] = list(tap.produce)
+    finally:
+        tap.close()
+    return {"out": out, "s": secs, "sections": sections}
+
+
+def phase_sinks_batch(batch, batch_c) -> dict:
+    """Phase 15a: phase 8's card batch and its CPU twin through the
+    archive sink (native and Python), the local-file, S3 and blob
+    plugins and the Kafka metric sink; every output of the card batch
+    equals the CPU batch's, the native frame equals the Python frame,
+    and the native encoder built every section of the native arms."""
+    import gzip
+    import tempfile
+
+    from veneur_tpu_torch.archive import wire
+
+    groups = sum(1 for g in batch.groups if g.families and g.nrows)
+    with tempfile.TemporaryDirectory(prefix="vsmoke15") as tmp, \
+            pinned_sink_clocks():
+        runs = {"card": archive_arms(batch, Path(tmp), "card"),
+                "cpu": archive_arms(batch_c, Path(tmp), "cpu")}
+    for where, run in runs.items():
+        sec = run["sections"]
+        for name in ("archive_native", "archive_blob"):
+            if sec[name] != {"native": groups, "python": 0}:
+                raise AssertionError(
+                    f"phase 15a {where}: {name} encoded its sections "
+                    f"{sec[name]}, not all {groups} natively")
+        if sec["archive_python"] != {"native": 0, "python": groups}:
+            raise AssertionError(f"phase 15a {where}: the Python arm "
+                                 f"encoded {sec['archive_python']}")
+    card, cpu = runs["card"]["out"], runs["cpu"]["out"]
+    for name in card:
+        if card[name] != cpu[name]:
+            raise AssertionError(f"phase 15a: the card batch's {name} "
+                                 "differs from the CPU batch's")
+    frames = card["archive_native"]
+    if len(frames) != 1 or card["archive_python"] != frames:
+        raise AssertionError("phase 15a: the native archive frame differs "
+                             "from the Python frame")
+    decoded = wire.decode_flush(frames[0])
+    if len(decoded["samples"]) != len(batch):
+        raise AssertionError("phase 15a: the frame decodes to "
+                             f"{len(decoded['samples'])} of {len(batch)}")
+    [s3_put] = card["s3"]
+    if gzip.decompress(s3_put[3]) != card["localfile"]:
+        raise AssertionError("phase 15a: the S3 body is not the local "
+                             "file's TSV")
+    [blob_put] = card["archive_blob"]
+    if not card["kafka"]:
+        raise AssertionError("phase 15a: no produce request")
+    sizes = {"archive_native": len(frames[0]),
+             "archive_python": len(frames[0]),
+             "localfile": len(card["localfile"]), "s3": len(s3_put[3]),
+             "archive_blob": len(blob_put[3]),
+             "kafka": sum(len(f) for f in card["kafka"])}
+    for name, b in sizes.items():
+        log(f"[sinks] {name}: card batch {runs['card']['s'][name]:.4f} s, "
+            f"CPU batch {runs['cpu']['s'][name]:.4f} s; {b} bytes")
+    log(f"[sinks] {len(batch)} metrics in {groups} groups: the VMB1 frame "
+        f"({len(frames[0])} bytes) native equals Python and the CPU batch's; "
+        f"the TSV, the S3 and blob bodies and the Kafka produce requests "
+        f"({min(KAFKA_CUT, len(batch))} messages) equal the CPU batch's")
+    return {"metrics": len(batch), "groups": groups,
+            "kafka_messages": min(KAFKA_CUT, len(batch)), "bytes": sizes,
+            "card_s": runs["card"]["s"], "cpu_s": runs["cpu"]["s"]}
+
+
+def sink_span_packets(n: int) -> list[bytes]:
+    """15b's SSF spans: three services, indicator and error spans, a
+    counter sample each."""
+    import numpy as np
+
+    from veneur_tpu_torch import ssf
+    from veneur_tpu_torch.protocol import ssf_wire
+
+    rng = np.random.default_rng(15)
+    out = []
+    for i in range(n):
+        tid = int(rng.integers(1, 1 << 40))
+        start = SINKS_NOW * 10**9 + i * 1000
+        tags = {"host": f"h{i % 3}"}
+        if i % 4 == 0:
+            tags["resource"] = f"/r{i % 3}"
+        out.append(ssf_wire.encode_datagram(ssf.SSFSpan(
+            trace_id=tid if i % 5 else 77, id=tid + i + 1,
+            parent_id=int(rng.integers(0, 9)), start_timestamp=start,
+            end_timestamp=start + int(rng.gamma(2.0, 5e6)),
+            error=bool(i % 6 == 1), service=f"svc{i % 3}",
+            indicator=bool(i % 2), name=f"op{i % 4}", tags=tags,
+            metrics=[ssf.SSFSample(metric=ssf.SSFMetricType.COUNTER,
+                                   name="sk.hits", value=1.0,
+                                   timestamp=SINKS_NOW)])))
+    return out
+
+
+class FalconerTap:
+    """A falconer SpanSink gRPC servicer keeping each SendSpan request's
+    bytes as read off the wire."""
+
+    def __init__(self) -> None:
+        import threading
+        from concurrent import futures
+
+        import grpc
+
+        from veneur_tpu_torch.gen import veneur_tpu_pb2 as pb
+        from veneur_tpu_torch.sinks.grpsink import SERVICE_NAME
+
+        self.lock = threading.Lock()
+        self.messages: list[bytes] = []
+
+        def send_span(request: bytes, context):
+            with self.lock:
+                self.messages.append(request)
+            return pb.SendResponse()
+
+        handlers = grpc.method_handlers_generic_handler(SERVICE_NAME, {
+            "SendSpan": grpc.unary_unary_rpc_method_handler(
+                send_span, request_deserializer=lambda b: b,
+                response_serializer=pb.SendResponse.SerializeToString)})
+        self.server = grpc.server(futures.ThreadPoolExecutor(max_workers=2))
+        self.server.add_generic_rpc_handlers((handlers,))
+        self.port = self.server.add_insecure_port("127.0.0.1:0")
+        self.server.start()
+
+    def close(self) -> None:
+        self.server.stop(grace=1)
+
+
+def sink_scalars(metrics) -> dict:
+    """The counters and gauges of a flush as a global's import merges
+    them, by name, tags and type: a counter's values summed, a gauge's
+    last value (two rows of one series, as a local-only set's gauge and
+    its global twin make, become one); each value's bits."""
+    out: dict = {}
+    for m in metrics:
+        if m.type.name not in ("COUNTER", "GAUGE"):
+            continue
+        key = (m.name, tuple(sorted(m.tags)), m.type.name)
+        if m.type.name == "COUNTER" and key in out:
+            out[key] += float(m.value)
+        else:
+            out[key] = float(m.value)
+    return {k: struct.pack("<d", v) for k, v in out.items()}
+
+
+def sinks_server_once(device: str, grams, spans, tmp: Path, ek) -> dict:
+    """15b's server on ``device``: every key of this slice on, each
+    endpoint a local fake; the datagrams and spans in, the span worker
+    drained, one flush. Everything each endpoint took, the flushed
+    InterMetrics, the archive's frames and K1's launches in the flush."""
+    import random
+    import socket
+
+    from veneur_tpu_torch.archive import read_archive
+    from veneur_tpu_torch.core.config import load_config
+    from veneur_tpu_torch.core.factory import build_server
+
+    kafka, falconer, opener = KafkaTap(), FalconerTap(), CaptureOpener()
+    xray = socket.socket(socket.AF_INET, socket.SOCK_DGRAM)
+    # every segment waits in the socket until the flush is done
+    xray.setsockopt(socket.SOL_SOCKET, socket.SO_RCVBUF, 16 << 20)
+    xray.bind(("127.0.0.1", 0))
+    xray.settimeout(30)
+    d = tmp / ("cpu" if device == "cpu" else "card")
+    d.mkdir(parents=True)
+    data = {"interval": "10s", "hostname": SINKS_HOST, "percentiles": QS,
+            "aggregates": ["min", "max", "count", "sum"],
+            "tpu_native_ingest": False, "micro_fold": False,
+            "ssf_span_uniqueness_rate": 0.0, "span_channel_capacity": 10000,
+            "span_flush_drain_s": 0.0,
+            "kafka_broker": kafka.address,
+            "kafka_metric_topic": "smoke-metrics",
+            "kafka_span_topic": "smoke-spans",
+            "splunk_hec_address": "http://hec.smoke:8088",
+            "splunk_hec_token": "smoke", "splunk_hec_batch_size": 100_000,
+            "xray_address": f"127.0.0.1:{xray.getsockname()[1]}",
+            "xray_annotation_tags": ["host"],
+            "lightstep_access_token": "smoke",
+            "lightstep_collector_host": "http://lightstep.smoke",
+            "falconer_address": f"127.0.0.1:{falconer.port}",
+            "archive_dir": str(d / "archive"),
+            "flush_file": str(d / "flush.tsv"),
+            "aws_s3_bucket": "smoke-bucket", "aws_access_key_id": "AK",
+            "aws_secret_access_key": "SK", "aws_region": "us-west-2",
+            "archive_blob_bucket": "smoke-bucket",
+            "archive_blob_access_key": "AK",
+            "archive_blob_secret_key": "SK",
+            "archive_blob_region": "us-west-2"}
+    # the LightStep reporter ids come from the global random
+    random.seed(15)
+    server = build_server(load_config(data=data), device=device,
+                          opener=opener)
+    try:
+        names = sorted(s.name() for s in server.span_sinks)
+        if names != ["falconer", "kafka", "lightstep", "splunk", "xray"] \
+                or [p.name() for p in server.plugins] != [
+                    "localfile", "s3", "archive_blob"]:
+            raise AssertionError(f"phase 15b: span sinks {names}, plugins "
+                                 f"{[p.name() for p in server.plugins]}")
+        for s in server.span_sinks:
+            s.start()
+        for g in grams:
+            server.process_metric_packet(g)
+        for p in spans:
+            server.handle_trace_packet(p)
+        sw = server.span_worker
+        sw.chan.put(None)
+        sw.work()
+        for lane in list(sw._lanes.values()):
+            lane.q.join()
+        before = ek.flush_extract.launches
+        t0 = time.perf_counter()
+        got = server.flush(now=SINKS_NOW).materialize()
+        flush_s = time.perf_counter() - t0
+        launched = ek.flush_extract.launches - before
+        phases = dict(server.last_flush_phases)
+        [splunk] = [s for s in server.span_sinks if s.name() == "splunk"]
+        splunk.stop()
+        wait_for(lambda: len(falconer.messages) >= len(spans),
+                 "falconer's spans")
+        xray_grams = [xray.recv(65536) for _ in range(len(spans))]
+        counts = sorted((s.name(), s.spans_flushed, s.spans_dropped)
+                        for s in server.span_sinks)
+        # what the endpoints took from the flush, before the sinks stop
+        taken = {"kafka": list(kafka.produce),
+                 "falconer": list(falconer.messages), "xray": xray_grams,
+                 "http": sorted(opener.requests)}
+        if device != "cpu":
+            check_server_guard_clean(server, "phase 15b", micro=False)
+    finally:
+        server.shutdown()
+        kafka.close()
+        falconer.close()
+        xray.close()
+    return {"metrics": got, "launched": launched, "phases": phases,
+            "flush_s": flush_s, "counts": counts, "taken": taken,
+            "archive": read_archive(str(d / "archive")),
+            "localfile": (d / "flush.tsv").read_bytes()}
+
+
+def replay_into_global(frames, dedup_runs: int = 0):
+    """A fresh port global on the card fed the archive's frames through
+    its import server (plainly, or under the dedup envelope
+    ``dedup_runs`` times); its flushed scalars, the replay stats and the
+    import server."""
+    from veneur_tpu_torch.archive.replay import replay_frames
+    from veneur_tpu_torch.core.config import Config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.distributed.import_server import ImportServer
+
+    glob = Server(Config(interval="10s"), device=DEVICE)
+    try:
+        imp = ImportServer(glob)
+        if dedup_runs:
+            stats = [replay_frames(frames, apply_wire=imp.handle_wire,
+                                   dedup=True) for _ in range(dedup_runs)]
+        else:
+            stats = [replay_frames(frames, apply_batch=imp.handle_batch)]
+        got = glob.flush(now=SINKS_NOW)
+    finally:
+        glob.shutdown()
+    return sink_scalars(got), stats, imp
+
+
+def phase_sinks_server(ek) -> dict:
+    """Phase 15b: a server built by build_server on the card with every
+    key of this slice on (Kafka, Splunk HEC, X-Ray, LightStep, falconer,
+    the archive and the three plugins), phase 5's datagrams and
+    SINK_SPANS spans in, one flush: K1 launched, the guard clean, the
+    plugin pass ran, and every endpoint took the bytes a CPU-built
+    server's took; then the archive replayed into a port global on the
+    card gives the flushed counters and gauges bitwise, and a dedup
+    replay run twice merges once."""
+    import tempfile
+
+    grams = server_datagrams(seed=9, spill=False)
+    spans = sink_span_packets(SINK_SPANS)
+    with tempfile.TemporaryDirectory(prefix="vsmoke15b") as tmp, \
+            pinned_sink_clocks():
+        card = sinks_server_once(DEVICE, grams, spans, Path(tmp), ek)
+        cpu = sinks_server_once("cpu", grams, spans, Path(tmp) / "twin", ek)
+    if card["launched"] < 1:
+        raise AssertionError("phase 15b: the flush launched no K1")
+    if "plugin_flush_s" not in card["phases"]:
+        raise AssertionError("phase 15b: the plugin pass did not run")
+    for name, sent, dropped in card["counts"]:
+        if (sent, dropped) != (len(spans), 0):
+            raise AssertionError(f"phase 15b: span sink {name} sent {sent} "
+                                 f"of {len(spans)}, dropped {dropped}")
+    if canonical(card["metrics"]) != canonical(cpu["metrics"]):
+        raise AssertionError("phase 15b: the card server's InterMetrics "
+                             "differ from the CPU server's")
+    for key in ("kafka", "falconer", "xray", "http"):
+        if card["taken"][key] != cpu["taken"][key]:
+            raise AssertionError(f"phase 15b: {key} took other bytes from "
+                                 "the card server than from the CPU server")
+    for key in ("archive", "localfile", "counts"):
+        if card[key] != cpu[key]:
+            raise AssertionError(f"phase 15b: the card server's {key} "
+                                 "differs from the CPU server's")
+    http = card["taken"]["http"]
+    hosts = sorted({u.split("/")[2] for u, *_ in http})
+    if hosts != ["hec.smoke:8088", "lightstep.smoke",
+                 "smoke-bucket.s3.us-west-2.amazonaws.com"]:
+        raise AssertionError(f"phase 15b: requests went to {hosts}")
+    # the archive replayed into a port global on the card
+    expected = sink_scalars(card["metrics"])
+    t0 = time.perf_counter()
+    got, [stats], _imp = replay_into_global(card["archive"])
+    replay_s = time.perf_counter() - t0
+    if stats["skipped_inexact"] or got != expected:
+        raise AssertionError(f"phase 15b: the replayed global's counters "
+                             f"and gauges differ from the flush's ({stats})")
+    got2, (s1, s2), imp = replay_into_global(card["archive"], dedup_runs=2)
+    if got2 != expected or imp.metrics_deduped != s2["imported"] \
+            or s1["imported"] != s2["imported"] or not s1["imported"]:
+        raise AssertionError(f"phase 15b: the dedup replay merged "
+                             f"{imp.metrics_deduped} of {s2['imported']} "
+                             "twice")
+    log(f"[sinks server] {len(grams)} datagrams and {len(spans)} spans -> "
+        f"{len(card['metrics'])} InterMetrics on {DEVICE}, flush "
+        f"{card['flush_s']:.4f} s (sink_flush_s "
+        f"{card['phases'].get('sink_flush_s', 0.0):.4f}, plugin_flush_s "
+        f"{card['phases']['plugin_flush_s']:.4f}), flush_extract launches "
+        f"{card['launched']}; every span sink sent {len(spans)} spans; "
+        f"Kafka, falconer, X-Ray, HEC, LightStep, S3 and blob bytes, the "
+        f"archive and the flush file equal the CPU server's; the archive "
+        f"replayed into a card global: {len(expected)} counters "
+        f"and gauges bitwise ({replay_s:.4f} s), a dedup replay twice "
+        f"merged once ({imp.metrics_deduped} deduped)")
+    return {"datagrams": len(grams), "spans": len(spans),
+            "metrics": len(card["metrics"]), "flush_s": card["flush_s"],
+            "phases": card["phases"], "launched": card["launched"],
+            "replay_s": replay_s, "scalars": len(expected),
+            "deduped": imp.metrics_deduped}
+
+
 # -- main ---------------------------------------------------------------------
 
 
@@ -4339,9 +4951,21 @@ def main() -> int:
                                  f"path")
     # 8: the egress of phase 4's snapshot (host work: no kernel runs)
     t0 = time.perf_counter()
-    phases["egress"] = phase_egress(python_snap, cpu_snap)
+    phases["egress"], batch, batch_c = phase_egress(python_snap, cpu_snap)
     del cpu_snap
     wall["egress_s"] = time.perf_counter() - t0
+    # 15: the remaining sinks, the archive and the plugins: 15a over
+    # phase 8's batches, 15b a server on the card; counted from 0
+    reset_launches(ek, hll)
+    t0 = time.perf_counter()
+    phases["sinks"] = {"batch": phase_sinks_batch(batch, batch_c)}
+    del batch, batch_c
+    phases["sinks"]["server"] = phase_sinks_server(ek)
+    wall["sinks_s"] = time.perf_counter() - t0
+    launches_sinks = read_launches(ek, hll)
+    if launches_sinks["flush_extract"] < 1:
+        raise AssertionError("flush_extract was not launched on the sinks' "
+                             "path (phase 15)")
     # this slice's own paths, each counted from 0 just before its run
     reset_launches(ek, hll)
     t0 = time.perf_counter()
@@ -4436,7 +5060,8 @@ def main() -> int:
                 "launches_proxy": launches_proxy[name],
                 "launches_query": launches_query[name],
                 "launches_governed": launches_governed[name],
-                "launches_pipeline": launches_pipeline[name]}
+                "launches_pipeline": launches_pipeline[name],
+                "launches_sinks": launches_sinks[name]}
 
     source = "veneur_tpu_torch/csrc/flush_extract.cu"
     kernels = {"kernels": [{

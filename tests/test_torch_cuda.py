@@ -27,7 +27,11 @@ unchanged after a later fold); the governed extraction's launch pattern
 (the extract kernel over pow2 row chunks of a 1,048,576-row pool,
 concatenated, bitwise the one-shot launch at P = 3 and 32; a misaligned
 base raises before any launch; a governed worker bitwise a CPU worker,
-one launch per chunk, the transfer ledgers equal).
+one launch per chunk, the transfer ledgers equal); and the flush archive
+(a card flush's VMB1 frame, native and Python, equal to the CPU's, every
+plan-capable section through the native encoder) and a server with the
+archive, the plugins and the remaining span sinks on the card, its
+archive replayed into a card global bitwise, merged once under dedup.
 
 Every test here is marked ``cuda`` and skips without a card. On a card
 machine (no JAX needed) run them with
@@ -1189,3 +1193,124 @@ def test_governed_worker_on_the_card_equals_cpu(card):
         assert np.array_equal(a.view(np.uint32), b.view(np.uint32)), f
     assert workers[0].ledger.flush_h2d() == workers[1].ledger.flush_h2d()
     assert workers[0].ledger.flush_d2h() == workers[1].ledger.flush_d2h()
+
+
+# -- the flush archive and the plugins (card against CPU) ---------------------
+
+
+def test_archive_frame_of_a_card_flush_equals_cpu(card):
+    """A card worker's flush and its CPU twin's, archived as VMB1: the
+    native and the Python frames are byte for byte one frame, and every
+    plan-capable group took the native section encoder."""
+    from veneur_tpu_torch.archive import wire
+    from veneur_tpu_torch.core.flusher import (device_quantiles,
+                                               generate_columnar)
+    from veneur_tpu_torch.core.metrics import HistogramAggregates
+
+    aggs = HistogramAggregates.from_names(["min", "max", "count", "sum"])
+    qs = device_quantiles([0.5, 0.99], aggs)
+    rng = np.random.default_rng(12)
+    lines = [f"arch.{i % 211}:{v:.4f}|ms|#ep:e{i % 5}".encode()
+             for i, v in enumerate(rng.gamma(2.0, 20.0, 20_000))]
+    lines += [f"arch.c{i}:{i % 7}|c|#k:{i}".encode() for i in range(300)]
+    lines += [f"arch.g{i}:{rng.normal():.6f}|g".encode() for i in range(300)]
+    lines += _set_lines(3)[:500]
+    lines.append(b"arch.routed:1|c|#veneursinkonly:datadog")
+    frames = []
+    wire.reset_section_counts()
+    before = ek.flush_extract.launches
+    for device in (card, "cpu"):
+        w = tw.DeviceWorker(batch_size=4096, device=device)
+        for line in lines:
+            w.process_metric(parse_metric(line))
+        batch = generate_columnar(w.flush(qs), False, [0.5, 0.99], aggs,
+                                  now=1_700_000_000)
+        frames += [wire.encode_flush(batch, "card", use_native=True),
+                   wire.encode_flush(batch, "card", use_native=False)]
+    assert ek.flush_extract.launches > before
+    assert all(f == frames[0] for f in frames[1:])
+    planned = sum(plan is not None and g.nrows > 0 and bool(g.families)
+                  for g, plan in zip(batch.groups, batch.emit_plan()))
+    assert planned > 0
+    # two native encodes (card, CPU) took every planned group
+    assert wire.SECTION_COUNTS["native"] == 2 * planned
+    decoded = wire.decode_flush(frames[0][0])
+    assert len(decoded["samples"]) == frames[0][1] == len(
+        batch.materialize())
+
+
+def test_archive_server_on_the_card_replays_bitwise(card, tmp_path):
+    """A factory-built server on the card with archive_dir, flush_file
+    and the blob plugin: its flush launches K1, the plugin pass runs,
+    its archive replays into a card global whose counters and gauges are
+    the flushed ones bitwise, and a dedup replay run twice merges once;
+    the local file and the archive equal a CPU server's."""
+    import struct
+    from collections import Counter
+
+    from veneur_tpu_torch.archive import read_archive, wire
+    from veneur_tpu_torch.archive.replay import replay_frames
+    from veneur_tpu_torch.core.config import load_config
+    from veneur_tpu_torch.core.factory import build_server
+    from veneur_tpu_torch.distributed.import_server import ImportServer
+
+    def canon(ms):
+        return Counter((m.name, tuple(sorted(m.tags)), int(m.type),
+                        struct.pack("<d", float(m.value)))
+                       for m in ms if int(m.type) in (0, 1))
+
+    rng = np.random.default_rng(4)
+    lines = [f"rp.t{i % 50}:{v:.3f}|ms".encode()
+             for i, v in enumerate(rng.gamma(2.0, 9.0, 3000))]
+    lines += [f"rp.c{i}:{i * 3 + 1}|c|#k:{i % 4}".encode()
+              for i in range(200)]
+    lines += [f"rp.g{i}:{rng.normal():.9f}|g".encode() for i in range(200)]
+    puts = []
+    got = {}
+    wire.reset_section_counts()
+    for dev in ("cuda", "cpu"):
+        d = tmp_path / dev
+        data = {"interval": "10s", "hostname": "arch", "percentiles": [0.5],
+                "aggregates": ["min", "max", "count"],
+                "tpu_native_ingest": False, "micro_fold": False,
+                "archive_dir": str(d / "arch"),
+                "flush_file": str(d / "flush.tsv"),
+                "archive_blob_bucket": "bkt",
+                "archive_blob_access_key": "AK",
+                "archive_blob_secret_key": "SK"}
+        srv = build_server(load_config(data=data), device=dev,
+                           opener=lambda req, timeout: puts.append(req.data))
+        before = ek.flush_extract.launches
+        try:
+            for line in lines:
+                srv.process_metric_packet(line)
+            out = srv.flush(now=1_700_000_000)
+            phases = dict(srv.last_flush_phases)
+        finally:
+            srv.shutdown()
+        if dev == "cuda":
+            assert ek.flush_extract.launches > before
+        assert "plugin_flush_s" in phases
+        got[dev] = (read_archive(str(d / "arch")),
+                    (d / "flush.tsv").read_bytes(), canon(out.materialize()))
+    assert got["cuda"] == got["cpu"]
+    assert len(puts) == 2 and puts[0] == puts[1]
+    assert puts[0] == got["cuda"][0][0]
+    assert wire.SECTION_COUNTS["native"] > 0
+    frames, _tsv, expected = got["cuda"]
+    glob = Server(Config(interval="10s"), device="cuda")
+    try:
+        imp = ImportServer(glob)
+        replay_frames(frames, apply_batch=imp.handle_batch)
+        assert canon(glob.flush(now=1_700_000_010)) == expected
+    finally:
+        glob.shutdown()
+    glob = Server(Config(interval="10s"), device="cuda")
+    try:
+        imp = ImportServer(glob)
+        s1 = replay_frames(frames, apply_wire=imp.handle_wire, dedup=True)
+        s2 = replay_frames(frames, apply_wire=imp.handle_wire, dedup=True)
+        assert imp.metrics_deduped == s2["imported"] == s1["imported"] > 0
+        assert canon(glob.flush(now=1_700_000_010)) == expected
+    finally:
+        glob.shutdown()

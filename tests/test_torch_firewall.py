@@ -71,6 +71,30 @@ def test_every_module_imports_without_jax():
     assert res == {"imported": len(mods), "bad": []}
 
 
+# the remaining sinks, the flush archive, the plugins and the two CLIs
+SINKS_ARCHIVE_PLUGINS = (
+    "veneur_tpu_torch.archive", "veneur_tpu_torch.archive.wire",
+    "veneur_tpu_torch.archive.sink", "veneur_tpu_torch.archive.replay",
+    "veneur_tpu_torch.archive.blob", "veneur_tpu_torch.plugins",
+    "veneur_tpu_torch.plugins.localfile", "veneur_tpu_torch.plugins.s3",
+    "veneur_tpu_torch.sinks.kafka", "veneur_tpu_torch.sinks.kafka_wire",
+    "veneur_tpu_torch.sinks.splunk", "veneur_tpu_torch.sinks.xray",
+    "veneur_tpu_torch.sinks.lightstep", "veneur_tpu_torch.sinks.grpsink",
+    "veneur_tpu_torch.gen.lightstep_collector_pb2",
+    "veneur_tpu_torch.cli.emit", "veneur_tpu_torch.cli.prometheus_poller")
+
+
+def test_sinks_archive_and_plugins_import_without_jax():
+    mods = _modules()
+    assert set(SINKS_ARCHIVE_PLUGINS) <= set(mods)
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKER, json.dumps(SINKS_ARCHIVE_PLUGINS)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res == {"imported": len(SINKS_ARCHIVE_PLUGINS), "bad": []}
+
+
 def _imports(path: Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):

@@ -222,7 +222,7 @@ def test_veneur_main_validate_config(tmp_path, capsys):
     assert veneur_main(["-f", str(unknown), "-validate-config"]) == 0
     assert veneur_main(["-f", str(unknown), "-validate-config-strict"]) == 1
     refused = tmp_path / "refused.yaml"
-    refused.write_text("archive_dir: /nonexistent\n")
+    refused.write_text("series_shards: 2\n")
     assert veneur_main(["-f", str(refused), "-validate-config"]) == 1
 
 

@@ -160,9 +160,28 @@ def test_udp_round_trip():
     ("forward_address", "127.0.0.1:9,127.0.0.1:10"),
     ("archive_dir", "/nonexistent"),
 ])
-def test_unported_key_refused_by_name(key, value):
+def test_unported_key_refused_by_name(key, value, tmp_path):
     # a forwarding fleet validates only over gRPC (core/config.py)
     data = {**BASE, "forward_use_grpc": True, key: value}
+    if key == "archive_dir":
+        # the flush archive is ported: the port builds the JAX factory's
+        # MetricArchiveSink (tests/test_torch_archive.py)
+        from veneur_tpu.core.factory import build_server as jbuild
+
+        built = []
+        for pkg, build in (("jax", lambda d: jbuild(jload(data=d))),
+                           ("port", lambda d: build_server(
+                               tload(data=d), device="cpu"))):
+            built.append(build({**data, key: str(tmp_path / pkg)}))
+        try:
+            assert [[type(s).__name__ for s in srv.metric_sinks]
+                    for srv in built] == [["MetricArchiveSink"]] * 2
+            assert [srv.metric_sinks[0].writer.max_segments
+                    for srv in built] == [8, 8]
+        finally:
+            for srv in built:
+                srv.shutdown()
+        return
     if key in ("forward_discovery_file", "forward_address"):
         # the sharded proxy tier is ported: the factory builds the fleet's
         # SpreadForwarder as the JAX factory does (tests/test_torch_spread.py)

@@ -10,8 +10,9 @@ on the CPU.
   random sender token, pinned here to one value in both packages; the
   key order across a sink's parallel POSTs is the threads', so requests
   compare as multisets and the keys as a set.
-* The factory builds each sink from its key as the JAX factory does;
-  every key that stays unported is refused by name; ``reader_shards``
+* The factory builds each sink from its key as the JAX factory does,
+  the Kafka, Splunk, X-Ray, LightStep and falconer keys included;
+  ``reader_shards``
   (the key, ``VENEUR_READER_SHARDS`` and the default -1) resolves as in
   the JAX package and the server runs that many reader shards.
 * A JAX server and a port server, built by their factories with the
@@ -38,8 +39,7 @@ from veneur_tpu.protocol import dogstatsd as jdog
 from veneur_tpu_torch.core import flusher as tflusher
 from veneur_tpu_torch.core import worker as tw
 from veneur_tpu_torch.core.config import load_config as tload
-from veneur_tpu_torch.core.factory import (RUNS_WITHOUT_KEYS,
-                                           UnportedConfigError)
+from veneur_tpu_torch.core.factory import RUNS_WITHOUT_KEYS
 from veneur_tpu_torch.core.factory import build_server as tbuild
 from veneur_tpu_torch.core.metrics import HistogramAggregates as TAggs
 from veneur_tpu_torch.protocol import dogstatsd as tdog
@@ -357,6 +357,14 @@ def test_factory_builds_every_sink_at_once():
         ts.shutdown()
 
 
+# companions a key needs before the JAX factory builds its sinks
+SINK_KEY_COMPANIONS = {
+    "kafka_broker": {"kafka_metric_topic": "metrics",
+                     "kafka_span_topic": "spans"},
+    "splunk_hec_address": {"splunk_hec_token": "tok"},
+}
+
+
 @pytest.mark.parametrize("key,value", [
     ("kafka_broker", "127.0.0.1:9092"),
     ("splunk_hec_address", "http://127.0.0.1:9"),
@@ -382,8 +390,20 @@ def test_unported_sink_keys_refused_by_name(key, value, tmp_path):
             srv.shutdown()
         assert srv._journals == {}
         return
-    with pytest.raises(UnportedConfigError, match=key):
-        tbuild(tload(data=data), device="cpu")
+    # the remaining sinks are ported: each key builds the JAX factory's
+    # sinks, with the same delivery policy (tests/test_torch_kafka.py and
+    # tests/test_torch_span_sinks.py hold their bytes)
+    data.update(SINK_KEY_COMPANIONS.get(key, {}))
+    built = [jbuild(jload(data=data)), tbuild(tload(data=data), device="cpu")]
+    try:
+        kinds = [[[(type(s).__name__, s.name(), _policy(s)) for s in sinks]
+                  for sinks in (srv.metric_sinks, srv.span_sinks)]
+                 for srv in built]
+        assert kinds[1] == kinds[0]
+        assert len(kinds[1][1]) == 1
+    finally:
+        for srv in built:
+            srv.shutdown()
 
 
 def test_no_default_runs_without_the_port():

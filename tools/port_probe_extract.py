@@ -26,7 +26,9 @@ Then, for the wide kernel of every variant (any P, quantile blocks of
 16): its ptxas report, bitwise equality with the plain version at
 S = 1,000,003 and P = 32 (and, for the variant flush_extract launches,
 P = 17 and 64), and the median times at P = 32 for S = 131,072 and
-1,048,576 beside the narrow kernel's at P = 3 for the same S.
+1,048,576 beside the narrow kernel's at P = 3 for the same S, and for
+the variant flush_extract launches the plain version's time at P = 32
+(the median of 5 calls) for the same S.
 Then the fastest variant that is bitwise and spill-free, and, as a
 yardstick of the card's read rate, ``torch.sum`` over means and weights.
 Before all that, ``cuobjdump -sass`` of the library: how many of the
@@ -383,6 +385,12 @@ def probe_wide(fields) -> list[dict]:
                 spin_cycles=2_000_000)
             v[f"bound_ms_p{WIDE_P}_s{s}"] = b_ms
             v[f"bound_by_p{WIDE_P}_s{s}"] = b_by
+            if r == ek.ROWS_PER_WARP:
+                # the plain version at P = 32, beside the kernel it checks
+                v[f"plain_ms_p{WIDE_P}_s{s}"] = cuda_ms(
+                    lambda: ek.flush_extract_plain(*rows, q32), 5)
+                log(f"[probe] plain P={WIDE_P} S={s}: "
+                    f"{v[f'plain_ms_p{WIDE_P}_s{s}']:.4f} ms")
         log(f"[probe] wide r{r}: {v.get('registers', '?')} registers, "
             f"{v.get('spill_stores', '?')} B spill stores, "
             f"{v.get('spill_loads', '?')} B spill loads, "

@@ -12,25 +12,38 @@ Metric sinks (the metric half of veneur_tpu/core/factory.py): Datadog
 (``prometheus_repeater_address``) and pushgateway
 (``prometheus_pushgateway_address``), forward-statsd
 (``forward_statsd_address``), New Relic (``newrelic_insert_key`` with
-``newrelic_account_id``) and the debug sink. Every network sink but New
-Relic gets its own DeliveryManager from one ``DeliveryPolicy`` (retry,
-breaker, deadline clip, spill). ``opener`` is injected into every HTTP
-sink for tests. With ``flush_emit_native`` (on by default) the native
-library is loaded here, so a library that does not build fails the
-start, not each flush. Kafka stays refused. ``spill_journal_dir`` backs
-every network sink's delivery spill with a write-ahead journal
-(utils/journal.py; the server attaches and replays it at ``start()``).
+``newrelic_account_id``), Kafka (``kafka_broker`` with
+``kafka_metric_topic`` or ``kafka_check_topic``), the flush archive
+(``archive_dir``: a ``MetricArchiveSink`` over a
+``SegmentedArchiveWriter``) and the debug sink. Every network sink but
+New Relic and Kafka gets its own DeliveryManager from one
+``DeliveryPolicy`` (retry, breaker, deadline clip, spill). ``opener`` is
+injected into every HTTP sink and plugin for tests. With
+``flush_emit_native`` (on by default) the native library is loaded
+here, so a library that does not build fails the start, not each flush.
+``spill_journal_dir`` backs every network sink's delivery spill with a
+write-ahead journal (utils/journal.py; the server attaches and replays
+it at ``start()``).
+
+Plugins, run after the sinks on each flush: the local flush file
+(``flush_file``), the S3 TSV upload (``aws_s3_bucket`` with
+``aws_access_key_id``) and the archive's blob upload
+(``archive_blob_bucket`` with ``archive_blob_access_key``).
 
 Spans: ``ssf_listen_addresses`` (udp://, unix://, unixgram://) start the
 SSF listeners, and statsd listeners take tcp:// (TLS with ``tls_key``
 and ``tls_certificate``, mutual TLS with ``tls_authority_certificate``)
 and unixgram:// besides udp://. The span sinks built: Datadog trace
 (``datadog_trace_api_address``), New Relic spans
-(``newrelic_trace_observer_url`` with ``newrelic_insert_key``), debug
-(``debug_ingested_spans``) and the span log (``span_log_dir``: a
+(``newrelic_trace_observer_url`` with ``newrelic_insert_key``), Kafka
+(``kafka_span_topic``; ``kafka_span_serialization_format: columnar``
+builds a ``SpanBatchSink`` over a ``KafkaBatchWriter``), Splunk HEC
+(``splunk_hec_address`` with ``splunk_hec_token``), X-Ray
+(``xray_address``), LightStep (``lightstep_access_token`` or
+``trace_lightstep_access_token``), falconer (``falconer_address``),
+debug (``debug_ingested_spans``) and the span log (``span_log_dir``: a
 ``SpanBatchSink`` over a ``SegmentedLogWriter``), plus
-``extra_span_sinks``. The Splunk, X-Ray, LightStep and falconer span
-sinks stay refused by name.
+``extra_span_sinks``.
 
 The micro-fold (``micro_fold``, ``micro_fold_rows``,
 ``micro_fold_max_age_s``) and the device fault domain (``device_guard``,
@@ -92,28 +105,11 @@ class UnportedConfigError(ValueError):
     """A config key asks for a feature outside the port's slice."""
 
 
-def _on(v) -> bool:
-    return bool(v)
-
-
-# key → predicate: the config turns an unported feature on
+# key → predicate: the config turns an unported feature on (the
+# multi-device schedulers and layouts)
 REFUSED_KEYS = {
-    # device-side schedulers and layouts
     "series_shards": lambda v: v not in (0, 1),
     "tpu_mesh_devices": lambda v: v > 1,
-    # archive and plugins
-    "archive_dir": _on,
-    "archive_blob_bucket": _on,
-    "flush_file": _on,
-    "aws_s3_bucket": _on,
-    # Kafka and the span sinks of the next span slice (Datadog trace,
-    # New Relic spans, debug and the span log are ported)
-    "kafka_broker": _on,
-    "splunk_hec_address": _on,
-    "xray_address": _on,
-    "lightstep_access_token": _on,
-    "trace_lightstep_access_token": _on,
-    "falconer_address": _on,
 }
 
 # on by default, result-neutral: the port runs without them
@@ -157,6 +153,8 @@ def build_server(cfg: Config, extra_metric_sinks=None,
     # DeliveryManager built from it (sinks/delivery.py)
     policy = DeliveryPolicy.from_config(cfg, interval)
     kw = {"opener": opener} if opener else {}
+    # sinks that have grown the delivery layer take the policy; the
+    # rest (kafka, xray, newrelic, lightstep) keep their own handling
     dkw = {**kw, "delivery": policy}
 
     hostname = cfg.hostname
@@ -262,6 +260,118 @@ def build_server(cfg: Config, extra_metric_sinks=None,
             **kw,
         ))
 
+    if cfg.kafka_broker:
+        from veneur_tpu_torch.sinks.kafka import (
+            KafkaMetricSink, KafkaSpanSink, default_producer)
+
+        def _buf_ms(spec: str) -> float:
+            return parse_duration(spec) * 1000.0 if spec else 0.0
+
+        # one producer per sink, each with its own ack/buffer tuning
+        # (reference builds a sarama config per sink,
+        # sinks/kafka/kafka.go:83,264)
+        try:
+            if cfg.kafka_metric_topic or cfg.kafka_check_topic:
+                producer = default_producer(
+                    cfg.kafka_broker, cfg.kafka_retry_max,
+                    cfg.kafka_metric_require_acks,
+                    buffer_bytes=cfg.kafka_metric_buffer_bytes,
+                    buffer_ms=_buf_ms(cfg.kafka_metric_buffer_frequency),
+                    buffer_messages=cfg.kafka_metric_buffer_messages,
+                    partitioner=cfg.kafka_partitioner or "hash")
+                metric_sinks.append(KafkaMetricSink(
+                    producer, cfg.kafka_check_topic, cfg.kafka_event_topic,
+                    cfg.kafka_metric_topic))
+            if cfg.kafka_span_topic:
+                span_producer = default_producer(
+                    cfg.kafka_broker, cfg.kafka_retry_max,
+                    (cfg.kafka_span_require_acks
+                     or cfg.kafka_metric_require_acks),
+                    buffer_bytes=cfg.kafka_span_buffer_bytes,
+                    buffer_ms=_buf_ms(cfg.kafka_span_buffer_frequency),
+                    buffer_messages=cfg.kafka_span_buffer_mesages,
+                    partitioner=cfg.kafka_partitioner or "hash")
+                if cfg.kafka_span_serialization_format == "columnar":
+                    # columnar batch lane: one VSB1 frame per sealed
+                    # batch through the delivery manager (retry/breaker/
+                    # spill) instead of the drop-only per-span sink
+                    from veneur_tpu_torch.spans import (
+                        KafkaBatchWriter, SpanBatchSink)
+
+                    span_sinks.append(SpanBatchSink(
+                        KafkaBatchWriter(span_producer,
+                                         cfg.kafka_span_topic),
+                        name="kafka",
+                        delivery=policy,
+                        batch_rows=cfg.span_batch_rows,
+                        pending_cap=cfg.span_pending_cap))
+                else:
+                    span_sinks.append(KafkaSpanSink(
+                        span_producer, cfg.kafka_span_topic,
+                        cfg.kafka_span_serialization_format,
+                        cfg.kafka_span_sample_rate_percent,
+                        cfg.kafka_span_sample_tag))
+        except RuntimeError as e:
+            log.warning("kafka sink disabled: %s", e)
+
+    if cfg.splunk_hec_address and cfg.splunk_hec_token:
+        from veneur_tpu_torch.sinks.splunk import SplunkSpanSink
+
+        span_sinks.append(SplunkSpanSink(
+            hec_address=cfg.splunk_hec_address,
+            token=cfg.splunk_hec_token,
+            hostname=hostname,
+            batch_size=cfg.splunk_hec_batch_size,
+            submission_workers=cfg.splunk_hec_submission_workers,
+            span_sample_rate=cfg.splunk_span_sample_rate,
+            send_timeout_s=(parse_duration(cfg.splunk_hec_send_timeout)
+                            if cfg.splunk_hec_send_timeout else 10.0),
+            ingest_timeout_s=(
+                parse_duration(cfg.splunk_hec_ingest_timeout)
+                if cfg.splunk_hec_ingest_timeout else 0.0),
+            connection_lifetime_s=(
+                parse_duration(cfg.splunk_hec_max_connection_lifetime)
+                if cfg.splunk_hec_max_connection_lifetime else 60.0),
+            connection_lifetime_jitter_s=(
+                parse_duration(cfg.splunk_hec_connection_lifetime_jitter)
+                if cfg.splunk_hec_connection_lifetime_jitter else 30.0),
+            tls_validate_hostname=cfg.splunk_hec_tls_validate_hostname,
+            **dkw,
+        ))
+
+    if cfg.xray_address:
+        from veneur_tpu_torch.sinks.xray import XRaySpanSink
+
+        span_sinks.append(XRaySpanSink(
+            cfg.xray_address, cfg.xray_sample_percentage,
+            cfg.xray_annotation_tags))
+
+    if cfg.lightstep_access_token or cfg.trace_lightstep_access_token:
+        from veneur_tpu_torch.sinks.lightstep import LightStepSpanSink
+
+        span_sinks.append(LightStepSpanSink(
+            access_token=(cfg.lightstep_access_token
+                          or cfg.trace_lightstep_access_token),
+            collector_host=(cfg.lightstep_collector_host
+                            or cfg.trace_lightstep_collector_host
+                            or "https://collector.lightstep.com"),
+            num_clients=(cfg.lightstep_num_clients
+                         or cfg.trace_lightstep_num_clients or 1),
+            maximum_spans=(cfg.lightstep_maximum_spans
+                           or cfg.trace_lightstep_maximum_spans or 100000),
+            reconnect_period_s=(
+                parse_duration(cfg.lightstep_reconnect_period
+                               or cfg.trace_lightstep_reconnect_period)
+                if (cfg.lightstep_reconnect_period
+                    or cfg.trace_lightstep_reconnect_period) else 0.0),
+            **kw,
+        ))
+
+    if cfg.falconer_address:
+        from veneur_tpu_torch.sinks.grpsink import FalconerSpanSink
+
+        span_sinks.append(FalconerSpanSink(cfg.falconer_address))
+
     if cfg.span_log_dir:
         from veneur_tpu_torch.spans import SegmentedLogWriter, SpanBatchSink
 
@@ -271,6 +381,17 @@ def build_server(cfg: Config, extra_metric_sinks=None,
             delivery=policy,
             batch_rows=cfg.span_batch_rows,
             pending_cap=cfg.span_pending_cap))
+
+    if cfg.archive_dir:
+        from veneur_tpu_torch.archive import (
+            MetricArchiveSink, SegmentedArchiveWriter)
+
+        metric_sinks.append(MetricArchiveSink(
+            SegmentedArchiveWriter(cfg.archive_dir,
+                                   max_segment_bytes=cfg.archive_max_bytes,
+                                   max_segments=cfg.archive_max_segments),
+            hostname=hostname,
+            delivery=policy))
 
     if cfg.debug_flushed_metrics:
         from veneur_tpu_torch.sinks.debug import DebugMetricSink
@@ -287,6 +408,28 @@ def build_server(cfg: Config, extra_metric_sinks=None,
         native.load_library()
     server = Server(cfg, metric_sinks=metric_sinks, device=device,
                     span_sinks=span_sinks, inherited_fds=inherited_fds)
+
+    # plugins (reference server.go:737-785)
+    if cfg.flush_file:
+        from veneur_tpu_torch.plugins.localfile import LocalFilePlugin
+
+        server.plugins.append(LocalFilePlugin(cfg.flush_file, interval))
+    if cfg.aws_s3_bucket and cfg.aws_access_key_id:
+        from veneur_tpu_torch.plugins.s3 import S3Plugin
+
+        server.plugins.append(S3Plugin(
+            cfg.aws_s3_bucket, cfg.aws_region or "us-east-1",
+            cfg.aws_access_key_id, cfg.aws_secret_access_key, interval,
+            **kw,
+        ))
+    if cfg.archive_blob_bucket and cfg.archive_blob_access_key:
+        from veneur_tpu_torch.archive import ArchiveBlobPlugin
+
+        server.plugins.append(ArchiveBlobPlugin(
+            cfg.archive_blob_bucket, cfg.archive_blob_region,
+            cfg.archive_blob_access_key, cfg.archive_blob_secret_key,
+            **dkw,
+        ))
 
     # forwarding (a local): one static upstream, or the sharded proxy
     # tier (comma-separated forward_address / discovered fleet)

@@ -103,9 +103,12 @@ server built with ``inherited_fds`` adopts them; ``enable_profiling``
 records a ``torch.profiler`` trace (CPU and CUDA) from ``start`` and
 writes it as a Chrome trace into ``profile_dir`` at shutdown.
 
-Not in this slice (the factory refuses their config keys): plugins,
-series sharding and the mesh, the Kafka, Splunk, X-Ray, LightStep and
-falconer sinks.
+Flush plugins (``plugins``: local file, S3, the archive's blob upload)
+run after the sinks on every flush that emitted, on the columnar batch
+itself, in a thread joined at the interval (``plugin_flush_s``).
+
+Not in this slice (the factory refuses their config keys): series
+sharding and the mesh.
 """
 
 from __future__ import annotations
@@ -351,6 +354,9 @@ class Server:
             probe_interval_s=cfg.device_probe_interval_s,
             enabled=cfg.device_guard and guard_enabled_default())
         self.event_worker = EventWorker()
+        # the name the plugins file each flush under
+        self.hostname = cfg.hostname or (
+            "" if cfg.omit_empty_hostname else socket.gethostname())
         self.metric_sinks: list[MetricSink] = list(metric_sinks or [])
         self.span_sinks: list[SpanSink] = list(span_sinks or [])
         self.sink_excluded_tags: dict[str, set[str]] = {}
@@ -365,6 +371,7 @@ class Server:
             add_tags=list(cfg.tags) + list(cfg.veneur_metrics_additional_tags),
             scopes=cfg.veneur_metrics_scopes, namespace="veneur."))
         self._span_sink_reported: dict[tuple[str, str], int] = {}
+        self._plugin_reported: dict[tuple[str, str], int] = {}
         # interval-delta bookkeeping of the lifetime counters sent
         self._errors_reported = 0
         self._delivery_reported: dict[tuple[str, str], int] = {}
@@ -500,6 +507,9 @@ class Server:
         self._forward_thread: Optional[threading.Thread] = None
         self.import_server = None
         self.import_http = None
+        # flush-time archival plugins (reference plugins/plugins.go),
+        # run after the sinks
+        self.plugins: list = []
         # write-ahead spill journals (utils/journal.py), one per
         # journalable delivery manager, attached in start() when
         # spill_journal_dir is set; shutdown_stats is filled by
@@ -590,8 +600,8 @@ class Server:
         return out
 
     def _delivery_managers(self):
-        """(report name, DeliveryManager) for every sink that carries
-        one; span sinks report under <name>_spans."""
+        """(report name, DeliveryManager) for every sink and plugin that
+        carries one; span sinks report under <name>_spans."""
         out = []
         for sink in self.metric_sinks:
             man = getattr(sink, "delivery", None)
@@ -601,6 +611,10 @@ class Server:
             man = getattr(sink, "delivery", None)
             if man is not None:
                 out.append((sink.name() + "_spans", man))
+        for plugin in self.plugins:
+            man = getattr(plugin, "delivery", None)
+            if man is not None:
+                out.append((plugin.name(), man))
         return out
 
     def delivery_stats(self) -> dict[str, dict]:
@@ -2030,13 +2044,13 @@ class Server:
                                            report["chunk_max_s"] * 1e9)
 
     def _flush_generate(self, job: FlushJob) -> None:
-        """Generation: columnar whenever a metric sink exists (sinks that
-        cannot consume columns share the batch's one materialization),
-        stamped with the job's tick time; then a local's forward starts
-        on a thread of its own."""
+        """Generation: columnar whenever a metric sink or a plugin exists
+        (sinks that cannot consume columns, and TSV plugins, share the
+        batch's one materialization), stamped with the job's tick time;
+        then a local's forward starts on a thread of its own."""
         _t = time.perf_counter()
         batch = None
-        if self.metric_sinks:
+        if self.metric_sinks or self.plugins:
             for snap in job.snaps:
                 b = generate_columnar(snap, self.is_local, self.percentiles,
                                       self.aggregates, now=job.ts,
@@ -2065,20 +2079,24 @@ class Server:
 
     def _flush_emit(self, job: FlushJob) -> None:
         """Emission, one thread per sink outside the worker locks (the
-        object path runs only without metric sinks, so it emits
-        nothing), then the flush's self-telemetry. Rebinds
-        last_flush_phases last, so observers read the newest finished
-        flush."""
+        object path runs only without metric sinks and plugins, so it
+        emits nothing), then the plugin pass, then the flush's
+        self-telemetry. Rebinds last_flush_phases last, so observers read
+        the newest finished flush."""
         phases = job.phases
         batch = job.batch
         _t = time.perf_counter()
         threads = []
+        plugin_input = None
         if batch is not None and job.n_flushed:
             for sink in self.metric_sinks:
                 threads.append(self._spawn_sink(
                     self._flush_sink_columnar, f"flush-{sink.name()}",
                     sink, batch, self.sink_excluded_tags.get(sink.name())))
-        elif not job.final:
+            plugin_input = batch
+        elif job.final:
+            plugin_input = job.final
+        else:
             # quiet tick: the sinks' flushes do not run, but spilled
             # payloads must keep draining (and an open breaker must get
             # its half-open probe)
@@ -2094,8 +2112,10 @@ class Server:
                     _drain, f"spill-drain-{rname}"))
         for th in threads:
             th.join(timeout=self.interval)
-        if threads:
+        if threads or (batch is not None and job.n_flushed):
             phases["sink_flush_s"] = time.perf_counter() - _t
+        if self.plugins and plugin_input is not None:
+            self._run_plugins_clipped(plugin_input, phases)
         if self.config.count_unique_timeseries:
             self.last_unique_timeseries = self._tally_timeseries(job.snaps)
             self.stats.count(
@@ -2103,6 +2123,7 @@ class Server:
                 tags=[f"global_veneur:{str(not self.is_local).lower()}"])
         self.stats.count("flush.post_metrics_total", job.n_flushed)
         self._count_span_telemetry(job.span_counts)
+        self._count_plugin_telemetry()
         if self.query_engine is not None:
             served = self.query_engine.queries_served
             failed = self.query_engine.queries_failed
@@ -2339,6 +2360,55 @@ class Server:
                 d = delta((sink.name(), attr), total)
                 if d:
                     self.stats.count(metric, d, tags=tags)
+
+    def _count_plugin_telemetry(self) -> None:
+        """The plugins' own lifetime counters (flush errors, uploads,
+        rotations) as interval deltas, tagged per plugin, so a silently
+        failing archiver shows beside a failing sink."""
+        for plugin in self.plugins:
+            pname = plugin.name()
+            tags = [f"plugin:{pname}"]
+            for attr, metric in (
+                    ("flush_errors", "plugins.flush_errors_total"),
+                    ("uploads", "plugins.uploads_total"),
+                    ("rotations", "plugins.rotations_total")):
+                total = getattr(plugin, attr, None)
+                if total is None:
+                    continue
+                delta = total - self._plugin_reported.get((pname, attr), 0)
+                self._plugin_reported[(pname, attr)] = total
+                if delta:
+                    self.stats.count(metric, delta, tags=tags)
+
+    def _run_plugins_clipped(self, metrics, phases: dict) -> None:
+        """The plugin pass on a thread joined at the flush interval, the
+        deadline the sinks get, so a hung plugin (a blocked PUT, a full
+        disk) never holds the emit stage past its tick; an overrun is
+        counted and finishes on its own (the thread is a daemon)."""
+        t0 = time.perf_counter()
+        th = self._spawn_sink(self._flush_plugins, "flush-plugins", metrics)
+        th.join(timeout=self.interval)
+        if th.is_alive():
+            self.stats.count("plugins.flush_clipped_total", 1)
+        phases["plugin_flush_s"] = time.perf_counter() - t0
+
+    def _flush_plugins(self, metrics) -> None:
+        """reference flusher.go:117-131: plugins run after the sinks, each
+        on the columnar batch (iterable through its one materialization)
+        or the object list. A plugin's exception is logged and counted
+        as plugins.flush_errors_total."""
+        for plugin in self.plugins:
+            start = time.time()
+            tags = [f"plugin:{plugin.name()}"]
+            try:
+                plugin.flush(metrics, self.hostname)
+            except Exception:
+                log.exception("plugin %s flush failed", plugin.name())
+                self.stats.count("plugins.flush_errors_total", 1, tags=tags)
+            finally:
+                self.stats.time_in_nanoseconds(
+                    "plugins.flush_total_duration_ns",
+                    (time.time() - start) * 1e9, tags=tags)
 
     @staticmethod
     def _spawn_sink(target, name: str, *args) -> threading.Thread:

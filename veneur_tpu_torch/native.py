@@ -9,7 +9,8 @@ staging plane's watermark drain the micro-fold reads
 (``stage_pending``, ``drain_stage_delta``), and the emit tier the metric
 sinks serialize through (``emit_available``, ``encode_datadog_series``,
 ``encode_signalfx_body``, ``encode_prometheus_lines``,
-``encode_forward_lines``, ``encode_prometheus_exposition``, ``deflate``).
+``encode_forward_lines``, ``encode_prometheus_exposition``, ``deflate``)
+and the archive's VMB1 section encoder (``encode_archive_section``).
 The reader shards' owned contexts (``ingest_owned``,
 ``start_owned_reader``) and commit-mutex records (``lock_stats``), and the
 forward wire (``encode_histo_batch``, ``decode_metric_batch``,
@@ -17,8 +18,8 @@ forward wire (``encode_histo_batch``, ``decode_metric_batch``,
 ``codec_available``) are bound too, and so are the SSF span fast path
 (``ingest_ssf``, ``ingest_ssf_many``, ``ssf_spans``, ``ssf_invalid``,
 ``drain_ssf_services``, ``drain_ssf_fallback``, the C++ SSF reader) and
-the C++ line-stream reader of plain TCP connections. The archive and
-loadgen entry points wait for their slices.
+the C++ line-stream reader of plain TCP connections. The loadgen entry
+points wait for their slice.
 
 The library is built from the sources in ``native/`` at first use, by
 g++ with the flags of native/Makefile, into ``build/native/`` at the
@@ -250,6 +251,12 @@ def load_library() -> ctypes.CDLL:
         lib.vn_deflate_chunks.argtypes = [
             c.c_char_p, vp, ll, c.POINTER(vp), c.POINTER(c.c_char_p),
             c.POINTER(ll)]
+        # the archive tier (native/emit.cpp): VMB1 columnar sections
+        lib.vn_encode_archive_section.restype = ll
+        lib.vn_encode_archive_section.argtypes = [
+            c.c_char_p, ll, ll, c.c_char_p, ll,
+            vp, ci, vp, vp,
+            c.POINTER(c.c_char_p), c.POINTER(ll)]
         # reader shards: home-aware ingest (an owned context commits
         # every line, event and error into itself) and the commit-mutex
         # contention record
@@ -979,6 +986,32 @@ def encode_prometheus_exposition(meta_blob, nrows: int,
     return _encode_lines("vn_encode_prometheus_exposition", meta_blob,
                          nrows, suffixes, family_types, values, masks,
                          excluded_keys)
+
+
+def encode_archive_section(meta_blob, nrows: int,
+                           suffixes: list[str],
+                           family_types: np.ndarray,
+                           values: np.ndarray, masks: np.ndarray
+                           ) -> "Optional[bytes]":
+    """One VMB1 columnar section body (archive/wire.py) straight from an
+    EmitGroupPlan's buffers, GIL-free; byte-identical to the Python
+    encoder. None when the encoder refuses the input."""
+    lib = load_library()
+    c = ctypes
+    values = np.ascontiguousarray(values, np.float64)
+    masks = np.ascontiguousarray(masks, np.uint8)
+    family_types = np.ascontiguousarray(family_types, np.int8)
+    suffix_blob = "\x1f".join(suffixes).encode("utf-8")
+    meta_arg, meta_len = _blob_arg(meta_blob)
+    out = c.c_char_p()
+    out_len = c.c_longlong()
+    n = lib.vn_encode_archive_section(
+        meta_arg, meta_len, nrows, suffix_blob, len(suffix_blob),
+        _ptr(family_types), len(suffixes), _ptr(values), _ptr(masks),
+        c.byref(out), c.byref(out_len))
+    if n < 0:
+        return None
+    return ctypes.string_at(out, out_len.value)
 
 
 def deflate(data: bytes) -> Optional[bytes]:
