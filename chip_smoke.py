@@ -132,7 +132,7 @@ script exits non-zero:
    series space, 40 samples each from the local's seed, 4,096 global
    counters and gauges, 1,024 mixed sets at p = 14) flush and forward in
    turn to a port global on the card with grpc_address and
-   http_address, over gRPC streaming and (the first four locals: cut
+   http_address, over gRPC streaming and (the first two locals: cut
    for the run's time) over HTTP /import. Every
    payload the global applied is replayed, in order, into a CPU global:
    the card global's snapshot (K1 over the 65,536 merged rows, K5 over
@@ -218,7 +218,7 @@ script exits non-zero:
    14b: three intervals of phase 5's datagrams over UDP into a serial
    server and a flush_pipeline server on the card: InterMetrics and
    every sink byte equal. 14c, tools/soak_overload.py's shape cut to
-   about 20 s: a native server (2 workers, 2 C++ readers, a 2 s
+   about 10 s: a native server (2 workers, 2 C++ readers, a 2 s
    interval, tpu_spill_cap 16,384 under a 262,144-sample pending batch,
    so the contexts shed before the pump drains) under two unthrottled
    blaster threads, self-telemetry to a local UDP socket: shed samples reported,
@@ -232,9 +232,10 @@ script exits non-zero:
 15. the remaining sinks, the flush archive and the plugins, right after
    phase 8. 15a: phase 8's card batch (about 854,000 metrics) and its CPU
    twin through the VMB1 archive sink natively and in Python, the
-   local-file, S3 and blob plugins (a capturing opener, the clock
-   pinned) and the Kafka metric sink into an in-process broker (the
-   first 65,536 metrics of the batch): the native frame equals the
+   local-file and S3 plugins (the first quarter of the batch) and the
+   blob plugin (a capturing opener, the clock pinned) and the Kafka
+   metric sink into an in-process broker (the first 65,536 metrics of
+   the batch): the native frame equals the
    Python frame, the native section encoder built every section of the
    native arms (a Python section there fails the run), and every frame,
    TSV, request body and produce request of the card batch equals the
@@ -260,7 +261,22 @@ script exits non-zero:
    one card applies them through its ImportServer, and its CPU twin on
    a grid of the CPU: the snapshots bitwise equal, K1 once per series
    shard (``launches_mesh``); the import, the merge and the flush timed.
-17. on the line before the last two, the card's name and power limit;
+17. the load generator, after every other phase: a LoadHarness
+   (veneur_tpu_torch/loadgen) runs a server on the card with
+   tools/port_bench_sustained.py's configuration (UDP, a 2 s interval,
+   one worker, one C++ reader, the channel sink; the dense set store, so
+   the workload's sets reach the set kernels) and drives its real socket
+   with the C++ paced sender over the loadgen's default spec (a
+   200,000-line ring). 17a: after the harness's warmup, LG_RATE lines/s
+   for LG_INTERVALS intervals with no more than 1% loss and cadence at
+   least 0.75, every sample accounted for, K1, K4 and K5 launched.
+   17b: search_sustained on the same harness (LG_SEARCH); prints the
+   confirmed sustained rate, the offered rate, the confirmation run's
+   breakdown and /proc/sys/net/core/rmem_max; fails without a trial or a
+   confirmation record. 17c: a second harness with SSF spans at
+   LG_SSF_FRAC of LG_RATE: the span books balance exactly. Each part's
+   launches are ``launches_loadgen``.
+18. on the line before the last two, the card's name and power limit;
    then a ``kernels`` JSON line: every kernel with its launches on the
    main path (phases 4 to 5b: counts reset just before, read just
    after), its agreement with the plain version, its time, the plain
@@ -271,11 +287,11 @@ script exits non-zero:
    12 (``launches_proxy``), in phase 11 (``launches_spans``) and in
    phase 13 (``launches_query``), in 14a (``launches_governed``), in
    14b (``launches_pipeline``), in phase 15 (``launches_sinks``), in
-   16a (``launches_series``) and in 16b (``launches_mesh``), each
-   counted from 0 just before its run; the probe's variants beside it,
-   with their build report and launches (only the variant flush_extract
-   launches has any).
-18. the last line: {"ok": true, "device": {...}}.
+   16a (``launches_series``), in 16b (``launches_mesh``) and in 17a,
+   17b and 17c (``launches_loadgen``), each counted from 0 just before
+   its run; the probe's variants beside it, with their build report and
+   launches (only the variant flush_extract launches has any).
+19. the last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the veneur_tpu_torch package beside it, the
 script prints no result and exits 2. It imports nothing of JAX.
@@ -2086,8 +2102,8 @@ def phase_shard_server() -> dict:
 
 # bench.py's global_merge width (bench.py:394-397): 8 hosts, 65,536 series
 GM_HOSTS, GM_SERIES, GM_SAMPLES = 8, 65_536, 40
-# the HTTP arm forwards the first four locals (cut for the run's time)
-GM_HTTP_HOSTS = 4
+# the HTTP arm forwards the first two locals (cut for the run's time)
+GM_HTTP_HOSTS = 2
 GM_COUNTERS = GM_GAUGES = 4_096
 GM_SETS, GM_MEMBERS = 1_024, 256
 GM_NOW = 1_700_000_000
@@ -2490,9 +2506,10 @@ SERIES_SHARDS = 4
 # every centroid through a host loop and streams batches of MESH_BATCH
 # to the grid (distributed/mesh.MeshHistoPool); tools/port_probe_mesh.py
 # sized the cut: the CPU twin's import, past a minute at 65,536 series,
-# stays under one at 32,768
+# takes about 7 s at 8,192 (17 s at 16,384, 43 s at 32,768), which
+# leaves phase 17 its room inside the time limit on the slowest host seen
 MESH_DEVICES, MESH_HOSTS = 8, 2
-MESH_LOCALS, MESH_SERIES = 8, 32_768
+MESH_LOCALS, MESH_SERIES = 8, 8_192
 MESH_BATCH = 1 << 18
 
 
@@ -4002,7 +4019,7 @@ GOV_CHUNK_MS = 1
 GOV_MIN_CHUNKS = 8
 PIPE_INTERVALS = 3
 OVERLOAD_INTERVAL = "2s"
-OVERLOAD_S = 20.0
+OVERLOAD_S = 10.0
 # the overload run's spill cap and pending-batch size: the pump drains a
 # context's spill only past the batch size, so the blasters' timers reach
 # the cap first and the C++ contexts shed every interval. Two Python
@@ -4140,7 +4157,7 @@ def phase_pipeline(ek) -> dict:
 def phase_overload() -> dict:
     """14c, tools/soak_overload.py's shape cut for time: a native server
     (2 workers, 2 C++ readers) with a 2 s interval against two
-    unthrottled blaster threads for about 20 s, its self-telemetry sent
+    unthrottled blaster threads for about 10 s, its self-telemetry sent
     to a local UDP socket. Shed samples are counted in telemetry, the
     flushes keep the cadence, the spill-cap loop runs after every flush,
     and each ingest.spill_cap gauge is the loop's state when it
@@ -4425,6 +4442,9 @@ def phase_flush_ops(ek, hll) -> tuple:
 # materialization: one JSON message each, formatted in Python (PERF.md
 # section 4 lists the cut)
 KAFKA_CUT = 65_536
+# and its local-file and S3 arms a quarter of it (host TSV formatting,
+# 13 s a batch whole; PERF.md section 4 lists the cut)
+PLUGIN_CUT_DIV = 4
 SINKS_NOW = 1_700_000_000
 SINKS_HOST = "chip-smoke"
 # 15b: the SSF spans fed to the server beside phase 5's datagrams
@@ -4632,15 +4652,17 @@ def archive_arms(batch, tmp: Path, tag: str) -> dict:
         out[name] = read_archive(str(tmp / f"{tag}-{name}"))
     path = tmp / f"{tag}-flush.tsv"
     local = LocalFilePlugin(str(path), 10.0)
+    # iterating the batch is iterating its (memoized) materialization
+    head = batch.materialize()[:len(batch) // PLUGIN_CUT_DIV]
     t0 = time.perf_counter()
-    local.flush(batch, SINKS_HOST)
+    local.flush(head, SINKS_HOST)
     secs["localfile"] = time.perf_counter() - t0
     out["localfile"] = path.read_bytes()
     opener = CaptureOpener()
     s3p = S3Plugin("smoke-bucket", "us-west-2", "AK", "SK", 10.0,
                    opener=opener)
     t0 = time.perf_counter()
-    s3p.flush(batch, SINKS_HOST)
+    s3p.flush(head, SINKS_HOST)
     secs["s3"] = time.perf_counter() - t0
     blob = ArchiveBlobPlugin("smoke-bucket", "us-west-2", "AK", "SK",
                              opener=opener)
@@ -4732,10 +4754,12 @@ def phase_sinks_batch(batch, batch_c) -> dict:
             f"CPU batch {runs['cpu']['s'][name]:.4f} s; {b} bytes")
     log(f"[sinks] {len(batch)} metrics in {groups} groups: the VMB1 frame "
         f"({len(frames[0])} bytes) native equals Python and the CPU batch's; "
-        f"the TSV, the S3 and blob bodies and the Kafka produce requests "
+        f"the TSV and S3 bodies ({len(batch) // PLUGIN_CUT_DIV} metrics), "
+        f"the blob body and the Kafka produce requests "
         f"({min(KAFKA_CUT, len(batch))} messages) equal the CPU batch's")
     return {"metrics": len(batch), "groups": groups,
-            "kafka_messages": min(KAFKA_CUT, len(batch)), "bytes": sizes,
+            "kafka_messages": min(KAFKA_CUT, len(batch)),
+            "plugin_metrics": len(batch) // PLUGIN_CUT_DIV, "bytes": sizes,
             "card_s": runs["card"]["s"], "cpu_s": runs["cpu"]["s"]}
 
 
@@ -5013,6 +5037,147 @@ def phase_sinks_server(ek) -> dict:
 # -- main ---------------------------------------------------------------------
 
 
+# -- phase 17 -----------------------------------------------------------------
+
+
+# 17a's floor rate and trial length; 17b's search (start, growth, trial
+# and confirmation intervals, bisection steps); 17c's SSF share of LG_RATE.
+# tools/port_bench_sustained.py sized the search on the card: up to 5
+# growth trials bracket the cliff, each trial and bisection step takes
+# about 8 s and each confirmation attempt 22 s (up to three, backing off
+# 10% each), so 3 bisection steps and a retry took 115 s; one step leaves
+# the found rate further from the cliff, where a confirmation holds
+LG_RATE = 100_000
+LG_INTERVALS = 3
+LG_SEARCH = dict(start_rate=200_000.0, growth=1.6, trial_intervals=3,
+                 bisect_steps=1, confirm_intervals=10)
+LG_SSF_FRAC = 0.1
+LG_BREAKDOWN = ("tick_block_ms_mean", "ingest_stall_ms_mean",
+                "flush_ms_mean", "drain_ms_mean", "generate_ms_mean",
+                "emit_ms_mean", "micro_folds_total")
+
+
+def check_trial_books(harness, trial: dict, what: str) -> None:
+    """Every sample the server took is in its lifetime tally, nothing
+    was shed or mis-parsed, and the flushes emitted series."""
+    st = harness.server.ingress_stats()
+    if st["parse_errors"] or st["overload_dropped"] or trial["total_shed"]:
+        raise AssertionError(f"{what}: parse errors {st['parse_errors']}, "
+                             f"shed {st['overload_dropped']}")
+    if trial["total_accepted"] <= 0 or harness.flushed_series <= 0:
+        raise AssertionError(f"{what}: nothing accepted or flushed")
+    if any(k not in st for k in ("flush_count", "last_tick_s",
+                                 "micro_folds_total", "last_micro_folds")):
+        raise AssertionError(f"{what}: ingress_stats lacks the cadence keys")
+
+
+def phase_loadgen(ek, hll) -> tuple:
+    """Phase 17: the port's server on the card driven at wire rate by
+    the loadgen, with tools/port_bench_sustained.py's configuration and
+    the dense set store (the spec's sets hold at most tag_cardinality
+    members, under the staged store's promotion, so on the default
+    store no set kernel runs). Returns (the phase's record, each part's
+    launches)."""
+    import port_bench_sustained as bench
+    from veneur_tpu_torch.loadgen import (LoadHarness, WorkloadSpec,
+                                          run_trial, search_sustained)
+    from veneur_tpu_torch.loadgen.controller import result_artifact
+
+    spec = WorkloadSpec()
+    out: dict = {"rmem_max": bench.rmem_max(), "spec": spec.to_dict()}
+    launches = {}
+    t0 = time.perf_counter()
+    harness = LoadHarness(bench.bench_config(set_store="dense"), spec,
+                          device=DEVICE)
+    try:
+        out["ring"] = {"datagrams": len(harness.ring),
+                       "lines": harness.ring.total_lines,
+                       "bytes": harness.ring.total_bytes,
+                       "content_hash": "%016x" % harness.ring.content_hash}
+        if not harness.warmup():
+            raise AssertionError("phase 17: the harness's warmup never "
+                                 "saw three flushes on cadence")
+        out["warmup_s"] = time.perf_counter() - t0
+        # 17a: the floor rate
+        reset_launches(ek, hll)
+        trial = run_trial(harness, LG_RATE, LG_INTERVALS)
+        launches["a"] = read_launches(ek, hll)
+        out["a"] = {k: v for k, v in trial.items() if k != "intervals"}
+        out["a"]["intervals"] = trial["intervals"]
+        if not trial["passed"]:
+            raise AssertionError(
+                f"phase 17a: {LG_RATE} lines/s not held: loss "
+                f"{trial['loss_frac']}, cadence {trial['cadence_frac']}, "
+                f"{trial['intervals_completed']} intervals")
+        check_trial_books(harness, trial, "phase 17a")
+        for name in ("flush_extract", "hll_insert", "hll_estimate"):
+            if launches["a"][name] < 1:
+                raise AssertionError(f"phase 17a: {name} was not launched")
+        log(f"[loadgen] 17a: {LG_RATE} lines/s for {LG_INTERVALS} "
+            f"intervals: accepted {trial['accepted_lines_per_s']}/s, loss "
+            f"{trial['loss_frac']}, cadence {trial['cadence_frac']}, "
+            + ", ".join(f"{k} {trial[k]}" for k in LG_BREAKDOWN)
+            + f"; launches {launches['a']}")
+        out["a_s"] = time.perf_counter() - t0
+        # 17b: the sustained-rate search on the same harness
+        t1 = time.perf_counter()
+        reset_launches(ek, hll)
+        search = search_sustained(harness, **LG_SEARCH)
+        launches["b"] = read_launches(ek, hll)
+        res = result_artifact(spec, harness, search,
+                              "cuda" if DEVICE != "cpu" else "cpu")
+        out["b"] = res
+        out["b_s"] = time.perf_counter() - t1
+        confirm = search.get("confirm")
+        if not search["search_trials"] or not confirm:
+            raise AssertionError("phase 17b: the search ran no trial or "
+                                 "has no confirmation record")
+        log(f"[loadgen] 17b: rmem_max {out['rmem_max']}; sustained "
+            f"{res['sustained_pipeline_lines_per_s']} lines/s accepted at "
+            f"{res['sustained_offered_lines_per_s']} offered (confirmed "
+            f"{res['confirmed']}, loss {res['loss_frac']}, cadence "
+            f"{res['cadence_frac']}, {len(search['search_trials'])} "
+            "trials); confirmation: "
+            + ", ".join(f"{k} {confirm.get(k)}" for k in LG_BREAKDOWN)
+            + f"; {out['b_s']:.1f} s; launches {launches['b']}")
+        for t in search["search_trials"]:
+            log(f"[loadgen] 17b trial {t['offered_lines_per_s']:.0f}: "
+                f"accepted {t['accepted_lines_per_s']}, loss "
+                f"{t['loss_frac']}, cadence {t['cadence_frac']}, "
+                f"{'pass' if t['passed'] else 'fail'}")
+    finally:
+        harness.close()
+    # 17c: statsd and SSF spans mixed, the span books exact
+    t1 = time.perf_counter()
+    harness = LoadHarness(bench.bench_config(set_store="dense", ssf=True),
+                          spec, device=DEVICE, ssf_frac=LG_SSF_FRAC)
+    try:
+        reset_launches(ek, hll)
+        trial = run_trial(harness, LG_RATE, LG_INTERVALS)
+        launches["c"] = read_launches(ek, hll)
+        books = bench.settled_conservation(harness)
+        phases = harness.server.ingress_stats()["last_flush_phases"]
+    finally:
+        harness.close()
+    out["c"] = {k: v for k, v in trial.items() if k != "intervals"}
+    out["c"]["span_books"] = books
+    out["c"]["last_flush_phases"] = phases
+    out["c_s"] = time.perf_counter() - t1
+    if trial["intervals_completed"] != LG_INTERVALS \
+            or not books.get("balanced") \
+            or trial.get("total_spans_received", 0) <= 0:
+        raise AssertionError(f"phase 17c: span books {books} over "
+                             f"{trial['intervals_completed']} intervals")
+    log(f"[loadgen] 17c: {LG_RATE} lines/s with spans at "
+        f"{LG_SSF_FRAC}: accepted {trial['accepted_lines_per_s']}/s, loss "
+        f"{trial['loss_frac']}, spans sent {trial['total_spans_sent']} "
+        f"received {trial['total_spans_received']}, cadence "
+        f"{trial['cadence_frac']}; last flush "
+        + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
+        + f"; books {books}; launches {launches['c']}")
+    return out, launches
+
+
 def reset_launches(ek, hll) -> None:
     ek.flush_extract.launches = 0
     for r in ek.variant_launches:
@@ -5072,14 +5237,16 @@ def main() -> int:
     t_start = t0 = time.perf_counter()
     # one nvcc per kernel source and the g++ of the native library,
     # started together
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         builds = [pool.submit(ek.build), pool.submit(hll_kernel.build),
-                  pool.submit(native.build)]
+                  pool.submit(native.build),
+                  pool.submit(native.build_loadgen)]
         lib_paths = [f.result() for f in builds]
     ek.load()
     hll_kernel.load()
-    if native.source_hash() != native.source_stamp():
-        raise AssertionError("the native library's source stamp is not its "
+    if native.source_hash() != native.source_stamp() \
+            or native.loadgen_source_hash() != native.loadgen_source_stamp():
+        raise AssertionError("a native library's source stamp is not its "
                              "sources' hash")
     log(f"[setup] built and loaded "
         f"{', '.join(str(p.relative_to(ROOT)) for p in lib_paths)} in "
@@ -5268,6 +5435,10 @@ def main() -> int:
         if launches_spans[name] < 1:
             raise AssertionError(f"{name} was not launched on the span "
                                  "path (phase 11)")
+    # 17: the load generator at wire rate, each part counted from 0
+    t0 = time.perf_counter()
+    phases["loadgen"], launches_loadgen = phase_loadgen(ek, hll)
+    wall["loadgen_s"] = time.perf_counter() - t0
 
     def counts(name: str) -> dict:
         return {"launches": launches[name],
@@ -5283,7 +5454,9 @@ def main() -> int:
                 "launches_pipeline": launches_pipeline[name],
                 "launches_sinks": launches_sinks[name],
                 "launches_series": launches_series[name],
-                "launches_mesh": launches_mesh[name]}
+                "launches_mesh": launches_mesh[name],
+                "launches_loadgen": {part: got[name] for part, got
+                                     in launches_loadgen.items()}}
 
     source = "veneur_tpu_torch/csrc/flush_extract.cu"
     kernels = {"kernels": [{

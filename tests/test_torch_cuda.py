@@ -1442,3 +1442,27 @@ def test_mesh_pool_on_the_card_equals_cpu(card):
     assert launched == [4, 0]
     for k in outs[0]:
         assert outs[0][k].tobytes() == outs[1][k].tobytes(), k
+
+
+def test_load_harness_holds_50k_on_the_card(card):
+    """The loadgen drives a port server on the card through its UDP
+    socket: 50,000 lines/s over two 1 s intervals held (loss at most 1%,
+    cadence at least 0.75), the flush extract and HLL estimate kernels
+    launched (the dense set store takes the workload's sets)."""
+    from veneur_tpu_torch.loadgen import LoadHarness, WorkloadSpec, run_trial
+
+    cfg = Config(statsd_listen_addresses=["udp://127.0.0.1:0"],
+                 interval="1s", num_workers=1, num_readers=1,
+                 percentiles=[0.5, 0.99], read_buffer_size_bytes=8 << 20,
+                 tpu_set_store="dense")
+    h = LoadHarness(cfg, WorkloadSpec(ring_lines=50_000), device="cuda")
+    try:
+        assert h.warmup(rate=50_000)
+        k1, k5 = ek.flush_extract.launches, hll.estimate.launches
+        trial = run_trial(h, 50_000, 2)
+        k1, k5 = ek.flush_extract.launches - k1, hll.estimate.launches - k5
+    finally:
+        h.close()
+    assert trial["passed"], {k: v for k, v in trial.items()
+                             if k != "intervals"}
+    assert k1 >= 1 and k5 >= 1

@@ -115,6 +115,26 @@ def test_multi_device_modules_import_without_jax():
         assert not [n for n in _imports(path) if _forbidden(n)], mod
 
 
+# the load generator and the network fault wrappers
+LOADGEN = ("veneur_tpu_torch.loadgen", "veneur_tpu_torch.loadgen.spec",
+           "veneur_tpu_torch.loadgen.controller",
+           "veneur_tpu_torch.utils.faults")
+
+
+def test_loadgen_modules_import_without_jax():
+    assert set(LOADGEN) <= set(_modules())
+    proc = subprocess.run(
+        [sys.executable, "-c", _BLOCKER, json.dumps(LOADGEN)],
+        cwd=ROOT, capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, proc.stderr[-3000:]
+    res = json.loads(proc.stdout.strip().splitlines()[-1])
+    assert res == {"imported": len(LOADGEN), "bad": []}
+    for path in [ROOT / (m.replace(".", "/") + ".py") for m in LOADGEN[1:]] \
+            + [PKG / "loadgen" / "__init__.py",
+               ROOT / "tools" / "port_bench_sustained.py"]:
+        assert not [n for n in _imports(path) if _forbidden(n)], path
+
+
 def _imports(path: Path) -> list[str]:
     names = []
     for node in ast.walk(ast.parse(path.read_text(), str(path))):
@@ -162,3 +182,16 @@ def test_no_device_means_the_card():
     with pytest.raises(RuntimeError, match="CUDA"):
         HistoDeviceState.create(4, 128)
     assert ttd.init_pool(4, device="cpu").means.device.type == "cpu"
+
+
+def test_load_harness_without_a_device_means_the_card():
+    """The loadgen's harness runs its server on the card unless asked
+    for the CPU: without a card it raises before binding a socket."""
+    from veneur_tpu_torch.core.config import Config
+    from veneur_tpu_torch.loadgen import LoadHarness, WorkloadSpec
+
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the harness would serve on it")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        LoadHarness(Config(statsd_listen_addresses=["udp://127.0.0.1:0"]),
+                    WorkloadSpec(num_keys=10, ring_lines=10))

@@ -506,6 +506,8 @@ class Server:
         self.last_flush_chunks: dict = {}
         self.flush_count = 0
         self.last_tick_s = 0.0
+        # micro-folds of the epoch the last swap closed
+        self.last_micro_folds = 0
         # the stage-parallel flush (core/pipeline.py); None: serial
         self.flush_pipeline = (
             FlushPipeline(self, max_backlog=cfg.flush_pipeline_backlog)
@@ -672,9 +674,14 @@ class Server:
     def ingress_stats(self) -> dict:
         """Lifetime ingress counters (monotonic for the process): packets,
         parse errors, samples processed (swapped epochs' totals plus the
-        live epoch's) and shed, and with reader shards the per-context
+        live epoch's) and shed, the flush cadence (flush count, last flush
+        and emission times, how long the last tick held the ticker thread,
+        lifetime micro-folds and the last closed epoch's), each delivery
+        manager's counters, and with reader shards the per-context
         attribution (index 0 the home context, then one per reader) with
-        the mutex records while ``set_lock_stats`` is on."""
+        the mutex records while ``set_lock_stats`` is on. The loadgen
+        controller reads it; loss over a window is a subtraction of two
+        snapshots."""
         processed = dropped = 0
         for i, w in enumerate(self.workers):
             with self._worker_locks[i]:
@@ -691,7 +698,14 @@ class Server:
             "parse_errors": self.parse_errors,
             "samples_processed": processed,
             "overload_dropped": dropped,
+            "flush_count": self.flush_count,
+            "last_flush_unix": self.last_flush_unix,
+            "last_emit_unix": self.last_emit_unix,
             "last_flush_phases": dict(self.last_flush_phases),
+            "last_tick_s": self.last_tick_s,
+            "micro_folds_total": sum(w.micro_folds_total
+                                     for w in self.workers),
+            "last_micro_folds": self.last_micro_folds,
         }
         if self._reader_shards:
             out["reader_shards"] = self.workers[0].reader_stats(
@@ -699,6 +713,9 @@ class Server:
         out["spans"] = self._span_stats()
         if self.flush_pipeline is not None:
             out["pipeline"] = self.flush_pipeline.stats()
+        delivery = self.delivery_stats()
+        if delivery:
+            out["delivery"] = delivery
         if self._journals:
             out["journal"] = {rname: j.stats()
                               for rname, j in self._journals.items()}
@@ -1994,7 +2011,12 @@ class Server:
             for pkt in pkts:
                 self.handle_trace_packet(pkt)
         phases["swap_s"] = time.perf_counter() - _t
+        # the micro-folds that streamed the closed epoch to the device
+        # mirrors, and the swap's residual drain and mirror handoff
         micro_folds = sum(w.micro_folds_swapped for w in self.workers)
+        phases["drain_s"] = sum(w.micro_drain_swapped_s
+                                for w in self.workers)
+        self.last_micro_folds = micro_folds
         if micro_folds:
             self.stats.count("worker.micro_folds_total", micro_folds)
         self.flush_governor.beat()  # swap complete: the flush is live

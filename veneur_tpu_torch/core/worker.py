@@ -877,6 +877,9 @@ class DeviceWorker:
         self.micro_folds_total = 0
         self.micro_folds_epoch = 0
         self.micro_folds_swapped = 0
+        # host seconds the last swap spent on the residual drain and the
+        # mirror handoff (the flush's drain_s phase)
+        self.micro_drain_swapped_s = 0.0
         # the last extract_snapshot's mirror: upload chunks and bytes
         self.last_micro_chunks = 0
         self.last_micro_bytes = 0
@@ -2472,6 +2475,7 @@ class DeviceWorker:
                                  else self.processed)
         native_stage = None
         spill_histo = None
+        micro_s = 0.0
         micro_coo: list = []
         native_mirrored = False
         reader_planes = None
@@ -2542,6 +2546,7 @@ class DeviceWorker:
                     # the residual delta in the same critical section as
                     # the detach (host copies only; the device feeds run
                     # at extraction)
+                    t = time.perf_counter()
                     cap = 1 << 18
                     while True:
                         coo = self._native.drain_stage_delta(cap)
@@ -2551,6 +2556,7 @@ class DeviceWorker:
                         if len(coo[0]) < cap:
                             break
                     native_mirrored = self._native.stage_pending == 0
+                    micro_s += time.perf_counter() - t
                 raw = self._drain_native_raw(detach_stage=True)
                 native_stage = raw[4]
                 # event and service-check lines caught at epoch close; the
@@ -2603,6 +2609,7 @@ class DeviceWorker:
             self._mesh_pool.reset()
         micro_residual = None
         if self._micro_active():
+            t = time.perf_counter()
             if self._native is None:
                 coo = self._python_stage_delta()
                 if coo is not None:
@@ -2615,6 +2622,8 @@ class DeviceWorker:
                 # its flush window
                 mirror.book_in_flush = True
                 micro_residual = (mirror, micro_coo)
+            micro_s += time.perf_counter() - t
+        self.micro_drain_swapped_s = micro_s
         self.micro_folds_swapped = self.micro_folds_epoch
         # the epoch's micro-fold uploads belong to the flush that extracts
         # it: queued for that flush's window

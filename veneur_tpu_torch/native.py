@@ -18,16 +18,21 @@ forward wire (``encode_histo_batch``, ``decode_metric_batch``,
 ``codec_available``) are bound too, and so are the SSF span fast path
 (``ingest_ssf``, ``ingest_ssf_many``, ``ssf_spans``, ``ssf_invalid``,
 ``drain_ssf_services``, ``drain_ssf_fallback``, the C++ SSF reader) and
-the C++ line-stream reader of plain TCP connections. The loadgen entry
-points wait for their slice.
+the C++ line-stream reader of plain TCP connections. The load
+generator's half (native/loadgen.cpp, a library of its own) is bound at
+the end: ``load_loadgen_library``, ``loadgen_available``,
+``loadgen_source_hash``, ``LoadgenRing`` (ring synthesis from a workload
+spec, appended payloads, serialize and load), ``LoadgenSender`` (the
+paced C++ send thread) and ``LoadgenCapture`` (datagram capture for
+bit-exact replay).
 
-The library is built from the sources in ``native/`` at first use, by
-g++ with the flags of native/Makefile, into ``build/native/`` at the
+Both libraries are built from the sources in ``native/`` at first use,
+by g++ with the flags of native/Makefile, into ``build/native/`` at the
 repository root (a directory .gitignore lists), under a name hashed from
 the sources, the flags and the host's CPU (the flags hold -march=native).
-It never runs ``make`` in ``native/``, whose library belongs to the JAX
-package. A failed build raises with the compiler's message: nothing here
-falls back to the Python parser.
+It never runs ``make`` in ``native/`` and never loads a library there:
+those belong to the JAX package. A failed build raises with the
+compiler's message: nothing here falls back to the Python parser.
 """
 
 from __future__ import annotations
@@ -90,17 +95,16 @@ def library_path() -> Path:
     return BUILD_DIR / f"libveneur_native-{h.hexdigest()[:12]}.so"
 
 
-def build() -> Path:
-    """Compile native/ with g++ unless this exact build exists; returns
-    the library path. Raises RuntimeError with the compiler's message."""
-    out = library_path()
+def _compile(out: Path, sources, define: str, libs=()) -> Path:
+    """g++ ``sources`` (in native/) into the shared library ``out`` unless
+    it exists; raises RuntimeError with the compiler's message."""
     if out.exists():
         return out
     cxx = os.environ.get("CXX") or shutil.which("g++") or "g++"
     out.parent.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [cxx, *CXXFLAGS, f'-DVN_SOURCE_HASH="{source_stamp()}"', "-shared",
-           "-o", str(tmp), *(str(NATIVE_DIR / s) for s in SOURCES), "-lz"]
+    cmd = [cxx, *CXXFLAGS, define, "-shared", "-o", str(tmp),
+           *(str(NATIVE_DIR / s) for s in sources), *libs]
     try:
         proc = subprocess.run(cmd, capture_output=True, text=True)
     except OSError as e:
@@ -110,6 +114,13 @@ def build() -> Path:
                            f"{' '.join(cmd)}\n{proc.stderr[-4000:]}")
     os.replace(tmp, out)
     return out
+
+
+def build() -> Path:
+    """Compile native/ with g++ unless this exact build exists; returns
+    the library path. Raises RuntimeError with the compiler's message."""
+    return _compile(library_path(), SOURCES,
+                    f'-DVN_SOURCE_HASH="{source_stamp()}"', ("-lz",))
 
 
 def load_library() -> ctypes.CDLL:
@@ -1236,3 +1247,297 @@ def dedup_header_parse(hdr: bytes) -> "Optional[tuple[str, int, int]]":
         return None
     return (ctypes.string_at(sender, sender_len.value).decode("utf-8"),
             id_out.value, count_out.value)
+
+
+# --------------------------------------------------------------------------
+# the load generator: wire-rate traffic synthesis, paced sending, capture
+# and replay (native/loadgen.cpp, a library of its own so the ingest
+# library never carries it)
+
+LOADGEN_SOURCE = "loadgen.cpp"
+
+_lg_lib = None
+_lg_lock = threading.Lock()
+
+
+def loadgen_source_stamp() -> str:
+    """The Makefile's LG_SRC_HASH: the first 16 hex digits of the sha256
+    of native/loadgen.cpp; the built library reports it back through
+    ``loadgen_source_hash``."""
+    return hashlib.sha256(
+        (NATIVE_DIR / LOADGEN_SOURCE).read_bytes()).hexdigest()[:16]
+
+
+def loadgen_library_path() -> Path:
+    """Where the loadgen library built from this checkout's source
+    lives (hashed as ``library_path`` hashes the ingest library)."""
+    h = hashlib.sha256(loadgen_source_stamp().encode())
+    h.update(" ".join(CXXFLAGS).encode())
+    h.update(_cpu_model().encode())
+    return BUILD_DIR / f"libveneur_loadgen-{h.hexdigest()[:12]}.so"
+
+
+def build_loadgen() -> Path:
+    """Compile native/loadgen.cpp with g++ unless this exact build
+    exists; returns the library path. Raises RuntimeError with the
+    compiler's message."""
+    return _compile(loadgen_library_path(), (LOADGEN_SOURCE,),
+                    f'-DLG_SOURCE_HASH="{loadgen_source_stamp()}"')
+
+
+def load_loadgen_library() -> ctypes.CDLL:
+    """The ctypes handle of the loadgen library (built on first call)."""
+    global _lg_lib
+    with _lg_lock:
+        if _lg_lib is not None:
+            return _lg_lib
+        lib = ctypes.CDLL(str(build_loadgen()))
+        c = ctypes
+        lib.vn_lg_source_hash.restype = c.c_char_p
+        lib.vn_lg_ring_new.restype = c.c_void_p
+        lib.vn_lg_ring_free.argtypes = [c.c_void_p]
+        lib.vn_lg_ring_count.restype = c.c_longlong
+        lib.vn_lg_ring_count.argtypes = [c.c_void_p]
+        lib.vn_lg_ring_total_lines.restype = c.c_longlong
+        lib.vn_lg_ring_total_lines.argtypes = [c.c_void_p]
+        lib.vn_lg_ring_total_bytes.restype = c.c_longlong
+        lib.vn_lg_ring_total_bytes.argtypes = [c.c_void_p]
+        lib.vn_lg_ring_hash.restype = c.c_uint64
+        lib.vn_lg_ring_hash.argtypes = [c.c_void_p]
+        lib.vn_lg_ring_datagram.restype = c.c_longlong
+        lib.vn_lg_ring_datagram.argtypes = [
+            c.c_void_p, c.c_longlong, c.POINTER(c.c_char_p)]
+        lib.vn_lg_ring_append.restype = c.c_longlong
+        lib.vn_lg_ring_append.argtypes = [
+            c.c_void_p, c.c_char_p, c.c_longlong, c.c_int]
+        lib.vn_lg_ring_synth.restype = c.c_longlong
+        lib.vn_lg_ring_synth.argtypes = [
+            c.c_void_p, c.c_uint64, c.c_longlong, c.c_double,
+            c.POINTER(c.c_double), c.c_int, c.c_longlong,
+            c.c_char_p, c.c_int, c.c_int, c.c_longlong,
+            c.c_longlong, c.c_double, c.c_double, c.c_longlong]
+        lib.vn_lg_ring_serialize.restype = c.c_longlong
+        lib.vn_lg_ring_serialize.argtypes = [
+            c.c_void_p, c.POINTER(c.c_char_p)]
+        lib.vn_lg_ring_load.restype = c.c_longlong
+        lib.vn_lg_ring_load.argtypes = [c.c_void_p, c.c_char_p,
+                                        c.c_longlong]
+        lib.vn_lg_send_start.restype = c.c_void_p
+        lib.vn_lg_send_start.argtypes = [
+            c.c_void_p, c.c_int, c.c_double, c.c_longlong, c.c_int]
+        for name in ("vn_lg_send_lines", "vn_lg_send_packets",
+                     "vn_lg_send_errors", "vn_lg_send_resyncs",
+                     "vn_lg_send_stop"):
+            fn = getattr(lib, name)
+            fn.restype = c.c_longlong
+            fn.argtypes = [c.c_void_p]
+        lib.vn_lg_send_done.restype = c.c_int
+        lib.vn_lg_send_done.argtypes = [c.c_void_p]
+        lib.vn_lg_send_free.restype = None
+        lib.vn_lg_send_free.argtypes = [c.c_void_p]
+        lib.vn_lg_capture_start.restype = c.c_void_p
+        lib.vn_lg_capture_start.argtypes = [c.c_int, c.c_int, c.c_longlong]
+        for name in ("vn_lg_capture_packets", "vn_lg_capture_truncated",
+                     "vn_lg_capture_stop"):
+            fn = getattr(lib, name)
+            fn.restype = c.c_longlong
+            fn.argtypes = [c.c_void_p]
+        lib.vn_lg_capture_detach_ring.restype = c.c_void_p
+        lib.vn_lg_capture_detach_ring.argtypes = [c.c_void_p]
+        lib.vn_lg_capture_free.argtypes = [c.c_void_p]
+        _lg_lib = lib
+        return _lg_lib
+
+
+def loadgen_available() -> bool:
+    """True when the loadgen library builds and loads here."""
+    try:
+        load_loadgen_library()
+    except (RuntimeError, OSError) as e:
+        log.info("loadgen library unavailable: %s", e)
+        return False
+    return True
+
+
+def loadgen_source_hash() -> str:
+    """The source stamp compiled into the loaded loadgen library."""
+    return load_loadgen_library().vn_lg_source_hash().decode()
+
+
+# fixed metric-type order for the synth type-mix weights
+LOADGEN_TYPES = ("c", "g", "ms", "h", "s")
+
+
+class LoadgenRing:
+    """Pre-built datagram sequence: synthesize from a workload spec,
+    append externally-built payloads (SSF), or load a captured blob.
+    Immutable once handed to a sender."""
+
+    def __init__(self) -> None:
+        self._lib = load_loadgen_library()
+        self._ring = self._lib.vn_lg_ring_new()
+
+    def __del__(self):
+        if getattr(self, "_ring", None):
+            self._lib.vn_lg_ring_free(self._ring)
+            self._ring = None
+
+    def __len__(self) -> int:
+        return int(self._lib.vn_lg_ring_count(self._ring))
+
+    @property
+    def total_lines(self) -> int:
+        return int(self._lib.vn_lg_ring_total_lines(self._ring))
+
+    @property
+    def total_bytes(self) -> int:
+        return int(self._lib.vn_lg_ring_total_bytes(self._ring))
+
+    @property
+    def content_hash(self) -> int:
+        """fnv1a64 over (length, bytes) pairs — the bit-exactness
+        witness for capture→replay round trips."""
+        return int(self._lib.vn_lg_ring_hash(self._ring))
+
+    def datagram(self, i: int) -> bytes:
+        out = ctypes.c_char_p()
+        n = self._lib.vn_lg_ring_datagram(self._ring, i,
+                                          ctypes.byref(out))
+        if n < 0:
+            raise IndexError(i)
+        return ctypes.string_at(out, n)
+
+    def datagrams(self) -> list[bytes]:
+        return [self.datagram(i) for i in range(len(self))]
+
+    def append(self, payload: bytes, lines: int = 1) -> None:
+        """Append one externally-built datagram (SSF spans are built in
+        Python once at setup; only the send loop is per-packet)."""
+        if self._lib.vn_lg_ring_append(self._ring, payload, len(payload),
+                                       lines) < 0:
+            raise ValueError("bad payload")
+
+    def synth(self, seed: int, n_keys: int, zipf_s: float,
+              type_mix: "list[float]", n_tags: int, tag_card: int,
+              prefix: bytes, dgram_target: int, n_lines: int,
+              tenant_count: int = 1, tenant_abusive_frac: float = 0.0,
+              tenant_zipf_s: float = 0.0,
+              tenant_churn_keys: int = 0) -> int:
+        """Build ~n_lines of DogStatsD traffic. type_mix is 5 weights
+        in LOADGEN_TYPES order. tenant_count > 1 stamps a trailing
+        tenant:tN tag per line (the last tenant is the abusive one);
+        1 is byte-identical single-tenant output. Returns the
+        datagram count."""
+        mix = (ctypes.c_double * len(LOADGEN_TYPES))(*type_mix)
+        n = self._lib.vn_lg_ring_synth(
+            self._ring, seed, n_keys, float(zipf_s), mix, n_tags,
+            tag_card, prefix, len(prefix), dgram_target, n_lines,
+            int(tenant_count), float(tenant_abusive_frac),
+            float(tenant_zipf_s), int(tenant_churn_keys))
+        if n < 0:
+            raise ValueError("invalid workload spec for synth")
+        return int(n)
+
+    def serialize(self) -> bytes:
+        out = ctypes.c_char_p()
+        n = self._lib.vn_lg_ring_serialize(self._ring, ctypes.byref(out))
+        return ctypes.string_at(out, n)
+
+    def load(self, blob: bytes) -> int:
+        n = self._lib.vn_lg_ring_load(self._ring, blob, len(blob))
+        if n < 0:
+            raise ValueError("malformed ring blob")
+        return int(n)
+
+
+class LoadgenSender:
+    """Paced C++ send thread cycling a ring over a connected socket.
+    The caller owns the socket and the ring; both must outlive the
+    sender (stop() joins the thread)."""
+
+    def __init__(self, ring: LoadgenRing, fd: int, lines_per_s: float,
+                 max_lines: int = 0, stream: bool = False) -> None:
+        self._lib = ring._lib
+        self._ring = ring  # keep alive
+        self._h = self._lib.vn_lg_send_start(
+            ring._ring, fd, float(lines_per_s), int(max_lines),
+            1 if stream else 0)
+        if not self._h:
+            raise RuntimeError("vn_lg_send_start failed (empty ring?)")
+
+    @property
+    def sent_lines(self) -> int:
+        return int(self._lib.vn_lg_send_lines(self._h))
+
+    @property
+    def sent_packets(self) -> int:
+        return int(self._lib.vn_lg_send_packets(self._h))
+
+    @property
+    def send_errors(self) -> int:
+        return int(self._lib.vn_lg_send_errors(self._h))
+
+    @property
+    def resyncs(self) -> int:
+        return int(self._lib.vn_lg_send_resyncs(self._h))
+
+    @property
+    def done(self) -> bool:
+        return bool(self._lib.vn_lg_send_done(self._h))
+
+    def stop(self) -> float:
+        """Join the send thread (idempotent); the final counters stay
+        readable afterwards. Returns the loop's elapsed seconds."""
+        if not self._h:
+            return 0.0
+        return self._lib.vn_lg_send_stop(self._h) / 1e9
+
+    def __del__(self):
+        h = getattr(self, "_h", None)
+        if h:
+            self._h = None
+            self._lib.vn_lg_send_free(h)
+
+
+class LoadgenCapture:
+    """C++ capture thread recording datagrams off a bound socket for
+    bit-exact replay. The caller owns the fd (kept blocking with a
+    100ms receive timeout, like the ingest readers)."""
+
+    def __init__(self, fd: int, max_len: int = 65536,
+                 max_packets: int = 0) -> None:
+        self._lib = load_loadgen_library()
+        self._h = self._lib.vn_lg_capture_start(fd, max_len, max_packets)
+        if not self._h:
+            raise RuntimeError("vn_lg_capture_start failed")
+        self._stopped = False
+
+    @property
+    def packets(self) -> int:
+        return int(self._lib.vn_lg_capture_packets(self._h))
+
+    @property
+    def truncated(self) -> int:
+        return int(self._lib.vn_lg_capture_truncated(self._h))
+
+    def stop(self) -> int:
+        if not self._stopped:
+            self._lib.vn_lg_capture_stop(self._h)
+            self._stopped = True
+        return self.packets
+
+    def detach_ring(self) -> LoadgenRing:
+        """Move the captured datagrams into a fresh ring (stop first)."""
+        self.stop()
+        handle = self._lib.vn_lg_capture_detach_ring(self._h)
+        if not handle:
+            raise RuntimeError("capture detach failed")
+        ring = LoadgenRing.__new__(LoadgenRing)
+        ring._lib = self._lib
+        ring._ring = handle
+        return ring
+
+    def __del__(self):
+        if getattr(self, "_h", None):
+            self._lib.vn_lg_capture_free(self._h)
+            self._h = None

@@ -1,13 +1,14 @@
 """Deterministic seeded fault injection, copied from
 veneur_tpu/utils/faults.py with its imports rebound.
 
-The network part the proxy tier's tests use: ``FaultPlan`` scripts
-delivery faults (refusal, 5xx, slow, reset, rejection, duplicates, flap
-and congestion windows) from one seeded ``random.Random``, and
-``FaultyForwardClient`` wraps a proxy's or spread forwarder's forward
-client with it, so one scripted schedule drives both packages' proxies
-alike. (The HTTP opener, repeater socket and stream-sink wrappers of the
-JAX module are not copied.)
+The network part: ``FaultPlan`` scripts delivery faults (refusal, 5xx,
+slow, reset, rejection, duplicates, flap and congestion windows) from one
+seeded ``random.Random``. ``FaultyOpener`` wraps the ``opener`` every
+HTTP sink takes, ``FaultySocket`` stands in for the repeater sinks'
+socket, ``FaultyForwardClient`` wraps a proxy's or spread forwarder's
+forward client and ``FaultyStreamSink`` an import server's stream sink,
+so one scripted schedule drives both packages alike: the same seed gives
+the same sequence of outcomes.
 
 The device part: ``DeviceFaultPlan`` scripts faults per guarded
 dispatch, ``InjectedDeviceFault`` is what an injected fault raises, and
@@ -22,6 +23,8 @@ import threading
 import time
 from dataclasses import dataclass, field
 from typing import Callable, Optional
+
+from veneur_tpu_torch.utils.http import HTTPError
 
 FAULT_KINDS = ("refused", "http_5xx", "slow", "reset", "rejected",
                "duplicated", "busy", "ack_delay", "passed")
@@ -117,6 +120,57 @@ class _FaultBase:
                 return False
             self.injected["duplicated"] += 1
             return True
+
+    def _raise_for(self, kind: str, timeout: float) -> None:
+        """Apply one non-pass decision (caller handles 'passed' /
+        'slow'-then-success itself)."""
+        if kind == "refused":
+            raise ConnectionRefusedError(111, "injected: connection refused")
+        if kind == "http_5xx":
+            raise HTTPError(self.plan.status_5xx, b"injected 5xx")
+        if kind == "reset":
+            self._sleep(min(self.plan.reset_after_s, timeout))
+            raise ConnectionResetError(104, "injected: mid-body reset")
+        if kind == "rejected":
+            raise HTTPError(400, b"injected payload rejection")
+        raise AssertionError(kind)
+
+
+class FaultyOpener(_FaultBase):
+    """Drop-in for utils.http openers: (request, timeout) -> body.
+    `inner` is the real opener to delegate clean calls to; None
+    swallows them (a discarding backend)."""
+
+    def __init__(self, plan: FaultPlan, inner: Optional[Callable] = None,
+                 sleep_fn: Callable[[float], None] = time.sleep) -> None:
+        super().__init__(plan, sleep_fn)
+        self.inner = inner
+
+    def __call__(self, req, timeout: float) -> bytes:
+        kind = self._decide()
+        if kind == "slow":
+            if self.plan.slow_s >= timeout:
+                # slower than the caller's budget: a real socket would
+                # time out after exactly `timeout`
+                self._sleep(timeout)
+                raise TimeoutError("injected: response slower than timeout")
+            self._sleep(self.plan.slow_s)
+        elif kind != "passed":
+            self._raise_for(kind, timeout)
+        if self.inner is not None:
+            out = self.inner(req, timeout)
+        else:
+            out = b"{}"
+        if self._dup_decide():
+            # the request landed, then the network replayed it (retried
+            # POST whose first response was lost); best-effort — a real
+            # ghost retry failing changes nothing for the original
+            try:
+                if self.inner is not None:
+                    self.inner(req, timeout)
+            except Exception:
+                pass
+        return out
 
 
 class FaultyForwardClient(_FaultBase):
@@ -260,6 +314,110 @@ class FaultyForwardClient(_FaultBase):
 
     def close(self) -> None:
         self.inner.close()
+
+
+class FaultyStreamSink:
+    """Receiver-side scripted congestion for the StreamMetrics path:
+    wraps an import-tier stream sink (an object with
+    submit(body, done)) and consults the plan's busy_ranges /
+    ack_delay_ranges by FRAME index. A busy-windowed frame is
+    busy-acked without touching the inner sink (the receiver
+    explicitly refusing admission — the real AIMD shrink driver); a
+    delay-windowed frame holds its ack for ack_delay_s before the
+    inner sink sees it (an ack-timeout driver when the delay exceeds
+    the sender's ack budget). Everything else passes through, so
+    exactly-once dedup and coalescing behave normally around the
+    scripted storm."""
+
+    def __init__(self, plan: FaultPlan, inner,
+                 sleep_fn: Callable[[float], None] = time.sleep) -> None:
+        self.plan = plan
+        self.inner = inner
+        self._sleep = sleep_fn
+        self._lock = threading.Lock()
+        self.frames = 0
+        self.injected = {"busy": 0, "ack_delay": 0, "passed": 0}
+
+    def submit(self, body: bytes, done) -> None:
+        from veneur_tpu_torch.distributed import codec
+
+        with self._lock:
+            idx = self.frames
+            self.frames += 1
+            busy = any(s <= idx < e for s, e in self.plan.busy_ranges)
+            delayed = (not busy and any(
+                s <= idx < e for s, e in self.plan.ack_delay_ranges))
+            self.injected[
+                "busy" if busy else
+                "ack_delay" if delayed else "passed"] += 1
+        if busy:
+            done(codec.STREAM_ACK_BUSY)
+            return
+        if delayed:
+            # hold the whole frame, not just the ack: the sender sees
+            # dead air exactly as it would from a stalled receiver
+            self._sleep(self.plan.ack_delay_s)
+        self.inner.submit(body, done)
+
+    def stats(self) -> dict:
+        st = self.inner.stats() if hasattr(self.inner, "stats") else {}
+        with self._lock:
+            st["injected_faults"] = dict(self.injected)
+        return st
+
+    def close(self) -> None:
+        if hasattr(self.inner, "close"):
+            self.inner.close()
+
+
+class FaultySocket(_FaultBase):
+    """Stands in for the repeater sinks' socket (sink._sock): send and
+    sendall consult the plan; clean traffic is forwarded to `inner` or
+    discarded. Socket-level faults surface as OSErrors, like the real
+    thing."""
+
+    def __init__(self, plan: FaultPlan, inner=None,
+                 sleep_fn: Callable[[float], None] = time.sleep) -> None:
+        super().__init__(plan, sleep_fn)
+        self.inner = inner
+        self._timeout = 10.0
+
+    def settimeout(self, timeout) -> None:
+        if timeout is not None:
+            self._timeout = float(timeout)
+        if self.inner is not None:
+            self.inner.settimeout(timeout)
+
+    def _maybe_fail(self) -> None:
+        kind = self._decide()
+        if kind == "passed":
+            return
+        if kind == "slow":
+            if self.plan.slow_s >= self._timeout:
+                self._sleep(self._timeout)
+                raise TimeoutError("injected: send slower than timeout")
+            self._sleep(self.plan.slow_s)
+            return
+        if kind in ("http_5xx", "rejected"):
+            # no HTTP semantics on a raw socket: both degrade to a
+            # connection reset (still counted under their own kind)
+            raise ConnectionResetError(104, f"injected: {kind}")
+        self._raise_for(kind, self._timeout)
+
+    def send(self, data: bytes) -> int:
+        self._maybe_fail()
+        if self.inner is not None:
+            return self.inner.send(data)
+        return len(data)
+
+    def sendall(self, data: bytes) -> None:
+        self._maybe_fail()
+        if self.inner is not None:
+            self.inner.sendall(data)
+
+    def close(self) -> None:
+        if self.inner is not None:
+            self.inner.close()
 
 
 @dataclass
