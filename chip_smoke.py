@@ -8,9 +8,10 @@ script exits non-zero:
 
 1. setup: card name and power limit (nvidia-smi), nvcc build of every
    kernel of the path from the sources in this checkout (the flush
-   extract and the HLL library, one nvcc each) and g++ build of the
-   native C++ ingest library from native/'s sources into build/native/,
-   all three started together; ptxas's report of each kernel.
+   extract, the HLL library and the t-digest folds, one nvcc each) and
+   g++ build of the native C++ ingest library and the load generator from
+   native/'s sources into build/native/, all started together; ptxas's
+   report of each kernel.
 2. kernel vs plain on the card: the flush extract kernel against its
    plain PyTorch version at S = 1,048,576 and S = 1,000,003 rows and at
    the main path's shapes (131,072 and 1,024 rows), C = 128,
@@ -32,6 +33,16 @@ script exits non-zero:
    bounds, and scatter_reduce_ beside the insert; the insert also on
    all-distinct words and on 1,048,576 updates, beside an empty kernel at
    its grid (the launch floor).
+3c. the t-digest folds (tools/port_probe_tdigest.py): K2a
+   (compress_rows) bitwise equal to its plain version at [131,072, 192]
+   (phase 4's staged fold), [1,024, 256], [65,536, 256] (import merges),
+   [32,768, 256] (a 2-host mesh shard), [8,192, 1,152] (phase 10's import
+   width) and ragged [4,099, 192] and [131,071, 256], each with 16 edge
+   rows (+-0.0 in both orders, denormal means and weights, +-inf and NaN
+   means, one centroid, an empty row, ties); K2b (add_batch) at (K, N) =
+   (64, 256), (1,024, 65,536) and (16,384, 262,144) and an edge batch,
+   two rounds each. Medians of kernel and plain, the batch sort before
+   K2b, and each kernel's bound (bytes over 3.35 TB/s).
 4. one worker interval at the mixed configuration of BASELINE.md
    (100k series, bench.py's "mixed" mix): 80,000 histogram/timer series
    made through process_metric, 40 samples each staged through
@@ -58,7 +69,10 @@ script exits non-zero:
    upload bytes and the launches of the three kernels.
    In phases 4, 4b and 4c the CPU worker runs after the card's, in this
    process, so nothing else loads the host while the card's steps are
-   timed; compare_snapshots holds the two snapshots to each other.
+   timed; compare_snapshots holds the two snapshots to each other. The
+   card's staged fold runs K2a and its spill folds (the hot series) K2b,
+   the CPU's their plain versions: phases 4 and 4c fail unless both
+   kernels launched.
 5. server: the port's Server built by its factory with a UDP listener on
    port 0, a channel sink, a Datadog, a Prometheus-repeater and a
    forward-statsd sink on local listeners (HTTP, TCP, TCP), and
@@ -109,7 +123,9 @@ script exits non-zero:
    the Prometheus repeater and pushgateway, forward-statsd, New Relic)
    of one factory-built server, on local listeners, flushes it through
    the server's negotiation in turn: the native tier on and off on the
-   card's batch, on for the CPU's. Every byte from the card's batch
+   card's batch, on for the CPU's through the HTTP JSON sinks (Datadog,
+   SignalFx, New Relic; the three line sinks' CPU arm is cut for the
+   run's time). Every byte those sinks sent from the card's batch
    equals the CPU's (the Datadog bodies raw and inflated); native equals
    Python byte for byte for the lines, the exposition text and New
    Relic, and by value for the Datadog series and SignalFx points; the
@@ -153,8 +169,9 @@ script exits non-zero:
    one spill batch at the swap on both). 11b: phase 4's interval as the
    samples of about 280,000 spans of 16 samples (uniqueness rate 1.0):
    the native path at full width (spill folds, K1 at 131,072 rows, K4
-   and K5 through the staged store's dense tier) and the Python path on
-   every 32nd span, card against CPU bitwise; then a factory-built
+   and K5 through the staged store's dense tier; on the card: its CPU
+   twin is cut for the run's time) and the Python path on every 32nd
+   span, card against CPU bitwise; then a factory-built
    server on the card with every listener of the slice, started: the
    spans of the series lines in turn over UDP (the C++ SSF reader),
    a unix stream socket and a unixgram socket, then 19,000 DogStatsD
@@ -198,8 +215,9 @@ script exits non-zero:
    view captured is unchanged after the next interval's fold, and two
    query threads running through the next interval's ingest and flush
    only ever see one committed epoch's answers. The same series lines
-   as datagrams through attach_native() workers (card and CPU): refused
-   rows kept and absent from every sink line, responses byte for byte.
+   as datagrams through an attach_native() worker on the card (its CPU
+   twin is cut for the run's time): refused rows kept and absent from
+   every sink line, the ledger's counts the Python path's.
    Prints p50/p99 ms of 200 requests each (host quantiles, ad-hoc device
    quantiles with rotating qs, scalars, /metrics), K1's launches and ms
    at P = 4 and 32 over the view's fields, the sketch fold's seconds and
@@ -259,9 +277,14 @@ script exits non-zero:
    interval, cut in width) flush and encode their forward frames; a
    mesh global (tpu_mesh_devices 8, tpu_mesh_hosts 2) on a grid of the
    one card applies them through its ImportServer, and its CPU twin on
-   a grid of the CPU: the snapshots bitwise equal, K1 once per series
-   shard (``launches_mesh``); the import, the merge and the flush timed.
-17. the load generator, after every other phase: a LoadHarness
+   a grid of the CPU: the snapshots bitwise equal, K1 and K2a once per
+   series shard and K2b at least once (``launches_mesh``); the import,
+   the merge and the flush timed.
+17. the load generator, after every other phase, in a process of its
+   own (``chip_smoke.py --loadgen-child``, started fresh as a server
+   is, so no state of the earlier phases loads it; the parent logs its
+   own threads, its GC-tracked objects and the time of one full
+   collection just before): a LoadHarness
    (veneur_tpu_torch/loadgen) runs a server on the card with
    tools/port_bench_sustained.py's configuration (UDP, a 2 s interval,
    one worker, one C++ reader, the channel sink; the dense set store, so
@@ -326,6 +349,7 @@ DEVICE = "cuda"
 CARD = ""
 probe = None  # tools/port_probe_extract.py, imported by main()
 probe_hll = None  # tools/port_probe_hll.py, imported by main()
+probe_td = None  # tools/port_probe_tdigest.py, imported by main()
 guard_faults = None  # tools/port_guard_faults.py, imported by main()
 # micro-folds in phase 6: one every this many 16,384-sample staging
 # batches (Python path) or drains (native path)
@@ -685,8 +709,10 @@ def phase_worker(tw, generate, parse, qs):
     spilled = int(np.maximum(per_row - INTERVAL_KW["stage_depth"], 0).sum())
     reset_peak()
     gpu = tw.DeviceWorker(**INTERVAL_KW, device=DEVICE)
+    before = td_launches()
     snap_g, t_g = run_interval(gpu, plan, parse, qs)
     t_g["peak_device_bytes"] = peak_bytes()
+    t_g.update(check_td_launches(before, "phase 4, card"))
     check_guard_clean(gpu, snap_g, "phase 4, card")
     del gpu
     cpu = tw.DeviceWorker(**INTERVAL_KW, device="cpu")
@@ -830,7 +856,9 @@ def phase_native(tw, ek, hll, qs, plan, python_snap):
     w.attach_native()
     k1, k4, k5 = (ek.flush_extract.launches, hll.insert_batch.launches,
                   hll.estimate.launches)
+    k2 = td_launches()
     snap, card = run_native_interval(w, steps, qs)
+    card.update(check_td_launches(k2, "phase 4c, card"))
     card.update({
         "flush_extract_launches": ek.flush_extract.launches - k1,
         "hll_insert_launches": hll.insert_batch.launches - k4,
@@ -1671,16 +1699,27 @@ def egress_server(http: HttpTap, repeater: TcpTap, forward: TcpTap):
     return server
 
 
-def emit_once(batch, native: bool) -> dict:
-    """Each sink of egress_server flushes the batch in turn through the
-    server's negotiation, the native tier on or off; per sink its
-    seconds, what its listener took, and the native encoder calls."""
+# the sinks the CPU batch flushes through in phase 8: the HTTP JSON
+# sinks; the three line sinks (repeater, exposition, forward) are cut
+# for the run's time (PERF.md section 4): their encoders read the batch's
+# arrays, which are held bitwise equal to the CPU batch's first
+CPU_BATCH_SINKS = ("DatadogMetricSink", "SignalFxMetricSink",
+                   "NewRelicMetricSink")
+
+
+def emit_once(batch, native: bool, only=None) -> dict:
+    """Each sink of egress_server (or each named in ``only``) flushes the
+    batch in turn through the server's negotiation, the native tier on or
+    off; per sink its seconds, what its listener took, and the native
+    encoder calls."""
     http, repeater, forward = HttpTap(), TcpTap(), TcpTap()
     server = egress_server(http, repeater, forward)
     server.flush_emit_native = native
     out = {}
     try:
         for sink in server.metric_sinks:
+            if only is not None and type(sink).__name__ not in only:
+                continue
             with counting_encoders() as enc:
                 t0 = time.perf_counter()
                 server._flush_sink_columnar(sink, batch, None)
@@ -1689,7 +1728,10 @@ def emit_once(batch, native: bool) -> dict:
                 k: v for k, v in enc.items() if v[0]}}
         close_sink_sockets(server)
         taken = {"http": http.taken(), "http_keys": sorted(http.keys),
-                 "repeater": repeater.taken(), "forward": forward.taken()}
+                 "repeater": (repeater.taken() if "PrometheusMetricSink"
+                              in out else None),
+                 "forward": (forward.taken() if "ForwardStatsdSink" in out
+                             else None)}
         counts = server.sink_counters()
         delivery = server.delivery_stats()
     finally:
@@ -1736,8 +1778,9 @@ def phase_egress(snap_g, snap_c) -> tuple:
     generate_columnar (held to the object path, and to the CPU
     snapshot's batch bitwise), then through every ported metric sink to
     local listeners: native tier on and off on the card's batch, native
-    on the CPU's. Raises on any difference. Returns the results and the
-    card and CPU batches (phase 15a's input)."""
+    on the CPU's through CPU_BATCH_SINKS. Raises on any difference.
+    Returns the results and the card and CPU batches (phase 15a's
+    input)."""
     import zlib
 
     from veneur_tpu_torch.core.flusher import (generate_columnar,
@@ -1769,7 +1812,7 @@ def phase_egress(snap_g, snap_c) -> tuple:
 
     runs = {"native": emit_once(batch, True),
             "python": emit_once(batch, False),
-            "cpu_native": emit_once(batch_c, True)}
+            "cpu_native": emit_once(batch_c, True, CPU_BATCH_SINKS)}
     # the native tier took every group of every native-capable sink
     for name, rec in runs["native"]["sinks"].items():
         enc = rec["encoders"]
@@ -1788,11 +1831,12 @@ def phase_egress(snap_g, snap_c) -> tuple:
                                  "the tier off")
     nat, py, cpu = (runs[k]["taken"] for k in ("native", "python",
                                                 "cpu_native"))
-    # card against CPU: every byte, the Datadog bodies raw and inflated
-    if nat != cpu:
+    # card against CPU: every byte of the HTTP JSON sinks, the Datadog
+    # bodies raw and inflated
+    hn, hp, hc = (http_by_sink(x["http"]) for x in (nat, py, cpu))
+    if any(hn[k] != hc[k] for k in ("datadog", "signalfx", "newrelic")):
         raise AssertionError("phase 8: the card batch's sinks sent other "
                              "bytes than the CPU batch's")
-    hn, hp, hc = (http_by_sink(x["http"]) for x in (nat, py, cpu))
     inflate = [zlib.decompress(b) for p, _h, b in hn["datadog"]
                if p.startswith("/api/v1/series")]
     if inflate != [zlib.decompress(b) for p, _h, b in hc["datadog"]
@@ -1813,7 +1857,8 @@ def phase_egress(snap_g, snap_c) -> tuple:
         raise AssertionError("phase 8: native SignalFx points != Python's")
 
     sinks = {name: {f"{run}_s": runs[run]["sinks"][name]["s"]
-                    for run in runs} for name in runs["native"]["sinks"]}
+                    for run in runs if name in runs[run]["sinks"]}
+             for name in runs["native"]["sinks"]}
     for name, key in (("DatadogMetricSink", "datadog"),
                       ("SignalFxMetricSink", "signalfx"),
                       ("PrometheusExpositionSink", "exposition"),
@@ -1825,13 +1870,14 @@ def phase_egress(snap_g, snap_c) -> tuple:
         requests=1, bytes=len(nat["repeater"]))
     sinks["ForwardStatsdSink"].update(requests=1, bytes=len(nat["forward"]))
     for name, s in sinks.items():
+        cpu_s = (f"{s['cpu_native_s']:.4f} s" if "cpu_native_s" in s
+                 else "not run")
         log(f"[egress] {name}: native {s['native_s']:.4f} s, Python "
-            f"{s['python_s']:.4f} s (CPU batch native "
-            f"{s['cpu_native_s']:.4f} s); {s['requests']} requests, "
-            f"{s['bytes']} bytes")
-    log("[egress] every sink's bytes from the card batch equal the CPU "
-        "batch's; native equal to Python; the native tier took every "
-        "group of every native-capable sink")
+            f"{s['python_s']:.4f} s (CPU batch native {cpu_s}); "
+            f"{s['requests']} requests, {s['bytes']} bytes")
+    log("[egress] the HTTP JSON sinks' bytes from the card batch equal "
+        "the CPU batch's; native equal to Python; the native tier took "
+        "every group of every native-capable sink")
     return {"metrics": len(batch), "groups": len(batch.groups),
             "generate_object_s": t_obj, "generate_columnar_s": t_col,
             "materialize_s": t_mat, "sinks": sinks}, batch, batch_c
@@ -2539,7 +2585,8 @@ def phase_series_shards(tw, ek, hll, parse, generate, qs, plan, steps,
                                           micro_every=MICRO_EVERY_NATIVE)
         k1 = read_launches(ek, hll)
         t.update({f"{k}_launches": k1[k] - k0[k] for k in (
-            "flush_extract", "hll_insert", "hll_estimate")})
+            "flush_extract", "hll_insert", "hll_estimate",
+            "tdigest_compress", "tdigest_add_batch")})
         t["h2d_per_shard"] = w.ledger.flush_h2d_per_shard()
         t["d2h_per_shard"] = w.ledger.flush_d2h_per_shard()
         check_guard_clean(w, snap, f"phase 16a {name}")
@@ -2671,6 +2718,11 @@ def phase_mesh(tw, ek, hll, parse, qs) -> tuple:
     if launched < d:
         raise AssertionError(f"phase 16b: flush_extract launched {launched}"
                              f" times, fewer than the {d} series shards")
+    if DEVICE == "cuda" and (launches["tdigest_compress"] < d
+                             or launches["tdigest_add_batch"] < 1):
+        raise AssertionError(f"phase 16b: the t-digest folds launched "
+                             f"{launches['tdigest_compress']} and "
+                             f"{launches['tdigest_add_batch']} times")
     out = {"locals_s": locals_s, "frames": len(frames),
            "frame_bytes": sum(len(b) for b, _n in frames),
            "metrics": sum(n for _b, n in frames), "rows": n,
@@ -2919,7 +2971,8 @@ def run_proxy_tier(keep: dict, n_proxies: int, ek, hll) -> dict:
             snap, phases, merge = global_flush(g)
             flush_s = time.perf_counter() - t0
             after = read_launches(ek, hll)
-            for name in ("flush_extract", "hll_estimate"):
+            for name in ("flush_extract", "hll_estimate",
+                         "tdigest_compress"):
                 if after[name] <= before[name]:
                     raise AssertionError(f"phase {arm}: {name} was not "
                                          f"launched on global {gi}")
@@ -3418,15 +3471,23 @@ def phase_mixed_spans(parse) -> dict:
     build_s = time.perf_counter() - t0
     out = {"build_s": build_s, "spans": len(payloads)}
     res = {}
+    # the native arm's CPU twin is cut for the run's time (PERF.md
+    # section 4): the native SSF path's card-against-CPU snapshots are
+    # 11a's; the Python arm keeps its twin
     for arm, pay in (("native", payloads),
                      ("python", payloads[::SPAN_PY_CUT])):
-        for dev in (DEVICE, "cpu"):
+        devs = (DEVICE,) if arm == "native" else (DEVICE, "cpu")
+        for dev in devs:
             res[arm, dev] = run_mixed_spans(pay, arm == "native", dev)
-        (sc, oc, tc, bc), (sh, oh, th, _bh) = res[arm, DEVICE], res[arm, "cpu"]
-        compare_snapshots(sc, sh, f"phase 11b {arm}, card against CPU")
-        if oc != oh:
-            raise AssertionError(f"phase 11b {arm}: card InterMetrics "
-                                 "differ from the CPU's")
+        sc, oc, tc, bc = res[arm, DEVICE]
+        th = None
+        if arm == "python":
+            sh, oh, th, _bh = res[arm, "cpu"]
+            compare_snapshots(sc, sh, f"phase 11b {arm}, card against CPU")
+            if oc != oh:
+                raise AssertionError(f"phase 11b {arm}: card InterMetrics "
+                                     "differ from the CPU's")
+            del res[arm, "cpu"]
         if arm == "native":
             users = [i for i, r in enumerate(sc.directory.sets.rows)
                      if r.key.name.startswith("users.")]
@@ -3435,13 +3496,13 @@ def phase_mixed_spans(parse) -> dict:
                     "metrics": len(oc), "histo_rows":
                     sc.directory.num_histo_rows}
         for where, t in (("card", tc), ("cpu", th)):
-            log(f"[spans 11b] {arm} {where} ({CARD}): " + ", ".join(
-                f"{k} {v:.4f}" for k, v in t.items()))
-        del res[arm, "cpu"]
+            if t is not None:
+                log(f"[spans 11b] {arm} {where} ({CARD}): " + ", ".join(
+                    f"{k} {v:.4f}" for k, v in t.items()))
     log(f"[spans 11b] {len(payloads)} spans of {SPAN_SAMPLES} samples "
         f"(built in {build_s:.2f} s): native {out['native']['histo_rows']} "
         f"histogram rows, {out['native']['metrics']} InterMetrics; Python "
-        f"arm one span in {SPAN_PY_CUT}; card bitwise the CPU on both")
+        f"arm one span in {SPAN_PY_CUT}, card bitwise the CPU")
     out["server"] = phase_span_server(payloads[:(n_lines + SPAN_SAMPLES - 1)
                                                // SPAN_SAMPLES], tls_lines)
     return out
@@ -3740,25 +3801,20 @@ def phase_query_worker(tw, parse, qs, aggs, ek) -> dict:
     ek.flush_extract.launches = counted[0]
     ek.variant_launches.update(counted[1])
     out["peak_device_bytes_view_held"] = peak_bytes()
-    # the native arm: the tagged series lines as datagrams, card and CPU
+    # the native arm: the tagged series lines as datagrams, on the card
+    # (its CPU twin is cut for the run's time, PERF.md section 4: the
+    # native path's card-against-CPU snapshots are phase 4c's)
     grams = [b"\n".join(series_lines[i:i + 100])
              for i in range(0, n_series, 100)]
-    native = {}
-    for where, dev_ in (("card", DEVICE), ("cpu", "cpu")):
-        eng_n = engine()
-        wn = query_worker(tw, eng_n, dev_, native=True)
-        t0 = time.perf_counter()
-        for d in grams:
-            wn.ingest_datagram(d)
-        sn = wn.flush(qs)
-        eng_n.commit(QUERY_NOW)
-        native[where] = (wn, sn, eng_n, time.perf_counter() - t0)
-    (wn, sn, eng_n, t_n), (wnc, snc, eng_nc, t_nc) = native["card"], \
-        native["cpu"]
-    compare_snapshots(sn, snc, "phase 13 native, card against CPU")
-    nreqs = query_requests(sn)
-    check_answers(answers(eng_n, nreqs), answers(eng_nc, nreqs), nreqs,
-                  "phase 13a native")
+    eng_n = engine()
+    wn = query_worker(tw, eng_n, DEVICE, native=True)
+    t0 = time.perf_counter()
+    for d in grams:
+        wn.ingest_datagram(d)
+    sn = wn.flush(qs)
+    eng_n.commit(QUERY_NOW)
+    t_n = time.perf_counter() - t0
+    check_guard_clean(wn, sn, "phase 13 native, card")
     if wn.tenancy.live_counts() != want_live or \
             wn.tenancy.series_rejected_counts() != rejected:
         raise AssertionError("phase 13a native: the ledger's counts differ "
@@ -3773,7 +3829,7 @@ def phase_query_worker(tw, parse, qs, aggs, ek) -> dict:
         snap_g.directory.histo, snap_g.directory.sets) for m in pool.rows)
     if t7_rows > QUERY_BUDGETS["t7"] or snap_g.directory.histo.rejected_rows:
         raise AssertionError(f"phase 13a: {t7_rows} rows of t7")
-    del native, wn, wnc, sn, snc, eng_n, eng_nc
+    del wn, sn, eng_n
     # the next interval, with two query threads reading throughout: the
     # view's sketch pool stays as captured, and every response is one
     # committed epoch's
@@ -3829,8 +3885,7 @@ def phase_query_worker(tw, parse, qs, aggs, ek) -> dict:
     out.update({
         "card": t_g, "cpu": t_c, "series": n_series, "histo_rows": n,
         "ledger_live": live, "ledger_refused": rejected,
-        "sketch_s": t_g.get("sketch_s"), "native_s": {"card": t_n,
-                                                      "cpu": t_nc},
+        "sketch_s": t_g.get("sketch_s"), "native_s": {"card": t_n},
         "native_refused_rows": kept_rows, "next_interval_s": t_next,
         "reader_responses": len(seen), "requests": len(reqs)})
     log(f"[query] 13a: {n_series} series in {QUERY_TENANTS} tenants, t7 "
@@ -5100,15 +5155,22 @@ def phase_loadgen(ek, hll) -> tuple:
         out["warmup_s"] = time.perf_counter() - t0
         # 17a: the floor rate
         reset_launches(ek, hll)
-        trial = run_trial(harness, LG_RATE, LG_INTERVALS)
+        with gc_pauses() as pauses:
+            trial = run_trial(harness, LG_RATE, LG_INTERVALS)
         launches["a"] = read_launches(ek, hll)
         out["a"] = {k: v for k, v in trial.items() if k != "intervals"}
         out["a"]["intervals"] = trial["intervals"]
+        out["a"]["gc_pauses"] = pauses
         if not trial["passed"]:
             raise AssertionError(
                 f"phase 17a: {LG_RATE} lines/s not held: loss "
                 f"{trial['loss_frac']}, cadence {trial['cadence_frac']}, "
-                f"{trial['intervals_completed']} intervals")
+                f"{trial['intervals_completed']} intervals; by interval "
+                + "; ".join(
+                    f"sent {i['sent_lines']} accepted {i['accepted_lines']}"
+                    f" shed {i['shed_lines']} {i['duration_s']} s flush "
+                    f"{i['flush_ms']} ms" for i in trial["intervals"])
+                + f"; GC pauses {pauses}")
         check_trial_books(harness, trial, "phase 17a")
         for name in ("flush_extract", "hll_insert", "hll_estimate"):
             if launches["a"][name] < 1:
@@ -5117,7 +5179,7 @@ def phase_loadgen(ek, hll) -> tuple:
             f"intervals: accepted {trial['accepted_lines_per_s']}/s, loss "
             f"{trial['loss_frac']}, cadence {trial['cadence_frac']}, "
             + ", ".join(f"{k} {trial[k]}" for k in LG_BREAKDOWN)
-            + f"; launches {launches['a']}")
+            + f"; GC pauses {pauses}; launches {launches['a']}")
         out["a_s"] = time.perf_counter() - t0
         # 17b: the sustained-rate search on the same harness
         t1 = time.perf_counter()
@@ -5178,25 +5240,119 @@ def phase_loadgen(ek, hll) -> tuple:
     return out, launches
 
 
+@contextlib.contextmanager
+def gc_pauses():
+    """Yields a dict that, once the block ends, holds the count and the
+    longest pause (s) of the collector's runs in it, by generation."""
+    import gc
+
+    got: dict = {}
+    began = [0.0]
+
+    def cb(phase: str, info: dict) -> None:
+        if phase == "start":
+            began[0] = time.perf_counter()
+            return
+        g = got.setdefault(f"gen{info['generation']}",
+                           {"runs": 0, "max_s": 0.0})
+        g["runs"] += 1
+        g["max_s"] = max(g["max_s"], time.perf_counter() - began[0])
+
+    gc.callbacks.append(cb)
+    try:
+        yield got
+    finally:
+        gc.callbacks.remove(cb)
+
+
+def process_state() -> dict:
+    """This process's live threads, its GC-tracked objects and the time
+    one full collection takes now."""
+    import gc
+    import threading
+
+    names = sorted(t.name for t in threading.enumerate())
+    n_obj = len(gc.get_objects())
+    t = time.perf_counter()
+    gc.collect()
+    return {"threads": len(names), "thread_names": names[:40],
+            "gc_objects": n_obj,
+            "full_collect_s": time.perf_counter() - t}
+
+
+def phase_loadgen_child(timeout_s: float = 600.0) -> tuple:
+    """Phase 17 in a process of its own: ``chip_smoke.py
+    --loadgen-child`` writes the phase's record and its launches, each
+    counted from 0 in that process, to a file under build/."""
+    import subprocess
+
+    state = process_state()
+    log(f"[loadgen] this process before phase 17: {state['threads']} "
+        f"threads alive, {state['gc_objects']} GC-tracked objects, a "
+        f"full collection {state['full_collect_s']:.4f} s; phase 17 runs "
+        "in a process of its own")
+    path = ROOT / "build" / "chip_smoke_loadgen.json"
+    path.parent.mkdir(parents=True, exist_ok=True)
+    path.unlink(missing_ok=True)
+    rc = subprocess.run([sys.executable, str(Path(__file__).resolve()),
+                         "--loadgen-child", str(path)], cwd=ROOT,
+                        timeout=timeout_s).returncode
+    if rc != 0:
+        raise AssertionError(f"phase 17: its process exited {rc}")
+    got = json.loads(path.read_text())
+    got["out"]["parent_process"] = state
+    return got["out"], got["launches"]
+
+
 def reset_launches(ek, hll) -> None:
+    from veneur_tpu_torch.ops import tdigest as td
+
     ek.flush_extract.launches = 0
     for r in ek.variant_launches:
         ek.variant_launches[r] = 0
     hll.insert_batch.launches = hll.estimate.launches = 0
+    td.compress_rows.launches = td.add_batch.launches = 0
 
 
 def read_launches(ek, hll) -> dict:
     """Each kernel's launches since reset_launches, by kernels-line name."""
+    from veneur_tpu_torch.ops import tdigest as td
+
     return {"flush_extract": ek.flush_extract.launches,
             **{f"flush_extract_r{r}": n
                for r, n in ek.variant_launches.items()},
             "hll_insert": hll.insert_batch.launches,
-            "hll_estimate": hll.estimate.launches}
+            "hll_estimate": hll.estimate.launches,
+            "tdigest_compress": td.compress_rows.launches,
+            "tdigest_add_batch": td.add_batch.launches}
+
+
+def td_launches() -> tuple[int, int]:
+    """K2a's and K2b's launch counts now."""
+    from veneur_tpu_torch.ops import tdigest as td
+
+    return td.compress_rows.launches, td.add_batch.launches
+
+
+def check_td_launches(before: tuple, what: str) -> dict:
+    """K2a's and K2b's launches since ``before``; raises unless both
+    launched: a fold that quietly ran its plain version on the card fails
+    the run."""
+    a, b = td_launches()
+    got = {"tdigest_compress_launches": a - before[0],
+           "tdigest_add_batch_launches": b - before[1]}
+    if DEVICE == "cuda" and min(got.values()) < 1:
+        raise AssertionError(f"{what}: the t-digest folds did not launch "
+                             f"their kernels ({got})")
+    return got
 
 
 def main() -> int:
     ap = argparse.ArgumentParser()
     ap.add_argument("--json", help="also write the results to this file")
+    ap.add_argument("--loadgen-child", metavar="PATH",
+                    help="run only phase 17 (the kernels already built) "
+                         "and write its record and launches to PATH")
     args = ap.parse_args()
     try:
         import torch
@@ -5213,14 +5369,28 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tools"))
-    global probe, probe_hll, guard_faults
+    global probe, probe_hll, probe_td, guard_faults
     import port_guard_faults as guard_faults
     import port_probe_extract as probe
     import port_probe_hll as probe_hll
+    import port_probe_tdigest as probe_td
 
-    # 1. setup
     global CARD
     card = CARD = probe.card_line()
+    if args.loadgen_child:
+        from veneur_tpu_torch.ops import extract_kernel as ek
+        from veneur_tpu_torch.ops import hll, hll_kernel
+        from veneur_tpu_torch.ops import tdigest_kernel as tk
+
+        ek.load()
+        hll_kernel.load()
+        tk.load()
+        out, launches = phase_loadgen(ek, hll)
+        Path(args.loadgen_child).write_text(json.dumps(
+            {"out": out, "launches": launches}))
+        return 0
+
+    # 1. setup
     log(f"[setup] card: {card}")
     log(f"[setup] python {sys.version.split()[0]}, torch {torch.__version__}"
         f", cuda {torch.version.cuda}, device "
@@ -5231,19 +5401,22 @@ def main() -> int:
     from veneur_tpu_torch.core.metrics import HistogramAggregates
     from veneur_tpu_torch.ops import extract_kernel as ek
     from veneur_tpu_torch.ops import hll, hll_kernel
+    from veneur_tpu_torch.ops import tdigest as td
+    from veneur_tpu_torch.ops import tdigest_kernel as tk
     from veneur_tpu_torch.protocol.dogstatsd import parse_metric
     from veneur_tpu_torch import native
 
     t_start = t0 = time.perf_counter()
     # one nvcc per kernel source and the g++ of the native library,
     # started together
-    with ThreadPoolExecutor(max_workers=4) as pool:
+    with ThreadPoolExecutor(max_workers=5) as pool:
         builds = [pool.submit(ek.build), pool.submit(hll_kernel.build),
-                  pool.submit(native.build),
+                  pool.submit(tk.build), pool.submit(native.build),
                   pool.submit(native.build_loadgen)]
         lib_paths = [f.result() for f in builds]
     ek.load()
     hll_kernel.load()
+    tk.load()
     if native.source_hash() != native.source_stamp() \
             or native.loadgen_source_hash() != native.loadgen_source_stamp():
         raise AssertionError("a native library's source stamp is not its "
@@ -5260,6 +5433,10 @@ def main() -> int:
             f"{k} {v}" for k, v in rep.items()))
     hll_build = hll_kernel.build_report()
     for name, rep in sorted(hll_build.items()):
+        log(f"[setup] ptxas {name}: " + ", ".join(
+            f"{k} {v}" for k, v in rep.items()))
+    td_build = tk.build_report()
+    for name, rep in sorted(td_build.items()):
         log(f"[setup] ptxas {name}: " + ", ".join(
             f"{k} {v}" for k, v in rep.items()))
     wall = {"setup_s": time.perf_counter() - t_start}
@@ -5285,6 +5462,12 @@ def main() -> int:
                   "hll_estimate": probe_hll.check_estimate(hll)}
     hll_times = probe_hll.time_kernels(hll)
     wall["hll_kernels_s"] = time.perf_counter() - t0
+    # 3c. the t-digest folds (K2a, K2b)
+    t0 = time.perf_counter()
+    td_checks = {"tdigest_compress": probe_td.check_compress(td),
+                 "tdigest_add_batch": probe_td.check_add(td)}
+    td_times = probe_td.time_kernels(td, tk)
+    wall["tdigest_kernels_s"] = time.perf_counter() - t0
 
     # 4 + 5: the main path, launch counts reset just before
     aggs = HistogramAggregates.from_names(["min", "max", "count"])
@@ -5317,7 +5500,8 @@ def main() -> int:
                             server_taken, spill)
         wall["native_server_s"] += time.perf_counter() - t0
     launches = read_launches(ek, hll)
-    for name in ("flush_extract", "hll_insert", "hll_estimate"):
+    for name in ("flush_extract", "hll_insert", "hll_estimate",
+                 "tdigest_compress", "tdigest_add_batch"):
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the main "
                                  f"path")
@@ -5393,6 +5577,9 @@ def main() -> int:
     phases["global"], keep = phase_global(parse_metric)
     wall["global_s"] = time.perf_counter() - t0
     launches_global = read_launches(ek, hll)
+    if launches_global["tdigest_compress"] < 1:
+        raise AssertionError("tdigest_compress was not launched by phase "
+                             "10's import merge")
     # 12: the proxy tier against phase 10's gRPC global, counted from 0
     reset_launches(ek, hll)
     t0 = time.perf_counter()
@@ -5437,7 +5624,7 @@ def main() -> int:
                                  "path (phase 11)")
     # 17: the load generator at wire rate, each part counted from 0
     t0 = time.perf_counter()
-    phases["loadgen"], launches_loadgen = phase_loadgen(ek, hll)
+    phases["loadgen"], launches_loadgen = phase_loadgen_child()
     wall["loadgen_s"] = time.perf_counter() - t0
 
     def counts(name: str) -> dict:
@@ -5505,6 +5692,25 @@ def main() -> int:
                                  "ms_main_path", "ms_distinct", "ms_big",
                                  "big_batch", "bound_ms_big",
                                  "library_ms_big") if k in t}})
+    for name, what, line in (
+            ("tdigest_compress", "compress", 142),
+            ("tdigest_add_batch", "add_batch", 224)):
+        t = td_times[what]
+        main_t = t[0] if what == "compress" else t[-1]
+        kernels["kernels"].append({
+            "name": name, "route": "cuda",
+            "source": "veneur_tpu_torch/csrc/tdigest.cu",
+            "replaces": f"veneur_tpu/ops/tdigest.py:{line}",
+            **counts(name),
+            "max_abs_err": td_checks[name]["max_abs_err"],
+            "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+            "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+            "library_ms": None,
+            "library_note": "no single PyTorch call computes it",
+            "at_shapes": t,
+            "build": {k: v for k, v in td_build.items()
+                      if k.startswith("td_compress") == (
+                          what == "compress")}})
     wall["total_s"] = time.perf_counter() - t_start
     log("[timing] " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
     result = {"ok": True, "device": {

@@ -31,7 +31,11 @@ one launch per chunk, the transfer ledgers equal); and the flush archive
 (a card flush's VMB1 frame, native and Python, equal to the CPU's, every
 plan-capable section through the native encoder) and a server with the
 archive, the plugins and the remaining span sinks on the card, its
-archive replayed into a card global bitwise, merged once under dedup.
+archive replayed into a card global bitwise, merged once under dedup;
+and the t-digest folds (K2a compress_rows, K2b add_batch) against their
+plain versions on the same card inputs, edge rows and batches, ragged S,
+K and N and the global scratch slab of wide rows included, and a card
+worker's interval with the plain folds patched to raise (no fallback).
 
 Every test here is marked ``cuda`` and skips without a card. On a card
 machine (no JAX needed) run them with
@@ -63,6 +67,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
 import port_guard_faults as guard_faults  # noqa: E402
 import port_probe_extract as probe  # noqa: E402
 import port_probe_hll as probe_hll  # noqa: E402
+import port_probe_tdigest as probe_td  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -1466,3 +1471,106 @@ def test_load_harness_holds_50k_on_the_card(card):
     assert trial["passed"], {k: v for k, v in trial.items()
                              if k != "intervals"}
     assert k1 >= 1 and k5 >= 1
+
+
+# -- the t-digest folds (K2a, K2b) ----------------------------------------------
+
+
+@pytest.mark.parametrize("s,m", [(4_099, 192), (131_071, 256),
+                                 (131_072, 192), (1_024, 1_152),
+                                 (64, 8_192)])
+def test_tdigest_compress_bitwise_equals_plain(card, s, m):
+    """K2a against its plain version on the same card inputs, 16 edge rows
+    in front (probe_td.edge_rows); [64, 8,192] rows exceed a block's
+    shared memory and take the global scratch slab."""
+    from veneur_tpu_torch.ops import tdigest as td
+
+    means, w = probe_td.candidates(s, m, s + m, card)
+    before = td.compress_rows.launches
+    km, kw = td.compress_rows(means, w, 100.0, C)
+    assert td.compress_rows.launches == before + 1
+    pm, pw = td._compress_rows_plain(means, w, 100.0, C)
+    assert _bitwise(km, pm) and _bitwise(kw, pw)
+
+
+@pytest.mark.parametrize("k,n,edge", [(64, 256, False),
+                                      (1_024, 65_536, False),
+                                      (4_099, 300, False),
+                                      (16, 4_096, True),
+                                      (16_384, 262_144, False)])
+def test_tdigest_add_batch_bitwise_equals_plain(card, k, n, edge):
+    """K2b against its plain version, a fresh pool and then the rows it
+    made (ragged K and N, the edge batch of probe_td.sample_batch)."""
+    from veneur_tpu_torch.ops import tdigest as td
+
+    batch = probe_td.sample_batch(k, n, k + n, card, edge)
+    pool = probe_td.empty_pool(k, card)
+    for _ in range(2):
+        before = td.add_batch.launches
+        got = td.add_batch(*pool, *batch)
+        assert td.add_batch.launches == before + 1
+        ref = td.add_batch_plain(*pool, *batch)
+        for a, b in zip(list(got[:5]) + list(got[5]),
+                        list(ref[:5]) + list(ref[5])):
+            assert _bitwise(a, b)
+        pool = tuple(ref[:5])
+
+
+def test_tdigest_kernels_refuse_what_they_cannot_take(card):
+    from veneur_tpu_torch.ops import tdigest as td
+    from veneur_tpu_torch.ops import tdigest_kernel as tk
+
+    m = torch.zeros((4, 2 * C), device=card)
+    with pytest.raises(ValueError):
+        td.compress_rows(m[:, :C - 1].contiguous(), m[:, :C - 1].contiguous(),
+                         100.0, C)
+    with pytest.raises(ValueError):
+        td.compress_rows(m.t(), m.t(), 100.0, C)
+    with pytest.raises(ValueError):
+        tk.compress(m, m.cpu(), C, torch.zeros(100, device=card))
+    pool = probe_td.empty_pool(4, card)
+    one = torch.ones(8, device=card)
+    with pytest.raises(ValueError):
+        td.add_batch(*pool, torch.zeros(8, dtype=torch.int32, device=card),
+                     one, one.cpu())
+
+
+def test_worker_interval_never_reaches_the_plain_folds(card, monkeypatch):
+    """No fallback: with the plain folds patched to raise, a card worker's
+    interval (spill folds past the staging depth, the staged fold, an
+    import merge) still runs, through K2a and K2b; its snapshot is the CPU
+    twin's, computed after the patches are undone."""
+    from veneur_tpu_torch.ops import tdigest as td
+
+    def refuse(*_a, **_k):
+        raise AssertionError("a t-digest fold reached its plain version "
+                             "on the card")
+
+    monkeypatch.setattr(td, "_compress_rows_plain", refuse)
+    monkeypatch.setattr(td, "add_batch_plain", refuse)
+    kw = dict(stage_depth=16, batch_size=512, initial_histo_rows=64)
+    qs = np.array([0.5, 0.9, 0.99])
+    a0, b0 = td.compress_rows.launches, td.add_batch.launches
+    gpu = tw.DeviceWorker(**kw, device=card)
+    for line in _lines(5):
+        gpu.process_metric(parse_metric(line))
+    snap_g = gpu.flush(qs)
+    assert td.compress_rows.launches > a0 and td.add_batch.launches > b0
+    pool, imp = _import_inputs(8192, 16, 16)
+    fields_g = [torch.from_numpy(a.copy()).to(card) for a in pool]
+    tw._histo_import_step(*fields_g,
+                          *(torch.from_numpy(a).to(card) for a in imp))
+    monkeypatch.undo()
+    cpu = tw.DeviceWorker(**kw, device="cpu")
+    for line in _lines(5):
+        cpu.process_metric(parse_metric(line))
+    snap_c = cpu.flush(qs)
+    for name in ("quantile_values", "dmin", "dmax", "dsum", "dcount",
+                 "drecip", "digest_means", "digest_weights"):
+        assert _bitwise(torch.from_numpy(np.ascontiguousarray(
+            getattr(snap_g, name))), torch.from_numpy(np.ascontiguousarray(
+                getattr(snap_c, name)))), name
+    fields_c = [torch.from_numpy(a.copy()) for a in pool]
+    tw._histo_import_step(*fields_c, *(torch.from_numpy(a) for a in imp))
+    for a, b in zip(fields_g, fields_c):
+        assert _bitwise(a, b)

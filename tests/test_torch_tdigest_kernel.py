@@ -1,0 +1,391 @@
+"""The t-digest folds (K2) of the PyTorch port on the CPU.
+
+* The dispatchers ``compress_rows`` / ``_compress_rows`` and
+  ``add_batch`` take the plain version on a CPU tensor and are bitwise
+  veneur_tpu/ops/tdigest.py's at every width their callers use (M = C +
+  64, the staged fold; 2C, the pool merge and a 2-host mesh; C + 256, an
+  import; 4C, a 4-host merge) and at K = 64 and 1,024 rows by N = 256 and
+  65,536 samples, and on edge rows: +0.0 and -0.0 means in both orders,
+  f32 denormal means and weights, +-inf means, a row of one centroid, an
+  all-empty row, ties.
+* What either fold refuses, it refuses with ValueError on the CPU too;
+  the kernel wrappers refuse a CPU tensor.
+* The kernel source itself, csrc/tdigest.cu, built with g++ under its
+  TD_EMULATE hooks (every block run in turn with one thread, MXCSR set to
+  flush to zero and denormals-are-zero, as -ftz=true sets the card),
+  launched through ops/tdigest_kernel's own launch helpers: bitwise the
+  plain versions on the same inputs, NaN means and values, the global
+  scratch path of rows past a block's shared memory, ragged N and hot
+  rows included. The card's own run is tests/test_torch_cuda.py's.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import shutil
+import subprocess
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from veneur_tpu.ops import tdigest as jtd
+from veneur_tpu_torch.ops import exactnum as exn
+from veneur_tpu_torch.ops import nvcc
+from veneur_tpu_torch.ops import tdigest as ttd
+from veneur_tpu_torch.ops import tdigest_kernel as tk
+
+C = 128
+TINY = np.finfo(np.float32).tiny
+
+
+def _bits(a) -> np.ndarray:
+    a = a.numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+    a = np.ascontiguousarray(a, np.float32)
+    return np.where(np.isnan(a), np.uint32(0x7FC00000), a.view(np.uint32))
+
+
+def _assert_bitwise(a, b, what=""):
+    ba, bb = _bits(a), _bits(b)
+    assert ba.shape == bb.shape, (what, ba.shape, bb.shape)
+    bad = np.argwhere(ba != bb)
+    assert not len(bad), (what, bad[:5].tolist())
+
+
+def _edge_candidates(m: int, seed: int, nan: bool = False):
+    """[24, m] candidate rows: the edge rows of the module docstring, then
+    random fill (ties, weights, empty slots). ``nan`` adds NaN means."""
+    rng = np.random.default_rng(seed)
+    s = 24
+    means = rng.normal(50.0, 20.0, (s, m)).astype(np.float32)
+    w = rng.lognormal(0.0, 1.0, (s, m)).astype(np.float32)
+    w[rng.random((s, m)) < 0.3] = 0.0
+    half = m // 2
+    w[0] = 0.0                                          # empty
+    w[1] = 0.0
+    w[1, 3] = 2.5                                       # one centroid
+    means[2, :half] = np.where(np.arange(half) % 2 == 0, 0.0, -0.0)
+    means[2, half:] = np.where(np.arange(m - half) % 2 == 0, -0.0, 0.0)
+    means[3] = rng.integers(-2**20, 2**20, m) * np.float32(1e-45)
+    w[4] = rng.integers(1, 2**20, m) * np.float32(1e-45)
+    w[5, ::2] = -0.0
+    means[6, ::3] = np.inf
+    means[6, 1::5] = -np.inf
+    means[7] = np.round(means[7] / 10.0) * 10.0         # ties
+    means[8, : m // 3] = 7.0                            # one long tie run
+    means[9] = (rng.choice([-1.0, 1.0], m) * TINY
+                * (1.0 + rng.random(m))).astype(np.float32)
+    w[10] = 1.0
+    means[11] = np.arange(m, 0, -1, dtype=np.float32)
+    if nan:
+        means[12, ::4] = np.nan
+        means[12, 1::9] = -np.nan
+        w[13, ::5] = np.nan
+    means[w == 0] = np.where(rng.random(int((w == 0).sum())) < 0.5, np.inf,
+                             rng.normal(0.0, 1.0, int((w == 0).sum())))
+    return means.astype(np.float32), w.astype(np.float32)
+
+
+def _batch(k: int, n: int, seed: int, edge: bool = False, nan: bool = False):
+    """A spill batch over k rows: a tenth zero-weight padding; ``edge``:
+    +-0.0 values, denormal values and weights, +-inf values, ties, a hot
+    row and a row of one sample; ``nan``: NaN values too."""
+    rng = np.random.default_rng(seed)
+    rows = rng.integers(0, k, n).astype(np.int32)
+    vals = rng.gamma(2.0, 30.0, n).astype(np.float32)
+    wts = rng.choice([0.5, 1.0, 2.0, 10.0], n).astype(np.float32)
+    pad = rng.random(n) < 0.1
+    rows[pad] = k - 1
+    wts[pad] = 0.0
+    if edge:
+        r = rows % 16
+        vals[r == 0] = np.where(np.arange(int((r == 0).sum())) % 2 == 0,
+                                0.0, -0.0)
+        vals[r == 1] = rng.integers(-2**20, 2**20, int((r == 1).sum())) \
+            * np.float32(1e-45)
+        wts[r == 2] = rng.integers(1, 2**20, int((r == 2).sum())) \
+            * np.float32(1e-45)
+        vals[(r == 3) & (np.arange(n) % 3 == 0)] = np.inf
+        vals[(r == 4) & (np.arange(n) % 3 == 0)] = -np.inf
+        vals[r == 5] = np.float32(TINY * 1.5)
+        vals[r == 6] = np.round(vals[r == 6] / 10.0) * 10.0
+        rows[: n // 4] = min(7, k - 1)                  # a hot row
+        rows[rows == 8] = 9
+        rows[0], wts[0] = 8 % k, 1.0                    # one sample
+        if nan:
+            vals[(r == 10) & (np.arange(n) % 4 == 0)] = np.nan
+    return rows, vals.astype(np.float32), wts.astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# the dispatchers on the CPU against the JAX package
+
+
+@pytest.mark.parametrize("m", [C + 64, 2 * C, C + 256, 4 * C])
+def test_compress_dispatcher_bitwise_reference(m):
+    means, w = _edge_candidates(m, m)
+    jm, jw = jtd.compress_rows(jnp.asarray(means), jnp.asarray(w),
+                               compression=100.0, capacity=C)
+    before = ttd.compress_rows.launches
+    for fn in (ttd.compress_rows, ttd._compress_rows):
+        tm, tw = fn(torch.from_numpy(means), torch.from_numpy(w), 100.0, C)
+        _assert_bitwise(jm, tm, f"means m={m}")
+        _assert_bitwise(jw, tw, f"weights m={m}")
+    assert ttd.compress_rows.launches == before  # the CPU launches nothing
+
+
+@pytest.mark.parametrize("k,n", [(64, 256), (64, 65_536), (1_024, 256),
+                                 (1_024, 65_536)])
+def test_add_batch_dispatcher_bitwise_reference(k, n):
+    rows, vals, wts = _batch(k, n, k + n)
+    jpool = tuple(jtd.init_pool(k, C))
+    tpool = tuple(ttd.init_pool(k, C, device="cpu"))
+    before = ttd.add_batch.launches
+    for rnd in range(2):
+        jo = jtd.add_batch(*jpool, jnp.asarray(rows),
+                           jnp.asarray(vals + rnd), jnp.asarray(wts))
+        to = ttd.add_batch(*tpool, torch.from_numpy(rows),
+                           torch.from_numpy(vals + rnd),
+                           torch.from_numpy(wts))
+        for i, name in enumerate(("means", "weights", "min", "max",
+                                  "recip")):
+            _assert_bitwise(jo[i], to[i], f"round {rnd} {name}")
+        for f in jtd.BatchStats._fields:
+            _assert_bitwise(getattr(jo[5], f), getattr(to[5], f), f)
+        jpool, tpool = tuple(jo[:5]), tuple(to[:5])
+    assert ttd.add_batch.launches == before
+
+
+def test_add_batch_edge_batch_bitwise_reference():
+    k = 16
+    rows, vals, wts = _batch(k, 4_096, 5, edge=True)
+    means, w = _edge_candidates(C, 9)
+    dmin = np.where(w.sum(1) > 0, -1.0, np.inf).astype(np.float32)
+    dmax = np.where(w.sum(1) > 0, 1e3, -np.inf).astype(np.float32)
+    dmin[3], dmax[3] = -0.0, 0.0
+    recip = np.zeros(24, np.float32)
+    pool = tuple(a[:k] for a in (means, w, dmin, dmax, recip))
+    jo = jtd.add_batch(*(jnp.asarray(a) for a in pool), jnp.asarray(rows),
+                       jnp.asarray(vals), jnp.asarray(wts))
+    to = ttd.add_batch(*(torch.from_numpy(np.ascontiguousarray(a))
+                         for a in pool), torch.from_numpy(rows),
+                       torch.from_numpy(vals), torch.from_numpy(wts))
+    for i in range(5):
+        _assert_bitwise(jo[i], to[i], f"field {i}")
+    for f in jtd.BatchStats._fields:
+        _assert_bitwise(getattr(jo[5], f), getattr(to[5], f), f)
+
+
+def test_merge_pools_and_merge_many_take_the_dispatcher(monkeypatch):
+    """merge_pools and merge_many compress through the dispatcher (so a
+    CUDA pool launches K2a): on the CPU it hands them the plain version."""
+    seen = []
+    real = ttd._compress_rows_plain
+
+    def spy(means, weights, compression, capacity):
+        seen.append(tuple(means.shape))
+        return real(means, weights, compression, capacity)
+
+    monkeypatch.setattr(ttd, "_compress_rows_plain", spy)
+    a = ttd.init_pool(8, C, device="cpu")
+    ttd.merge_pools(a, a)
+    stacked = ttd.TDigestPool(*(torch.stack([t, t, t]) for t in a))
+    ttd.merge_many(stacked)
+    assert seen == [(8, 2 * C), (8, 3 * C)]
+
+
+# ---------------------------------------------------------------------------
+# what the folds refuse
+
+
+def _pool(k=4, c=C):
+    return tuple(ttd.init_pool(k, c, device="cpu"))
+
+
+@pytest.mark.parametrize("case", [
+    "m_below_capacity", "three_dims", "shapes_differ", "f64",
+    "not_contiguous", "capacity_zero"])
+def test_compress_refuses(case):
+    m = torch.zeros((4, 2 * C))
+    w = torch.zeros((4, 2 * C))
+    cap = C
+    if case == "m_below_capacity":
+        m, w = m[:, :C - 1].contiguous(), w[:, :C - 1].contiguous()
+    elif case == "three_dims":
+        m, w = m[None], w[None]
+    elif case == "shapes_differ":
+        w = w[:, :-1].contiguous()
+    elif case == "f64":
+        m, w = m.double(), w.double()
+    elif case == "not_contiguous":
+        m, w = m.t(), w.t()
+    else:
+        cap = 0
+    with pytest.raises(ValueError):
+        ttd.compress_rows(m, w, 100.0, cap)
+
+
+@pytest.mark.parametrize("case", [
+    "no_samples", "capacity_too_wide", "dmin_shape", "rows_float",
+    "values_shape", "f64_weights", "rows_2d"])
+def test_add_batch_refuses(case):
+    pool = list(_pool())
+    rows = torch.zeros(8, dtype=torch.int32)
+    vals = torch.ones(8)
+    wts = torch.ones(8)
+    if case == "no_samples":
+        rows, vals, wts = rows[:0], vals[:0], wts[:0]
+    elif case == "capacity_too_wide":
+        pool = list(_pool(4, tk.MAX_ADD_CAPACITY + 128))
+    elif case == "dmin_shape":
+        pool[2] = pool[2][:3]
+    elif case == "rows_float":
+        rows = rows.float()
+    elif case == "values_shape":
+        vals = vals[:7]
+    elif case == "f64_weights":
+        wts = wts.double()
+    else:
+        rows = rows.reshape(2, 4)
+    with pytest.raises(ValueError):
+        ttd.add_batch(*pool, rows, vals, wts)
+
+
+def test_kernel_wrappers_refuse_a_cpu_tensor():
+    m = torch.zeros((2, 2 * C))
+    with pytest.raises(ValueError):
+        tk.compress(m, m, C, torch.zeros(100))
+    pool = _pool(2)
+    one = torch.ones(4)
+    with pytest.raises(ValueError):
+        tk.add_batch(*pool, torch.zeros(4, dtype=torch.int64), one, one, one,
+                     torch.zeros(100))
+
+
+# ---------------------------------------------------------------------------
+# the kernel source under emulation against the plain versions
+
+_SHIM = r"""
+#include <stdint.h>
+#include <string.h>
+#include <math.h>
+#include <stddef.h>
+#include <vector>
+#include <xmmintrin.h>
+struct TdDim3 { unsigned x, y, z; };
+static TdDim3 threadIdx, blockIdx, blockDim, gridDim;
+#define __global__
+#define __device__
+#define __host__
+#define __forceinline__ inline
+#define __shared__ static
+#define TD_EMULATE 1
+static unsigned char* td_emu_smem;
+#define TD_DYNAMIC_SMEM(name) unsigned char* name = td_emu_smem
+typedef int cudaError_t;
+typedef void* cudaStream_t;
+#define cudaSuccess 0
+#define cudaFuncAttributeMaxDynamicSharedMemorySize 0
+template <class F> static int cudaFuncSetAttribute(F, int, int) { return 0; }
+static int cudaGetLastError() { return 0; }
+static inline void __syncthreads() {}
+static inline float __uint_as_float(uint32_t u) {
+  float f; memcpy(&f, &u, 4); return f; }
+static inline uint32_t __float_as_uint(float f) {
+  uint32_t u; memcpy(&u, &f, 4); return u; }
+static inline int atomicMin(int* p, int v) {
+  int o = *p; if (v < o) *p = v; return o; }
+// every block in turn, one thread each, with flush to zero and
+// denormals-are-zero (the card's -ftz=true)
+template <class F> static void td_emu_launch(long long grid, size_t smem,
+                                             F f) {
+  std::vector<unsigned char> buf(smem + 16);
+  td_emu_smem = (unsigned char*)(((uintptr_t)buf.data() + 15)
+                                 & ~(uintptr_t)15);
+  const unsigned csr = _mm_getcsr();
+  _mm_setcsr(csr | 0x8040);
+  blockDim = {1, 1, 1};
+  gridDim = {(unsigned)grid, 1, 1};
+  threadIdx = {0, 0, 0};
+  for (long long b = 0; b < grid; ++b) { blockIdx.x = (unsigned)b; f(); }
+  _mm_setcsr(csr);
+}
+#define TD_LAUNCH(kernel, grid, block, smem, stream, ...) \
+  td_emu_launch((grid), (smem), [&] { kernel(__VA_ARGS__); })
+#include "tdigest.cu"
+"""
+
+
+@pytest.fixture(scope="module")
+def emulated(tmp_path_factory):
+    """csrc/tdigest.cu built with g++ under the shim, bound as the card's
+    library is (tdigest_kernel.bind)."""
+    gxx = shutil.which("g++")
+    assert gxx, "g++ builds the kernel source's emulation (as native.py)"
+    d = tmp_path_factory.mktemp("tdigest_emu")
+    shutil.copy(nvcc.CSRC / "tdigest.cu", d / "tdigest.cu")
+    (d / "shim.cc").write_text(_SHIM)
+    lib = d / "libtdigest_emu.so"
+    proc = subprocess.run(
+        [gxx, "-std=c++17", "-O2", "-ffp-contract=off", "-fno-fast-math",
+         "-fPIC", "-shared", "-o", str(lib), str(d / "shim.cc")],
+        capture_output=True, text=True)
+    assert proc.returncode == 0, proc.stderr[-4000:]
+    return tk.bind(ctypes.CDLL(str(lib)))
+
+
+def _table():
+    return exn._table(100.0, torch.device("cpu"))
+
+
+@pytest.mark.parametrize("m", [C, C + 64, 2 * C, C + 256, 4 * C, 1_152])
+def test_emulated_compress_bitwise_plain(emulated, m):
+    means, w = _edge_candidates(m, 100 + m, nan=True)
+    mt, wt = torch.from_numpy(means), torch.from_numpy(w)
+    pm, pw = ttd._compress_rows_plain(mt, wt, 100.0, C)
+    km, kw = tk.run_compress(emulated, mt, wt, C, _table(), None)
+    _assert_bitwise(pm, km, "means")
+    _assert_bitwise(pw, kw, "weights")
+
+
+def test_emulated_compress_scratch_path(emulated):
+    """Rows past a block's shared memory work in a global slab: the
+    launcher's scratch argument, the same routine."""
+    m, s = 600, 24
+    means, w = _edge_candidates(m, 3, nan=True)
+    mt, wt = torch.from_numpy(means), torch.from_numpy(w)
+    pm, pw = ttd._compress_rows_plain(mt, wt, 100.0, C)
+    row_bytes = emulated.td_compress_row_bytes(m)
+    assert row_bytes <= emulated.td_compress_smem_limit()  # forced here
+    scratch = torch.empty(s * row_bytes, dtype=torch.uint8)
+    om, ow = torch.empty(s, C), torch.empty(s, C)
+    tbl = _table()
+    rc = emulated.td_compress_launch(
+        mt.data_ptr(), wt.data_ptr(), s, m, C, tbl.data_ptr(), tbl.numel(),
+        scratch.data_ptr(), om.data_ptr(), ow.data_ptr(), None)
+    assert rc == 0
+    _assert_bitwise(pm, om, "means")
+    _assert_bitwise(pw, ow, "weights")
+    assert emulated.td_compress_row_bytes(8_192) \
+        > emulated.td_compress_smem_limit()
+
+
+@pytest.mark.parametrize("k,n,edge", [
+    (64, 256, False), (1_024, 65_536, False), (16, 300, False),
+    (5, 1_000, False), (1, 70_000, False), (16, 4_096, True),
+    (3, 129, True)])
+def test_emulated_add_batch_bitwise_plain(emulated, k, n, edge):
+    rows, vals, wts = _batch(k, n, 7 * k + n, edge=edge, nan=edge)
+    pool = tuple(ttd.init_pool(k, C, device="cpu"))
+    names = ("means", "weights", "min", "max", "recip") + tuple(
+        f"stats.{f}" for f in ttd.BatchStats._fields)
+    for rnd in range(2):
+        args = (torch.from_numpy(rows), torch.from_numpy(vals + rnd),
+                torch.from_numpy(wts))
+        plain = ttd.add_batch_plain(*pool, *args)
+        got = tk.run_add_batch(emulated, *pool,
+                               *ttd._sort_batch(*args, k), _table(), None)
+        for name, a, b in zip(names, list(plain[:5]) + list(plain[5]), got):
+            _assert_bitwise(a, b, f"round {rnd} {name}")
+        pool = tuple(plain[:5])

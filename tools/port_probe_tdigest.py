@@ -1,0 +1,339 @@
+#!/usr/bin/env python3
+"""The t-digest fold kernels (K2) on one NVIDIA card: checks, times, bounds.
+
+    python3 tools/port_probe_tdigest.py [--json PATH] [--quick]
+
+Holds K2a (``compress_rows``) and K2b (``add_batch``) of
+veneur_tpu_torch/csrc/tdigest.cu against their plain PyTorch versions
+(veneur_tpu_torch/ops/tdigest.py ``_compress_rows_plain``,
+``add_batch_plain``) on the same CUDA inputs, every output in f32 bits
+(NaN positions equal):
+
+* K2a at the main path's shapes: [131,072, 192] (chip_smoke.py phase 4's
+  staged fold, C + 64), [1,024, 256] and [65,536, 256] (import merges,
+  C + W), [32,768, 256] (a 2-host mesh shard, H * C), [8,192, 1,152] (a
+  global's import of 8 locals' digests, C + 1,024) and ragged [4,099,
+  192] and [131,071, 256]; each with 16 edge rows in front (empty, one
+  centroid, +0.0 and -0.0 means in both orders, denormal means,
+  denormal weights, -0.0 weights, +-inf and NaN means, ties, underflowing
+  products, weights near the f32 maximum).
+* K2b at (K, N) = (64, 256), (1,024, 65,536) and (16,384, 262,144): a
+  fresh pool, then the same batch again into the rows it made; N mostly
+  live samples with zero-weight padding; and edge batches (+-0.0 values,
+  denormal values and weights, +-inf and NaN values, one hot row, ties,
+  a row of one sample) at (16, 4,096).
+
+Then the median of REPS calls behind a device spin
+(port_probe_extract.cuda_ms) of each kernel, its plain version on the
+card, and, beside K2b, the batch sort before it (``_sort_batch``, the two
+stable torch.sort calls) and the whole dispatcher (sort + K2b); the least
+time the card could take (bytes over 3.35 TB/s: K2a reads S * M * 8 and
+writes S * C * 8; K2b reads the [K, C] rows, three scalars a row and the
+batch's N * 12 and writes the [K, C] rows and eight scalars a row); and
+ptxas's report. Inputs are made on the card from a seed
+(torch.Generator). No single PyTorch call computes either function
+(library_ms null). ``--quick`` checks one shape of each and the edges and
+times nothing. Imports torch and the port only; exits 2 without CUDA.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent.parent
+sys.path.insert(0, str(ROOT / "tools"))
+
+import port_probe_extract as pe  # noqa: E402
+
+HBM_BYTES_PER_S = pe.HBM_BYTES_PER_S
+REPS = 21
+C = 128
+COMPRESSION = 100.0
+COMPRESS_CASES = [(131_072, 192), (1_024, 256), (65_536, 256),
+                  (32_768, 256), (8_192, 1_152), (4_099, 192),
+                  (131_071, 256)]
+# timed at the main path's shapes
+COMPRESS_TIMED = [(131_072, 192), (65_536, 256), (32_768, 256),
+                  (8_192, 1_152)]
+ADD_CASES = [(64, 256), (1_024, 65_536), (16_384, 262_144)]
+EDGE_ADD = (16, 4_096)
+DEVICE = "cuda"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def _gen(seed: int, device):
+    import torch
+
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    return g
+
+
+def edge_rows(m: int, device):
+    """16 candidate rows [16, m] of edge cases (the module docstring)."""
+    import torch
+
+    f32 = torch.float32
+    tiny = torch.finfo(f32).tiny
+    g = _gen(1000 + m, device)
+    means = torch.randn((16, m), generator=g, device=device) * 20 + 50
+    w = torch.ones((16, m), dtype=f32, device=device)
+    half = m // 2
+    w[0] = 0.0                                       # empty
+    w[1] = 0.0
+    w[1, 3] = 2.5                                    # one centroid
+    means[2, :half] = torch.where(torch.arange(half, device=device) % 2 == 0,
+                                  0.0, -0.0)         # +0, -0
+    means[2, half:] = torch.where(
+        torch.arange(m - half, device=device) % 2 == 0, -0.0, 0.0)
+    means[3] = (torch.randint(-2 ** 20, 2 ** 20, (m,), generator=g,
+                              device=device).to(f32) * 1e-45)  # denormal
+    w[4] = (torch.randint(1, 2 ** 20, (m,), generator=g,
+                          device=device).to(f32) * 1e-45)
+    w[5, ::2] = -0.0
+    means[6, ::3] = float("inf")
+    means[6, 1::5] = float("-inf")
+    means[7, ::4] = float("nan")
+    means[7, 1::9] = -float("nan")
+    means[8] = torch.round(means[8] / 10) * 10       # ties
+    means[9] = (torch.where(torch.rand((m,), generator=g, device=device)
+                            < 0.5, -1.0, 1.0) * tiny
+                * (1 + torch.rand((m,), generator=g, device=device)))
+    w[10] = torch.rand((m,), generator=g, device=device) * 3e38
+    means[11, : m // 3] = 7.0                        # one long tie run
+    w[12, m // 2:] = 0.0
+    means[13] = torch.arange(m, 0, -1, device=device).to(f32)
+    w[14] = torch.rand((m,), generator=g, device=device) * 1e-3
+    w[15, ::7] = 0.0
+    return means.contiguous(), w.contiguous()
+
+
+def candidates(s: int, m: int, seed: int, device, edges: bool = True):
+    """[s, m] candidate rows as a fold builds them: a digest row of up to
+    C centroids (sorted, +inf padding) beside m - C raw samples; a third
+    of the slots empty; with ``edges``, edge rows in front."""
+    import torch
+
+    g = _gen(seed, device)
+    means = torch.randn((s, m), generator=g, device=device) * 20 + 50
+    w = torch.exp(torch.randn((s, m), generator=g, device=device))
+    empty = torch.rand((s, m), generator=g, device=device) < 0.3
+    w = torch.where(empty, 0.0, w)
+    means = torch.where(empty, float("inf"), means)
+    head = means[:, :C].sort(dim=-1).values
+    means = torch.cat([head, means[:, C:]], dim=-1)
+    if edges:
+        em, ew = edge_rows(m, device)
+        k = min(16, s)
+        means[:k], w[:k] = em[:k], ew[:k]
+    return means.contiguous(), w.contiguous()
+
+
+def sample_batch(k: int, n: int, seed: int, device, edge: bool = False):
+    """A spill batch of n samples over k rows (int32 rows, f32 values and
+    weights; a tenth zero-weight padding on the last row), or, with
+    ``edge``, the edge batch of the module docstring."""
+    import torch
+
+    f32 = torch.float32
+    g = _gen(seed, device)
+    rows = torch.randint(0, k, (n,), generator=g, device=device,
+                         dtype=torch.int32)
+    u = torch.rand((2, n), generator=g, device=device)
+    vals = (-torch.log(u[0] * u[1]) * 30.0).to(f32)  # gamma(2, 30)
+    wts = torch.ones((n,), dtype=f32, device=device)
+    wts[torch.rand((n,), generator=g, device=device) < 0.2] = 2.0
+    pad = torch.rand((n,), generator=g, device=device) < 0.1
+    rows = torch.where(pad, k - 1, rows)
+    wts = torch.where(pad, 0.0, wts)
+    if edge:
+        tiny = torch.finfo(f32).tiny
+        r = rows % 16
+        vals = torch.where(r == 0, torch.where(torch.arange(
+            n, device=device) % 2 == 0, 0.0, -0.0), vals)
+        vals = torch.where(r == 1, torch.randint(
+            -2 ** 20, 2 ** 20, (n,), generator=g, device=device).to(f32)
+            * 1e-45, vals)
+        wts = torch.where(r == 2, torch.randint(
+            1, 2 ** 20, (n,), generator=g, device=device).to(f32) * 1e-45,
+            wts)
+        vals = torch.where((r == 3) & (torch.arange(n, device=device) % 3
+                                       == 0), float("inf"), vals)
+        vals = torch.where((r == 4) & (torch.arange(n, device=device) % 5
+                                       == 0), float("nan"), vals)
+        vals = torch.where(r == 5, tiny * 1.5, vals)
+        vals = torch.where(r == 6, torch.round(vals / 10) * 10, vals)
+        rows = torch.where(torch.arange(n, device=device) < n // 4, 7, rows)
+        rows = torch.where(rows == 8, 9, rows)
+        rows[0] = 8  # a row of one sample
+        wts[0] = 1.0
+        vals = torch.where(r == 10, -vals, vals)
+    return rows.contiguous(), vals.contiguous(), wts.contiguous()
+
+
+def empty_pool(k: int, device):
+    from veneur_tpu_torch.ops import tdigest as td
+
+    return tuple(td.init_pool(k, C, device=device))
+
+
+def _equal(got, ref, what: str) -> float:
+    ok, err = pe.bitwise_equal(got, ref)
+    if not ok:
+        raise AssertionError(f"{what}: the kernel is not bitwise equal to "
+                             f"the plain version (max |diff| {err})")
+    return err
+
+
+def check_compress(td, cases=COMPRESS_CASES) -> dict:
+    """K2a against the plain version at every case; the worst error."""
+    worst = 0.0
+    for s, m in cases:
+        means, w = candidates(s, m, s + m, DEVICE)
+        km, kw = td.compress_rows(means, w, COMPRESSION, C)
+        pm, pw = td._compress_rows_plain(means, w, COMPRESSION, C)
+        worst = max(worst, _equal(km, pm, f"compress [{s}, {m}] means"),
+                    _equal(kw, pw, f"compress [{s}, {m}] weights"))
+        log(f"[tdigest] K2a [{s:,}, {m:,}]: bitwise equal (16 edge rows)")
+        del means, w, km, kw, pm, pw
+    return {"cases": [list(c) for c in cases], "bitwise": True,
+            "max_abs_err": worst}
+
+
+def _add_both(td, pool, batch):
+    k_out = td.add_batch(*pool, *batch, compression=COMPRESSION)
+    p_out = td.add_batch_plain(*pool, *batch, compression=COMPRESSION)
+    return k_out, p_out
+
+
+def check_add(td, cases=ADD_CASES) -> dict:
+    """K2b against the plain version: each case's batch into a fresh pool
+    and again into the rows it made; the edge batch likewise."""
+    worst = 0.0
+    names = ("means", "weights", "min", "max", "recip") + tuple(
+        f"stats.{f}" for f in td.BatchStats._fields)
+    runs = [(k, n, False) for k, n in cases] + [(*EDGE_ADD, True)]
+    for k, n, edge in runs:
+        batch = sample_batch(k, n, k + n, DEVICE, edge)
+        pool = empty_pool(k, DEVICE)
+        for rnd in range(2):
+            k_out, p_out = _add_both(td, pool, batch)
+            kf = list(k_out[:5]) + list(k_out[5])
+            pf = list(p_out[:5]) + list(p_out[5])
+            for name, a, b in zip(names, kf, pf):
+                worst = max(worst, _equal(
+                    a, b, f"add_batch ({k}, {n}) round {rnd} {name}"))
+            pool = tuple(p_out[:5])
+        log(f"[tdigest] K2b (K {k:,}, N {n:,}){' edge' if edge else ''}: "
+            f"bitwise equal, two rounds")
+    return {"cases": [list(c) for c in cases] + [list(EDGE_ADD)],
+            "bitwise": True, "max_abs_err": worst}
+
+
+def compress_bound(s: int, m: int) -> float:
+    return (s * m * 8 + s * C * 8) / HBM_BYTES_PER_S * 1e3
+
+
+def add_bound(k: int, n: int) -> float:
+    return (2 * k * C * 8 + k * 3 * 4 + n * 12 + k * 8 * 4) \
+        / HBM_BYTES_PER_S * 1e3
+
+
+def time_kernels(td, tk, reps: int = REPS) -> dict:
+    """Medians of kernel and plain at the main path's shapes, the bounds,
+    and beside K2b its batch sort and the whole dispatcher."""
+    import torch
+
+    from veneur_tpu_torch.ops import exactnum as exn
+
+    spin = 2_000_000
+    out = {"compress": [], "add_batch": []}
+    table = exn._table(COMPRESSION, torch.device(DEVICE))
+    for s, m in COMPRESS_TIMED:
+        means, w = candidates(s, m, 7 + s + m, DEVICE)
+        ms = pe.cuda_ms(lambda: tk.compress(means, w, C, table), reps, spin)
+        plain = pe.cuda_ms(lambda: td._compress_rows_plain(
+            means, w, COMPRESSION, C), max(5, reps // 4), spin)
+        b = compress_bound(s, m)
+        out["compress"].append({"rows": s, "m": m, "ms": ms,
+                                "plain_ms": plain, "bound_ms": b,
+                                "bound_by": "bytes", "share": b / ms})
+        log(f"[tdigest] K2a [{s:,}, {m:,}]: {ms:.4f} ms (bound {b:.4f} ms, "
+            f"{100 * b / ms:.1f}%), plain {plain:.4f} ms")
+        del means, w
+    for k, n in ADD_CASES:
+        rows, vals, wts = sample_batch(k, n, 11 + k + n, DEVICE)
+        pool = empty_pool(k, DEVICE)
+        pool = tuple(td.add_batch(*pool, rows, vals, wts)[:5])
+        srt = td._sort_batch(rows, vals, wts, k)
+        ms = pe.cuda_ms(lambda: tk.add_batch(*pool, *srt, table), reps, spin)
+        sort_ms = pe.cuda_ms(lambda: td._sort_batch(rows, vals, wts, k),
+                             reps, spin)
+        whole = pe.cuda_ms(lambda: td.add_batch(*pool, rows, vals, wts),
+                           reps, spin)
+        plain = pe.cuda_ms(lambda: td.add_batch_plain(*pool, rows, vals,
+                                                      wts),
+                           max(5, reps // 4), spin)
+        b = add_bound(k, n)
+        out["add_batch"].append({"rows": k, "samples": n, "ms": ms,
+                                 "sort_ms": sort_ms, "with_sort_ms": whole,
+                                 "plain_ms": plain, "bound_ms": b,
+                                 "bound_by": "bytes", "share": b / ms})
+        log(f"[tdigest] K2b (K {k:,}, N {n:,}): {ms:.4f} ms (bound {b:.4f} "
+            f"ms, {100 * b / ms:.1f}%), the sort before it {sort_ms:.4f} "
+            f"ms, sort + K2b {whole:.4f} ms, plain {plain:.4f} ms")
+    return out
+
+
+def build_log(tk) -> dict:
+    rep = tk.build_report()
+    for name, r in sorted(rep.items()):
+        log(f"[tdigest] ptxas {name}: " + ", ".join(
+            f"{k} {v}" for k, v in r.items()))
+    return rep
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--json", help="also write the results to this file")
+    ap.add_argument("--quick", action="store_true",
+                    help="one shape of each kernel and the edges, no times")
+    args = ap.parse_args()
+    import torch
+
+    if not torch.cuda.is_available():
+        print("CUDA is not available: the probe needs a card",
+              file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT))
+    from veneur_tpu_torch.ops import tdigest as td
+    from veneur_tpu_torch.ops import tdigest_kernel as tk
+
+    card = pe.card_line()
+    log(f"[tdigest] card: {card}")
+    tk.load()
+    res = {"card": card, "build": build_log(tk)}
+    if args.quick:
+        res["compress"] = check_compress(td, [(4_099, 192), (1_024, 1_152)])
+        res["add_batch"] = check_add(td, [(64, 256)])
+    else:
+        res["compress"] = check_compress(td)
+        res["add_batch"] = check_add(td)
+        res["times"] = time_kernels(td, tk)
+    res["launches"] = {"compress_rows": td.compress_rows.launches,
+                       "add_batch": td.add_batch.launches}
+    if args.json:
+        Path(args.json).parent.mkdir(parents=True, exist_ok=True)
+        Path(args.json).write_text(json.dumps(res, indent=1))
+    print(json.dumps(res), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -8,10 +8,20 @@ k-function bucket from the f32 boundary table, per-bucket run sums as
 prefix-sum differences, re-sort. See the reference module for the design.
 
 Bit contract: every op below is the reference's op in the reference's
-order. Sorts are ``torch.sort(..., stable=True)`` (``lax.sort`` is stable;
-tie order decides the bits), and the reference's two-key sort is two
-stable sorts, secondary key first. Scans and sums go through
-``ops/exactnum.py``.
+order. Sorts are stable (``lax.sort`` is stable; tie order decides the
+bits) and run on an integer order key (``_order_key``: -0.0 and +0.0
+equal, every NaN equal and after +inf, as ``lax.sort`` and ``torch.sort``
+on the CPU order floats), so they give one order on every device; the
+reference's two-key sort is two stable sorts, secondary key first. Scans
+and sums go through ``ops/exactnum.py``.
+
+K2: the two folds, ``compress_rows`` (also ``_compress_rows``) and
+``add_batch``, are dispatchers. A CPU tensor takes the plain version
+(``_compress_rows_plain``, ``add_batch_plain``); a CUDA tensor launches
+the hand kernel of csrc/tdigest.cu (ops/tdigest_kernel.py) or raises.
+``compress_rows.launches`` and ``add_batch.launches`` count kernel
+launches, nothing else. A shape that either kernel does not take raises
+ValueError on both devices.
 
 Denormals as XLA on the CPU treats them (``exactnum.flush_denormals``):
 arithmetic, comparisons and sorts read a denormal input as a zero of its
@@ -32,6 +42,7 @@ import torch
 from veneur_tpu_torch.device import resolve
 from veneur_tpu_torch.ops import exactnum as exn
 from veneur_tpu_torch.ops import segments
+from veneur_tpu_torch.ops import tdigest_kernel
 
 DEFAULT_COMPRESSION = 100.0
 DEFAULT_CAPACITY = 128
@@ -79,10 +90,35 @@ def pool_from_numpy(d: dict, device) -> TDigestPool:
         for k in ("means", "weights", "min", "max", "recip")))
 
 
+def _order_key(x: torch.Tensor) -> torch.Tensor:
+    """int32 keys that order flushed f32 ``x`` as ``lax.sort`` does:
+    ascending, -0.0 == +0.0, every NaN equal and above +inf
+    (csrc/tdigest.cu's ``order_key``). A float sort on the card need not
+    order signed zeros and NaNs so; an integer sort is exact on every
+    device. ``x + 0.0`` turns -0.0 into +0.0; a negative float's
+    magnitude bits are flipped so it orders below the smaller
+    magnitudes."""
+    i = (x + 0.0).view(torch.int32)
+    key = i ^ ((i >> 31) & 0x7FFFFFFF)
+    return torch.where(torch.isnan(x), 0x7FFFFFFF, key)
+
+
 def _stable_sort_pair(keys: torch.Tensor, payload: torch.Tensor):
     """``lax.sort((keys, payload), num_keys=1)`` along the last axis."""
-    skeys, order = torch.sort(keys, dim=-1, stable=True)
-    return skeys, torch.gather(payload, -1, order)
+    order = torch.sort(_order_key(keys), dim=-1, stable=True).indices
+    return torch.gather(keys, -1, order), torch.gather(payload, -1, order)
+
+
+def _minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.minimum`` as the CPU computes it, written out as selects
+    so every device agrees: a NaN operand wins (the first one if both
+    are NaN), a tie (-0.0 against +0.0) keeps the first operand."""
+    return torch.where(torch.isnan(a) | ~(b < a) & ~torch.isnan(b), a, b)
+
+
+def _maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``torch.maximum`` as the CPU computes it (see ``_minimum``)."""
+    return torch.where(torch.isnan(a) | ~(b > a) & ~torch.isnan(b), a, b)
 
 
 def _k_bucket(q: torch.Tensor, compression: float, capacity: int
@@ -91,10 +127,11 @@ def _k_bucket(q: torch.Tensor, compression: float, capacity: int
     return torch.clamp(exn.kscale_bucket(q, compression), 0, capacity - 1)
 
 
-def _compress_rows(means: torch.Tensor, weights: torch.Tensor,
-                   compression: float, capacity: int
-                   ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Compress candidate centroid rows [S, M] → [S, capacity].
+def _compress_rows_plain(means: torch.Tensor, weights: torch.Tensor,
+                         compression: float, capacity: int
+                         ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Compress candidate centroid rows [S, M] → [S, capacity], the plain
+    version of K2a.
 
     Empty candidate slots must have weight 0 (their mean is ignored).
     Output rows are sorted by mean with +inf padding."""
@@ -134,9 +171,42 @@ def _compress_rows(means: torch.Tensor, weights: torch.Tensor,
             new_w[:, :capacity].contiguous())
 
 
+def _check_compress(means: torch.Tensor, weights: torch.Tensor,
+                    capacity: int) -> None:
+    """What K2a takes, refused alike on every device."""
+    if means.dim() != 2 or means.shape != weights.shape:
+        raise ValueError(f"candidate rows must be two [S, M] tensors of one "
+                         f"shape, not {tuple(means.shape)} and "
+                         f"{tuple(weights.shape)}")
+    if means.dtype != torch.float32 or weights.dtype != torch.float32:
+        raise ValueError("candidate rows must be float32")
+    if means.device != weights.device:
+        raise ValueError("candidate means and weights on two devices")
+    m = means.shape[1]
+    if not 1 <= capacity <= m or m >= 1 << 30:
+        raise ValueError(f"{m} candidates a row cannot compress to "
+                         f"{capacity} slots")
+    if not (means.is_contiguous() and weights.is_contiguous()):
+        raise ValueError("candidate rows must be contiguous")
+
+
 def compress_rows(means, weights, compression: float = DEFAULT_COMPRESSION,
                   capacity: int = DEFAULT_CAPACITY):
-    return _compress_rows(means, weights, compression, capacity)
+    """Compress candidate centroid rows [S, M] → [S, capacity] (see
+    ``_compress_rows_plain``): K2a on a CUDA tensor, the plain version on
+    a CPU one."""
+    _check_compress(means, weights, capacity)
+    if means.device.type == "cpu":
+        return _compress_rows_plain(means, weights, compression, capacity)
+    out = tdigest_kernel.compress(means, weights, capacity,
+                                  exn._table(compression, means.device))
+    if means.shape[0]:
+        compress_rows.launches += 1
+    return out
+
+
+compress_rows.launches = 0
+_compress_rows = compress_rows
 
 
 def merge_pools(a: TDigestPool, b: TDigestPool,
@@ -204,9 +274,84 @@ def _prefix_scans(srows, svals, sw):
     return pre_w, pre_vw, pre_recip, seg_cum, suffix
 
 
+def _sort_batch(rows, values, sample_weights, k: int):
+    """Step 1 of ``add_batch``, the sort before K2b on every device: the
+    batch sorted by (row, value), two stable sorts, secondary key first;
+    padding samples (weight <= 0) keyed to row k, past every real row.
+    Returns (rows int64, flushed values, flushed weights, raw values)."""
+    z = exn.flush_denormals
+    wts = z(sample_weights)
+    live = wts > 0
+    rows = torch.where(live, rows.to(torch.int64), k)
+    # the raw values, for the min/max gathers; the sort and the
+    # arithmetic read them flushed
+    raw_vals = torch.where(live, values, 1.0)
+    safe_vals = z(raw_vals)
+    o1 = torch.sort(_order_key(safe_vals), stable=True).indices
+    o2 = torch.sort(rows[o1], stable=True).indices
+    order = o1[o2]
+    return rows[order], safe_vals[order], wts[order], raw_vals[order]
+
+
+def _check_add(means, weights, dmin, dmax, drecip, rows, values,
+               sample_weights) -> None:
+    """What K2b takes, refused alike on every device."""
+    if means.dim() != 2 or means.shape != weights.shape:
+        raise ValueError(f"digest rows must be two [K, C] tensors of one "
+                         f"shape, not {tuple(means.shape)} and "
+                         f"{tuple(weights.shape)}")
+    k, c = means.shape
+    if k < 1 or not 1 <= c <= tdigest_kernel.MAX_ADD_CAPACITY \
+            or k >= 1 << 31:
+        raise ValueError(f"add_batch takes 1 <= K < 2^31 rows of 1 to "
+                         f"{tdigest_kernel.MAX_ADD_CAPACITY} slots, not "
+                         f"[{k}, {c}]")
+    for name, t in (("dmin", dmin), ("dmax", dmax), ("drecip", drecip)):
+        if t.shape != (k,):
+            raise ValueError(f"{name} must be [{k}], not {tuple(t.shape)}")
+    n = rows.shape[0] if rows.dim() == 1 else -1
+    if n < 1 or n >= 1 << 30 or values.shape != (n,) \
+            or sample_weights.shape != (n,):
+        raise ValueError("rows, values and weights must be three [N] "
+                         "tensors, 1 <= N < 2^30")
+    if rows.dtype not in (torch.int32, torch.int64):
+        raise ValueError("rows must be int32 or int64")
+    floats = (means, weights, dmin, dmax, drecip, values, sample_weights)
+    if any(t.dtype != torch.float32 for t in floats):
+        raise ValueError("digest rows, scalars, values and weights must be "
+                         "float32")
+    if any(t.device != means.device for t in floats + (rows,)):
+        raise ValueError("add_batch's tensors on more than one device")
+    if not all(t.is_contiguous() for t in floats + (rows,)):
+        raise ValueError("add_batch's tensors must be contiguous")
+
+
 def add_batch(means, weights, dmin, dmax, drecip, rows, values,
               sample_weights, compression: float = DEFAULT_COMPRESSION):
-    """Ingest a batch of raw samples into digest rows.
+    """Ingest a batch of raw samples into digest rows (see
+    ``add_batch_plain``): on a CUDA tensor the sort before it, then K2b;
+    on a CPU one the plain version."""
+    _check_add(means, weights, dmin, dmax, drecip, rows, values,
+               sample_weights)
+    if means.device.type == "cpu":
+        return add_batch_plain(means, weights, dmin, dmax, drecip, rows,
+                               values, sample_weights, compression)
+    srows, svals, sw, raw_svals = _sort_batch(rows, values, sample_weights,
+                                              means.shape[0])
+    out = tdigest_kernel.add_batch(
+        means, weights, dmin, dmax, drecip, srows, svals, sw, raw_svals,
+        exn._table(compression, means.device))
+    add_batch.launches += 1
+    return (*out[:5], BatchStats(*out[5:]))
+
+
+add_batch.launches = 0
+
+
+def add_batch_plain(means, weights, dmin, dmax, drecip, rows, values,
+                    sample_weights, compression: float = DEFAULT_COMPRESSION):
+    """Ingest a batch of raw samples into digest rows, the plain version
+    of K2b (with the sort before it).
 
     means/weights: f32[K, C]; dmin/dmax/drecip: f32[K]; rows: int[N] in
     [0, K) (padding samples carry sample_weights == 0); values,
@@ -216,20 +361,10 @@ def add_batch(means, weights, dmin, dmax, drecip, rows, values,
     n = rows.shape[0]
     dev = means.device
     z = exn.flush_denormals
-    wts = z(sample_weights)
-    live = wts > 0
-    rows = torch.where(live, rows.to(torch.int64), k)
-    # the raw values, for the min/max gathers; the sort and the
-    # arithmetic read them flushed
-    raw_vals = torch.where(live, values, 1.0)
-    safe_vals = z(raw_vals)
 
-    # 1. sort the batch by (row, value): two stable sorts, secondary first
-    o1 = torch.sort(safe_vals, stable=True).indices
-    o2 = torch.sort(rows[o1], stable=True).indices
-    order = o1[o2]
-    srows, svals, sw = rows[order], safe_vals[order], wts[order]
-    raw_svals = raw_vals[order]
+    # 1. sort the batch by (row, value)
+    srows, svals, sw, raw_svals = _sort_batch(rows, values, sample_weights,
+                                              k)
 
     # 2. per-row stats from prefix-sum differences and boundary gathers
     pre_w, pre_vw, pre_recip, seg_cum, suffix = _prefix_scans(
@@ -283,11 +418,12 @@ def add_batch(means, weights, dmin, dmax, drecip, rows, values,
     # 4. merge with the existing rows and recompress
     cat_means = torch.cat([means, bd_means], dim=-1)
     cat_w = torch.cat([weights, bd_w], dim=-1)
-    new_means, new_w = _compress_rows(cat_means, cat_w, compression, c)
+    new_means, new_w = _compress_rows_plain(cat_means, cat_w, compression,
+                                            c)
 
     # 5. digest scalars (the min and max of flushed values are flushed)
-    new_min = torch.minimum(z(dmin), z(seg_min))
-    new_max = torch.maximum(z(dmax), z(seg_max))
+    new_min = _minimum(z(dmin), z(seg_min))
+    new_max = _maximum(z(dmax), z(seg_max))
     new_recip = z(z(drecip) + seg_recip)
     return new_means, new_w, new_min, new_max, new_recip, stats
 
