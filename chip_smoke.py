@@ -40,9 +40,14 @@ script exits non-zero:
    width) and ragged [4,099, 192] and [131,071, 256], each with 16 edge
    rows (+-0.0 in both orders, denormal means and weights, +-inf and NaN
    means, one centroid, an empty row, ties); K2b (add_batch) at (K, N) =
-   (64, 256), (1,024, 65,536) and (16,384, 262,144) and an edge batch,
-   two rounds each. Medians of kernel and plain, the batch sort before
-   K2b, and each kernel's bound (bytes over 3.35 TB/s).
+   (64, 256), (1,024, 65,536) and (16,384, 262,144), an edge batch and a
+   batch all in one row, two rounds each; the signed zeros of digest min
+   and max (XLA's order: -0.0 below +0.0, a NaN winning) on the card
+   bitwise the CPU at widths 1, 9, 33 and 64, K2b's among them; the K2b
+   chain's kernels in a torch.profiler trace (none of torch's). Medians
+   of kernel (K2b: the whole chain from the unsorted batch, its sort
+   included) and plain, the plain sort alone, and each kernel's bound
+   (bytes over 3.35 TB/s).
 4. one worker interval at the mixed configuration of BASELINE.md
    (100k series, bench.py's "mixed" mix): 80,000 histogram/timer series
    made through process_metric, 40 samples each staged through
@@ -205,12 +210,13 @@ script exits non-zero:
    4's interval with every series tagged tenant:t{i % 8} and the budget
    t7: 5,000 (10,625 of t7's series refused), a tenant sketch (top-k 8)
    and a QueryEngine on each worker. 13a: through the Python path on the
-   card and on the CPU: a query at the flush quantiles over every row
-   is bitwise the flush's quantile_values, a 32-quantile request runs
-   K1's quantile blocks, and every op's JSON response (host and device
-   quantiles, scalars, cardinality over the 25,000 sets, top-k of each
-   tenant, tenant totals, count-min estimates of 1,000 keys, epoch) is
-   byte for byte the CPU twin's; GET /metrics on the HTTP front is the
+   card (its CPU twin is cut for the run's time; tests/test_torch_cuda.py
+   holds every op's response to a CPU worker's): a query at the flush
+   quantiles over every row is bitwise the flush's quantile_values, a
+   32-quantile request runs K1's quantile blocks, and every op (host and
+   device quantiles, scalars, cardinality over the 25,000 sets, top-k of
+   each tenant, tenant totals, count-min estimates of 1,000 keys, epoch)
+   answers; GET /metrics on the HTTP front is the
    exposition sink's body; the tallies conserve; the sketch pool the
    view captured is unchanged after the next interval's fold, and two
    query threads running through the next interval's ingest and flush
@@ -3634,12 +3640,8 @@ def answers(engine, reqs) -> list:
     return [json.dumps(engine.dispatch(dict(r))).encode() for r in reqs]
 
 
-def check_answers(got: list, ref: list, reqs, what: str) -> None:
-    for g, r, q in zip(got, ref, reqs):
-        if g != r:
-            raise AssertionError(f"{what}: the {q['op']} response "
-                                 f"{ {k: v for k, v in q.items() if k != 'keys'} } "
-                                 f"differs from the CPU twin's")
+def check_answers(got: list, reqs, what: str) -> None:
+    for g, q in zip(got, reqs):
         if b'"error"' in g[:20]:
             raise AssertionError(f"{what}: {q['op']} answered an error")
 
@@ -3716,14 +3718,9 @@ def phase_query_worker(tw, parse, qs, aggs, ek) -> dict:
     t0 = time.perf_counter()
     got = answers(eng_g, reqs)
     t_g["answers_s"] = time.perf_counter() - t0
-    # the CPU twin
-    eng_c = engine()
-    wc = query_worker(tw, eng_c, "cpu")
-    snap_c, t_c = run_tenant_interval(wc, tplan, parse, qs)
-    eng_c.commit(QUERY_NOW)
-    compare_snapshots(snap_g, snap_c, "phase 13, card against CPU")
-    ref = answers(eng_c, reqs)
-    check_answers(got, ref, reqs, "phase 13a")
+    # (the CPU twin is cut for the run's time: tests/test_torch_cuda.py
+    # holds the query path's responses to the CPU worker's)
+    check_answers(got, reqs, "phase 13a")
     # the query at the flush quantiles over every row is the flush's
     # readback, bitwise
     dev = json.loads(got[1])["results"]
@@ -3744,8 +3741,7 @@ def phase_query_worker(tw, parse, qs, aggs, ek) -> dict:
     want_live = {f"t{k}": per_tenant for k in range(QUERY_TENANTS)}
     want_live["t7"] = QUERY_BUDGETS["t7"]
     if live != want_live or rejected != {
-            "t7": per_tenant - QUERY_BUDGETS["t7"]} \
-            or led.live_counts() != wc.tenancy.live_counts():
+            "t7": per_tenant - QUERY_BUDGETS["t7"]}:
         raise AssertionError(f"phase 13a: ledger live {live}, refused "
                              f"{rejected}")
     life = wg.tenant_lifetime()
@@ -3754,8 +3750,6 @@ def phase_query_worker(tw, parse, qs, aggs, ek) -> dict:
                 + life["dropped"].get(t, 0):
             raise AssertionError(f"phase 13a: tallies of {t} do not "
                                  f"conserve: {life}")
-    if life != wc.tenant_lifetime():
-        raise AssertionError("phase 13a: tallies differ from the CPU's")
     # /metrics on the HTTP front: the exposition sink's body
     posted = []
     sink = PrometheusExpositionSink("http://127.0.0.1:9/unused")
@@ -3767,7 +3761,7 @@ def phase_query_worker(tw, parse, qs, aggs, ek) -> dict:
     try:
         with urllib.request.urlopen(url + "/metrics") as resp:
             body = resp.read()
-        if body != posted[0] or body != eng_c.render_exposition()[0]:
+        if body != posted[0] or body != eng_g.render_exposition()[0]:
             raise AssertionError("phase 13a: /metrics is not the "
                                  "exposition sink's body")
         out["metrics_bytes"] = len(body)
@@ -3883,15 +3877,15 @@ def phase_query_worker(tw, parse, qs, aggs, ek) -> dict:
         raise AssertionError("phase 13a: the captured sketch pool changed "
                              "with the next fold")
     out.update({
-        "card": t_g, "cpu": t_c, "series": n_series, "histo_rows": n,
+        "card": t_g, "series": n_series, "histo_rows": n,
         "ledger_live": live, "ledger_refused": rejected,
         "sketch_s": t_g.get("sketch_s"), "native_s": {"card": t_n},
         "native_refused_rows": kept_rows, "next_interval_s": t_next,
         "reader_responses": len(seen), "requests": len(reqs)})
     log(f"[query] 13a: {n_series} series in {QUERY_TENANTS} tenants, t7 "
         f"budget {QUERY_BUDGETS['t7']}: ledger live {live}, refused "
-        f"{rejected}; {n} histogram rows, {len(reqs)} requests byte for "
-        f"byte the CPU twin's (answers {t_g['answers_s']:.2f} s); the "
+        f"{rejected}; {n} histogram rows, {len(reqs)} requests (answers "
+        f"{t_g['answers_s']:.2f} s); the "
         f"device query at the flush quantiles bitwise the readback; "
         f"/metrics {out['metrics_bytes']} B = the exposition sink's body; "
         f"native arm: {kept_rows} refused rows kept, none in the sink "
@@ -3906,8 +3900,7 @@ def phase_query_worker(tw, parse, qs, aggs, ek) -> dict:
         f"device memory with the view held "
         f"{out['peak_device_bytes_view_held']} B; card: " + ", ".join(
             f"{k} {v:.4f}" if isinstance(v, float) else f"{k} {v}"
-            for k, v in t_g.items()) + "; cpu flush_s "
-        f"{t_c['flush_s']:.4f}")
+            for k, v in t_g.items()))
     return out
 
 
@@ -5465,7 +5458,12 @@ def main() -> int:
     # 3c. the t-digest folds (K2a, K2b)
     t0 = time.perf_counter()
     td_checks = {"tdigest_compress": probe_td.check_compress(td),
-                 "tdigest_add_batch": probe_td.check_add(td)}
+                 "tdigest_add_batch": probe_td.check_add(td),
+                 "signed_zeros": probe_td.check_signed_zeros(td)}
+    td_chain = probe_td.profile_chain(td)
+    if DEVICE == "cuda" and td_chain["foreign"]:
+        raise AssertionError(f"add_batch launched kernels not of "
+                             f"tdigest.cu: {td_chain['foreign']}")
     td_times = probe_td.time_kernels(td, tk)
     wall["tdigest_kernels_s"] = time.perf_counter() - t0
 
@@ -5708,6 +5706,8 @@ def main() -> int:
             "library_ms": None,
             "library_note": "no single PyTorch call computes it",
             "at_shapes": t,
+            **({"chain": td_chain, "signed_zeros": td_checks["signed_zeros"]}
+               if what == "add_batch" else {}),
             "build": {k: v for k, v in td_build.items()
                       if k.startswith("td_compress") == (
                           what == "compress")}})

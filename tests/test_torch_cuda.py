@@ -34,8 +34,12 @@ archive, the plugins and the remaining span sinks on the card, its
 archive replayed into a card global bitwise, merged once under dedup;
 and the t-digest folds (K2a compress_rows, K2b add_batch) against their
 plain versions on the same card inputs, edge rows and batches, ragged S,
-K and N and the global scratch slab of wide rows included, and a card
-worker's interval with the plain folds patched to raise (no fallback).
+K and N, a batch all in one row and the global scratch slab of wide rows
+included, K2b with torch.sort patched to raise (the sort is the
+kernels'), and a card worker's interval with the plain folds patched to
+raise (no fallback); and digest min and max in XLA's order (-0.0 below
++0.0, a NaN winning) on the card bitwise the CPU, the functions and the
+worker's fold steps, on rows that mix +0.0, -0.0 and NaN.
 
 Every test here is marked ``cuda`` and skips without a card. On a card
 machine (no JAX needed) run them with
@@ -1478,7 +1482,7 @@ def test_load_harness_holds_50k_on_the_card(card):
 
 @pytest.mark.parametrize("s,m", [(4_099, 192), (131_071, 256),
                                  (131_072, 192), (1_024, 1_152),
-                                 (64, 8_192)])
+                                 (257, 4_000), (64, 8_192)])
 def test_tdigest_compress_bitwise_equals_plain(card, s, m):
     """K2a against its plain version on the same card inputs, 16 edge rows
     in front (probe_td.edge_rows); [64, 8,192] rows exceed a block's
@@ -1574,3 +1578,111 @@ def test_worker_interval_never_reaches_the_plain_folds(card, monkeypatch):
     tw._histo_import_step(*fields_c, *(torch.from_numpy(a) for a in imp))
     for a, b in zip(fields_g, fields_c):
         assert _bitwise(a, b)
+
+
+@pytest.mark.parametrize("s,m", [(4_099, 192), (1_024, 256),
+                                 (257, 1_152), (64, 4 * 128)])
+def test_tdigest_compress_digest_rows_bitwise_equals_plain(card, s, m):
+    """K2a on candidates as the main path builds them (compressed digest
+    rows side by side, then raw samples: probe_td.digest_candidates),
+    where its sorted-run shortcuts run: bitwise its plain version."""
+    from veneur_tpu_torch.ops import tdigest as td
+
+    means, w = probe_td.digest_candidates(s, m, s + m, card)
+    km, kw = td.compress_rows(means, w, 100.0, C)
+    pm, pw = td._compress_rows_plain(means, w, 100.0, C)
+    assert _bitwise(km, pm) and _bitwise(kw, pw)
+
+
+def test_tdigest_add_batch_one_row(card):
+    """Every sample of a 70,000-sample batch in one row (int64 rows): the
+    sort's merge passes over the whole batch."""
+    from veneur_tpu_torch.ops import tdigest as td
+
+    rows, vals, wts = probe_td.sample_batch(4, 70_000, 9, card)
+    rows = torch.full_like(rows, 2).long()
+    pool = probe_td.empty_pool(4, card)
+    for _ in range(2):
+        got = td.add_batch(*pool, rows, vals, wts)
+        ref = td.add_batch_plain(*pool, rows, vals, wts)
+        for a, b in zip(list(got[:5]) + list(got[5]),
+                        list(ref[:5]) + list(ref[5])):
+            assert _bitwise(a, b)
+        pool = tuple(ref[:5])
+
+
+def test_tdigest_add_batch_runs_no_torch_sort(card, monkeypatch):
+    """K2b sorts in its own kernels: with torch.sort and argsort patched
+    to raise, a CUDA add_batch still returns the plain version's outputs
+    bitwise (computed after the patches are undone)."""
+    from veneur_tpu_torch.ops import tdigest as td
+
+    def refuse(*_a, **_k):
+        raise AssertionError("add_batch called a torch sort on the card")
+
+    batch = probe_td.sample_batch(1_024, 65_536, 3, card)
+    pool = probe_td.empty_pool(1_024, card)
+    for name in ("sort", "argsort"):
+        monkeypatch.setattr(torch, name, refuse)
+        monkeypatch.setattr(torch.Tensor, name, refuse)
+    got = td.add_batch(*pool, *batch)
+    monkeypatch.undo()
+    ref = td.add_batch_plain(*pool, *batch)
+    for a, b in zip(list(got[:5]) + list(got[5]),
+                    list(ref[:5]) + list(ref[5])):
+        assert _bitwise(a, b)
+
+
+def test_signed_zero_min_max_card_equals_cpu(card):
+    """ops/exactnum's min and max, and K2b's, on the card bitwise the
+    CPU, every NaN's sign included (probe_td.check_signed_zeros)."""
+    from veneur_tpu_torch.ops import tdigest as td
+
+    assert probe_td.check_signed_zeros(td)["bitwise"]
+
+
+@pytest.mark.parametrize("w", [1, 9, 33, 64])
+def test_signed_zero_fold_steps_card_equals_cpu(card, w):
+    """The staged fold, a spill fold's scatter of lmin and lmax and the
+    import step over rows that mix +0.0, -0.0 and NaN: the card's pool
+    fields equal the CPU's, signs of zeros and NaNs included."""
+    g = probe_td._gen(w, card)
+    s = w + 1
+    mixed = probe_td.mixed
+
+    def fields(dev):
+        f = [torch.full((s, C), float("inf")), torch.zeros((s, C))]
+        f[0][:, 0], f[1][:, 0] = 1.0, 1.0
+        f += [t.cpu() for t in mixed(g, (4, s), card)]
+        z = torch.zeros(s)
+        f = f[:4] + [z, z] + f[4:] + [z] * 6
+        return [t.clone().to(dev) for t in f]
+
+    base = fields("cpu")
+    svals = mixed(g, (s, w), card).cpu()
+    swts = torch.ones((s, w))
+    vals = mixed(g, (1, 4 * w), card, nan=False)[0].cpu()
+    lids = torch.randint(0, w, (4 * w,), generator=g, device=card).cpu()
+    active = torch.cat([torch.arange(w), torch.tensor([w, w])])
+    imp_min, imp_max = (t.cpu() for t in mixed(g, (2, w), card))
+    imp_m = torch.full((w, 16), float("inf"))
+    imp_w = torch.zeros((w, 16))
+    imp_m[:, 0], imp_w[:, 0] = 0.5, 1.0
+    out = {}
+    for dev in ("cpu", card):
+        f = [t.to(dev) for t in base]
+        staged = tw._histo_fold_staged(*[t.clone() for t in f],
+                                       svals.to(dev), swts.to(dev))
+        fi = [t.clone() for t in f]
+        tw._histo_ingest_step(*fi, active.to(dev), lids.to(dev),
+                              vals.to(dev), torch.ones(4 * w, device=dev))
+        fm = [t.clone() for t in f[:6]]
+        tw._histo_import_step(*fm, torch.arange(w, device=dev),
+                              imp_m.to(dev), imp_w.to(dev), imp_min.to(dev),
+                              imp_max.to(dev), torch.zeros(w, device=dev))
+        out[str(dev)] = [staged[i] for i in (2, 3, 6, 7)] + \
+            [fi[i] for i in (2, 3, 6, 7)] + [fm[2], fm[3]]
+    for a, b in zip(out["cpu"], out[str(card)]):
+        b = b.cpu()
+        assert _bitwise(a, b) and torch.equal(torch.signbit(a),
+                                              torch.signbit(b))

@@ -7,16 +7,21 @@
   import; 4C, a 4-host merge) and at K = 64 and 1,024 rows by N = 256 and
   65,536 samples, and on edge rows: +0.0 and -0.0 means in both orders,
   f32 denormal means and weights, +-inf means, a row of one centroid, an
-  all-empty row, ties.
+  all-empty row, ties, a row of -0.0 means (sums that stay -0.0 unless a
+  pad lane adds +0.0).
 * What either fold refuses, it refuses with ValueError on the CPU too;
   the kernel wrappers refuse a CPU tensor.
 * The kernel source itself, csrc/tdigest.cu, built with g++ under its
-  TD_EMULATE hooks (every block run in turn with one thread, MXCSR set to
-  flush to zero and denormals-are-zero, as -ftz=true sets the card),
-  launched through ops/tdigest_kernel's own launch helpers: bitwise the
-  plain versions on the same inputs, NaN means and values, the global
-  scratch path of rows past a block's shared memory, ragged N and hot
-  rows included. The card's own run is tests/test_torch_cuda.py's.
+  TD_EMULATE hooks (every block run in turn, its SIMT sections stepped
+  thread by thread, shuffles and ballots lane-stepped copies between the
+  threads' values, MXCSR set to flush to zero and denormals-are-zero, as
+  -ftz=true sets the card), launched through ops/tdigest_kernel's own
+  launch helpers: bitwise the plain versions on the same inputs, NaN
+  means and values, a warp a row, a block of up to 16 warps a row and
+  the global scratch path of rows past it, both branches of every
+  sorted-run shortcut, ragged N, hot rows, a batch all in one row (the
+  sort's merge passes) and signed-zero min and max included. The card's
+  own run is tests/test_torch_cuda.py's.
 """
 
 from __future__ import annotations
@@ -78,6 +83,7 @@ def _edge_candidates(m: int, seed: int, nan: bool = False):
                 * (1.0 + rng.random(m))).astype(np.float32)
     w[10] = 1.0
     means[11] = np.arange(m, 0, -1, dtype=np.float32)
+    means[14] = -0.0                                    # -0.0 sums
     if nan:
         means[12, ::4] = np.nan
         means[12, 1::9] = -np.nan
@@ -110,6 +116,7 @@ def _batch(k: int, n: int, seed: int, edge: bool = False, nan: bool = False):
         vals[(r == 4) & (np.arange(n) % 3 == 0)] = -np.inf
         vals[r == 5] = np.float32(TINY * 1.5)
         vals[r == 6] = np.round(vals[r == 6] / 10.0) * 10.0
+        vals[r == 11] = -0.0
         rows[: n // 4] = min(7, k - 1)                  # a hot row
         rows[rows == 8] = 9
         rows[0], wts[0] = 8 % k, 1.0                    # one sample
@@ -259,7 +266,7 @@ def test_kernel_wrappers_refuse_a_cpu_tensor():
     pool = _pool(2)
     one = torch.ones(4)
     with pytest.raises(ValueError):
-        tk.add_batch(*pool, torch.zeros(4, dtype=torch.int64), one, one, one,
+        tk.add_batch(*pool, torch.zeros(4, dtype=torch.int64), one, one,
                      torch.zeros(100))
 
 
@@ -274,45 +281,38 @@ _SHIM = r"""
 #include <vector>
 #include <xmmintrin.h>
 struct TdDim3 { unsigned x, y, z; };
-static TdDim3 threadIdx, blockIdx, blockDim, gridDim;
+static TdDim3 blockIdx, blockDim, gridDim;
 #define __global__
 #define __device__
 #define __host__
 #define __forceinline__ inline
-#define __shared__ static
 #define TD_EMULATE 1
 static unsigned char* td_emu_smem;
 #define TD_DYNAMIC_SMEM(name) unsigned char* name = td_emu_smem
 typedef int cudaError_t;
 typedef void* cudaStream_t;
 #define cudaSuccess 0
-#define cudaFuncAttributeMaxDynamicSharedMemorySize 0
-template <class F> static int cudaFuncSetAttribute(F, int, int) { return 0; }
 static int cudaGetLastError() { return 0; }
-static inline void __syncthreads() {}
 static inline float __uint_as_float(uint32_t u) {
   float f; memcpy(&f, &u, 4); return f; }
 static inline uint32_t __float_as_uint(float f) {
   uint32_t u; memcpy(&u, &f, 4); return u; }
-static inline int atomicMin(int* p, int v) {
-  int o = *p; if (v < o) *p = v; return o; }
-// every block in turn, one thread each, with flush to zero and
-// denormals-are-zero (the card's -ftz=true)
-template <class F> static void td_emu_launch(long long grid, size_t smem,
-                                             F f) {
+// every block in turn, its threads stepped by the source's SIMT layer,
+// with flush to zero and denormals-are-zero (the card's -ftz=true)
+template <class F> static void td_emu_launch(long long grid, int block,
+                                             size_t smem, F f) {
   std::vector<unsigned char> buf(smem + 16);
   td_emu_smem = (unsigned char*)(((uintptr_t)buf.data() + 15)
                                  & ~(uintptr_t)15);
   const unsigned csr = _mm_getcsr();
   _mm_setcsr(csr | 0x8040);
-  blockDim = {1, 1, 1};
+  blockDim = {(unsigned)block, 1, 1};
   gridDim = {(unsigned)grid, 1, 1};
-  threadIdx = {0, 0, 0};
   for (long long b = 0; b < grid; ++b) { blockIdx.x = (unsigned)b; f(); }
   _mm_setcsr(csr);
 }
 #define TD_LAUNCH(kernel, grid, block, smem, stream, ...) \
-  td_emu_launch((grid), (smem), [&] { kernel(__VA_ARGS__); })
+  td_emu_launch((grid), (block), (smem), [&] { kernel(__VA_ARGS__); })
 #include "tdigest.cu"
 """
 
@@ -339,8 +339,11 @@ def _table():
     return exn._table(100.0, torch.device("cpu"))
 
 
-@pytest.mark.parametrize("m", [C, C + 64, 2 * C, C + 256, 4 * C, 1_152])
+@pytest.mark.parametrize("m", [C, C + 64, 2 * C, C + 256, 4 * C, 1_152,
+                               4_000, 4_100])
 def test_emulated_compress_bitwise_plain(emulated, m):
+    """A warp a row up to 256 candidates, a block of up to 16 warps a row
+    up to 4,096 (4,000: 16 warps), the global slab past that (4,100)."""
     means, w = _edge_candidates(m, 100 + m, nan=True)
     mt, wt = torch.from_numpy(means), torch.from_numpy(w)
     pm, pw = ttd._compress_rows_plain(mt, wt, 100.0, C)
@@ -384,8 +387,113 @@ def test_emulated_add_batch_bitwise_plain(emulated, k, n, edge):
         args = (torch.from_numpy(rows), torch.from_numpy(vals + rnd),
                 torch.from_numpy(wts))
         plain = ttd.add_batch_plain(*pool, *args)
-        got = tk.run_add_batch(emulated, *pool,
-                               *ttd._sort_batch(*args, k), _table(), None)
+        got = tk.run_add_batch(emulated, *pool, *args, _table(), None)
         for name, a, b in zip(names, list(plain[:5]) + list(plain[5]), got):
             _assert_bitwise(a, b, f"round {rnd} {name}")
         pool = tuple(plain[:5])
+
+
+@pytest.mark.parametrize("s", [101, 32_771])
+def test_emulated_compress_many_rows(emulated, s):
+    """More rows than a block's warps take, a ragged last block: one row a
+    warp under 32,768 rows, else 4 a warp, each loaded ahead into the
+    warp's other buffer."""
+    rng = np.random.default_rng(11)
+    m = C + 64
+    means = rng.normal(0.0, 10.0, (s, m)).astype(np.float32)
+    w = rng.lognormal(0.0, 1.0, (s, m)).astype(np.float32)
+    w[rng.random((s, m)) < 0.4] = 0.0
+    mt, wt = torch.from_numpy(means), torch.from_numpy(w)
+    pm, pw = ttd._compress_rows_plain(mt, wt, 100.0, C)
+    km, kw = tk.run_compress(emulated, mt, wt, C, _table(), None)
+    _assert_bitwise(pm, km, "means")
+    _assert_bitwise(pw, kw, "weights")
+
+
+def _emulated_add_rounds(emulated, pool, rows, vals, wts, rounds=2):
+    names = ("means", "weights", "min", "max", "recip") + tuple(
+        f"stats.{f}" for f in ttd.BatchStats._fields)
+    for rnd in range(rounds):
+        args = (torch.from_numpy(rows), torch.from_numpy(vals + rnd),
+                torch.from_numpy(wts))
+        plain = ttd.add_batch_plain(*pool, *args)
+        got = tk.run_add_batch(emulated, *pool, *args, _table(), None)
+        for name, a, b in zip(names, list(plain[:5]) + list(plain[5]), got):
+            _assert_bitwise(a, b, f"round {rnd} {name}")
+            if name in ("min", "max"):  # the sign of a zero, NaN's too
+                assert np.array_equal(np.signbit(a.numpy()),
+                                      np.signbit(b.numpy())), name
+        pool = tuple(plain[:5])
+
+
+@pytest.mark.parametrize("dtype", [np.int32, np.int64])
+def test_emulated_add_batch_one_row(emulated, dtype):
+    """Every sample in one row: the sort's merge passes (20,000 samples,
+    three passes over 4,096-sample tiles) and the scans' global steps
+    carry the whole batch; padding samples keep their own weights."""
+    rng = np.random.default_rng(3)
+    k, n = 4, 20_000
+    rows = np.full(n, 2, dtype)
+    vals = rng.gamma(2.0, 30.0, n).astype(np.float32)
+    vals[::7] = np.round(vals[::7])                     # ties
+    wts = rng.choice([0.5, 1.0, 2.0], n).astype(np.float32)
+    wts[rng.random(n) < 0.05] = 0.0
+    wts[5] = -1.0                                       # padding, negative
+    pool = tuple(ttd.init_pool(k, C, device="cpu"))
+    _emulated_add_rounds(emulated, pool, rows, vals, wts)
+
+
+def test_emulated_add_batch_signed_zero_min_max(emulated):
+    """The digest min and max of +0.0 and -0.0 (and NaN) in XLA's order:
+    the pool's scalars and the batch's values drawn from both zeros."""
+    rng = np.random.default_rng(4)
+    k, n = 33, 600
+    rows = rng.integers(0, k, n).astype(np.int32)
+    zeros = np.array([0.0, -0.0], np.float32)
+    vals = rng.choice(zeros, n).astype(np.float32)
+    vals[rows == 5] = np.nan
+    wts = np.ones(n, np.float32)
+    means, w, dmin, dmax, recip = (t.clone() for t in ttd.init_pool(
+        k, C, device="cpu"))
+    dmin[:] = torch.from_numpy(rng.choice(np.array([0.0, -0.0, np.inf,
+                                                    np.nan], np.float32), k))
+    dmax[:] = torch.from_numpy(rng.choice(np.array([0.0, -0.0, -np.inf,
+                                                    np.nan], np.float32), k))
+    _emulated_add_rounds(emulated, (means, w, dmin, dmax, recip), rows, vals,
+                         wts)
+
+
+def test_emulated_add_batch_wide_rows(emulated):
+    """C = 256: the batch digest and the row beside it, 512 candidates,
+    compressed by a block of warps a row."""
+    k, n = 6, 3_000
+    rows, vals, wts = _batch(k, n, 8, edge=True, nan=True)
+    pool = tuple(ttd.init_pool(k, 2 * C, device="cpu"))
+    _emulated_add_rounds(emulated, pool, rows, vals, wts)
+
+
+@pytest.mark.parametrize("m,c", [(2 * C, C), (4 * C, C), (9 * C, C),
+                                 (C + 64, C), (300, 100), (3 * 96, 96)])
+def test_emulated_compress_sorted_runs(emulated, m, c):
+    """Candidates that are sorted runs, as the merges give them: digest
+    rows of c slots side by side (the network starts at the merges of 2c
+    keys where c is a power of two), [0, c) and a sorted rest (the last
+    merge alone), and, in half the rows, one slot out of order (the whole
+    network); ties and +inf padding inside the runs."""
+    rng = np.random.default_rng(m + c)
+    s = 16
+    means = np.round(rng.normal(0.0, 5.0, (s, m)), 1).astype(np.float32)
+    w = rng.lognormal(0.0, 1.0, (s, m)).astype(np.float32)
+    w[rng.random((s, m)) < 0.2] = 0.0
+    means[w == 0] = np.inf
+    for r0 in range(0, m, c):
+        means[:, r0:r0 + c] = np.sort(means[:, r0:r0 + c], axis=1)
+    w[means == np.inf] = 0.0
+    if m % c:
+        means[:, c:] = np.sort(means[:, c:], axis=1)
+    means[::2, c + 1], means[::2, c + 2] = means[::2, c + 2] + 1.0, -7.0
+    mt, wt = torch.from_numpy(means), torch.from_numpy(w)
+    pm, pw = ttd._compress_rows_plain(mt, wt, 100.0, c)
+    km, kw = tk.run_compress(emulated, mt, wt, c, _table(), None)
+    _assert_bitwise(pm, km, "means")
+    _assert_bitwise(pw, kw, "weights")

@@ -18,15 +18,27 @@ other, at the shapes chip_smoke.py's phases give them:
 * mesh merge: ops/tdigest._compress_rows over [2,048, 256] (phase 16b's
   compress a series shard).
 
+* the kernels alone at every shape port_probe_tdigest times (chip_smoke
+  phase 3c): K2a (``compress_rows``) at [131,072, 192], [65,536, 256],
+  [32,768, 256] and [8,192, 1,152], and K2b as each checkout's
+  ``add_batch`` from the unsorted batch (its sort included: torch.sort
+  before the kernels in a checkout that sorts so, inside them in one
+  that does not) at (64, 256), (1,024, 65,536) and (16,384, 262,144);
+  and the kernels one ``add_batch`` of each checkout launches at (1,024,
+  65,536), from a torch.profiler trace (port_probe_tdigest.profile_chain).
+
 Each time is the median of REPS calls behind a device spin
 (port_probe_extract.cuda_ms); every output of the two checkouts is
 bitwise equal (the inputs hold no signed zero, NaN or denormal). Then
 the edge rows of port_probe_tdigest (16 kinds, 4,096 rows) through each
 checkout's compress: the rows where the other checkout's card result
 differs from this one's, which is bitwise its plain version and the
-CPU's, are counted by kind (reported, not asserted). Inputs are made on
-the card from a seed. Imports torch and the port only; exits 2 without
-CUDA.
+CPU's, are counted by kind (reported, not asserted); and the digest
+min and max of the staged fold over rows that mix +0.0 and -0.0: the
+rows where the checkouts differ, by field (reported, not asserted: a
+checkout that keeps whichever zero its op picks differs from one in
+XLA's order). Inputs are made on the card from a seed. Imports torch
+and the port only; exits 2 without CUDA.
 """
 
 from __future__ import annotations
@@ -54,13 +66,17 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def pool(s: int, seed: int, td, device):
-    """The worker's 14 pool fields over s rows: compressed digest rows,
-    their scalars, the sampler-local scalars."""
+def pool(s: int, seed: int, td, device, plain: bool = False):
+    """The worker's 14 pool fields over s rows: compressed digest rows
+    (``plain``: the candidates' first C slots), their scalars, the
+    sampler-local scalars."""
     import torch
 
     means, w = ptd.candidates(s, 2 * C, seed, device, edges=False)
-    means, w = td.compress_rows(means, w, 100.0, C)
+    if plain:
+        means, w = means[:, :C].contiguous(), w[:, :C].contiguous()
+    else:
+        means, w = td.compress_rows(means, w, 100.0, C)
     z = torch.zeros((s,), dtype=torch.float32, device=device)
     inf = torch.full((s,), float("inf"), device=device)
     return [means, w, -inf + 0, inf.clone(), z.clone(), z.clone(),
@@ -97,6 +113,46 @@ def cases(td, device) -> dict:
     m, wt = ptd.candidates(MESH_ROWS, 2 * C, 7, device, edges=False)
     out[f"mesh_merge_{MESH_ROWS}x{2 * C}"] = ("_compress_rows",
                                               (m, wt, 100.0, C))
+    return out
+
+
+def kernel_cases(device) -> dict:
+    """name -> (dispatcher in ops/tdigest, args) at the probe's shapes."""
+    out = {}
+    for s, m in ptd.COMPRESS_TIMED:
+        means, w = ptd.candidates(s, m, 7 + s + m, device)
+        out[f"k2a_{s}x{m}"] = ("compress_rows", (means, w, 100.0, C))
+    for k, n in ptd.ADD_CASES:
+        rows, vals, wts = ptd.sample_batch(k, n, 11 + k + n, device)
+        out[f"k2b_{k}x{n}"] = ("add_batch",
+                               (*ptd.empty_pool(k, device), rows, vals, wts))
+    return out
+
+
+def signed_zero_report(worker, ow, device) -> dict:
+    """Rows of the staged fold's dmin, dmax, lmin and lmax where the other
+    checkout differs from this one, over 4,096 rows whose scalars and
+    staged values are +0.0 and -0.0 (port_probe_tdigest.mixed, no NaN)."""
+    import torch
+
+    g = ptd._gen(13, device)
+    s = 4_096
+    fields = pool(s, 12, None, device, plain=True)
+    fields[2], fields[3], fields[6], fields[7] = ptd.mixed(
+        g, (4, s), device, nan=False)
+    svals = ptd.mixed(g, (s, 64), device, nan=False)
+    swts = torch.ones((s, 64), device=device)
+    this = worker._histo_fold_staged(*[t.clone() for t in fields], svals,
+                                     swts)
+    other = ow._histo_fold_staged(*[t.clone() for t in fields], svals,
+                                  swts)
+    out = {}
+    for i, name in ((2, "dmin"), (3, "dmax"), (6, "lmin"), (7, "lmax")):
+        out[name] = int((this[i].view(torch.int32)
+                         != other[i].view(torch.int32)).sum())
+    log(f"[fold] signed zeros (rows of {s:,} where the other checkout's "
+        f"staged fold differs from this one's; expected where it keeps "
+        f"the zero its op picks): {out}")
     return out
 
 
@@ -177,7 +233,29 @@ def main() -> int:
             f"{runs['other'][1]:.4f} ms, this {runs['this'][0]:.4f} "
             f"{runs['this'][1]:.4f} ms (medians of {REPS}; outputs bitwise "
             f"equal)")
+    for name, (fn, fargs) in kernel_cases(dev).items():
+        got = {"this": _flat(getattr(td, fn)(*fargs)),
+               "other": _flat(getattr(otd, fn)(*fargs))}
+        for a, b in zip(got["this"], got["other"]):
+            if not pe.bitwise_equal(a, b)[0]:
+                raise AssertionError(f"{name}: the checkouts differ")
+        runs = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            mod = otd if who == "other" else td
+            runs[who].append(pe.cuda_ms(
+                lambda: getattr(mod, fn)(*fargs), REPS, spin))
+        res["cases"][name] = runs
+        log(f"[fold] {name}: other {runs['other'][0]:.4f} "
+            f"{runs['other'][1]:.4f} ms, this {runs['this'][0]:.4f} "
+            f"{runs['this'][1]:.4f} ms (medians of {REPS}; outputs bitwise "
+            f"equal)")
+    res["chain"] = {"this": ptd.profile_chain(td), "other":
+                    ptd.profile_chain(otd)}
+    log(f"[fold] K2b at (1,024, 65,536), kernels in a trace: this "
+        f"{res['chain']['this']['kernels']}, other "
+        f"{res['chain']['other']['kernels']}")
     res["edge_rows_differing"] = edge_report(td, otd, dev)
+    res["signed_zero_rows_differing"] = signed_zero_report(worker, ow, dev)
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(res, indent=1))

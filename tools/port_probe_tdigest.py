@@ -9,7 +9,10 @@ veneur_tpu_torch/csrc/tdigest.cu against their plain PyTorch versions
 ``add_batch_plain``) on the same CUDA inputs, every output in f32 bits
 (NaN positions equal):
 
-* K2a at the main path's shapes: [131,072, 192] (chip_smoke.py phase 4's
+* K2a at the main path's shapes, on random rows and on digest rows as
+  the main path builds them (``digest_candidates``: compressed rows side
+  by side, then the staged fold's raw samples): [131,072, 192]
+  (chip_smoke.py phase 4's
   staged fold, C + 64), [1,024, 256] and [65,536, 256] (import merges,
   C + W), [32,768, 256] (a 2-host mesh shard, H * C), [8,192, 1,152] (a
   global's import of 8 locals' digests, C + 1,024) and ragged [4,099,
@@ -19,27 +22,43 @@ veneur_tpu_torch/csrc/tdigest.cu against their plain PyTorch versions
   products, weights near the f32 maximum).
 * K2b at (K, N) = (64, 256), (1,024, 65,536) and (16,384, 262,144): a
   fresh pool, then the same batch again into the rows it made; N mostly
-  live samples with zero-weight padding; and edge batches (+-0.0 values,
+  live samples with zero-weight padding; edge batches (+-0.0 values,
   denormal values and weights, +-inf and NaN values, one hot row, ties,
-  a row of one sample) at (16, 4,096).
+  a row of one sample) at (16, 4,096); and a batch of 70,000 samples all
+  in one row (the sort's merge passes over the whole batch).
+
+* The signed zeros of digest min and max (``check_signed_zeros``): the
+  port's XLA-order min and max (ops/exactnum.py: ``minimum``,
+  ``maximum``, ``amin``, ``amax``, ``scatter_amin_``, ``scatter_amax_``,
+  ``pmin0``, ``pmax0``) on the card against the CPU, on rows that mix
+  +0.0, -0.0 and NaN at widths 1, 9, 33 and 64, every bit and every
+  NaN's sign; and K2b's min and max of +-0.0 batches into +-0.0 (and NaN)
+  digest scalars against its plain version.
 
 Then the median of REPS calls behind a device spin
 (port_probe_extract.cuda_ms) of each kernel, its plain version on the
-card, and, beside K2b, the batch sort before it (``_sort_batch``, the two
-stable torch.sort calls) and the whole dispatcher (sort + K2b); the least
-time the card could take (bytes over 3.35 TB/s: K2a reads S * M * 8 and
-writes S * C * 8; K2b reads the [K, C] rows, three scalars a row and the
-batch's N * 12 and writes the [K, C] rows and eight scalars a row); and
-ptxas's report. Inputs are made on the card from a seed
-(torch.Generator). No single PyTorch call computes either function
-(library_ms null). ``--quick`` checks one shape of each and the edges and
-times nothing. Imports torch and the port only; exits 2 without CUDA.
+card, and, beside K2b (timed as the whole chain of its launches from the
+unsorted batch, the sort included), the dispatcher ``add_batch``
+(``with_sort_ms``), the plain version's sort alone on the card
+(``sort_ms``: the two stable torch.sort calls of ``_sort_batch``, off the
+path since the sort moved into the kernels) and the chain's kernel
+launches (``launches``: the launcher's count, and the kernels a
+torch.profiler trace of one call at (1,024, 65,536) records, with no
+kernel of torch's among them); the least time the card could take
+(bytes over 3.35 TB/s: K2a reads S * M * 8 and writes S * C * 8; K2b
+reads the [K, C] rows, three scalars a row and the batch's N * 12 and
+writes the [K, C] rows and eight scalars a row); and ptxas's report.
+Inputs are made on the card from a seed (torch.Generator). No single
+PyTorch call computes either function (library_ms null). ``--quick``
+checks one shape of each, the edges and the signed zeros and times
+nothing. Imports torch and the port only; exits 2 without CUDA.
 """
 
 from __future__ import annotations
 
 import argparse
 import json
+import re
 import sys
 from pathlib import Path
 
@@ -60,6 +79,7 @@ COMPRESS_TIMED = [(131_072, 192), (65_536, 256), (32_768, 256),
                   (8_192, 1_152)]
 ADD_CASES = [(64, 256), (1_024, 65_536), (16_384, 262_144)]
 EDGE_ADD = (16, 4_096)
+ONE_ROW_ADD = (4, 70_000)  # every sample in one row: the sort's merges
 DEVICE = "cuda"
 
 
@@ -135,6 +155,32 @@ def candidates(s: int, m: int, seed: int, device, edges: bool = True):
     return means.contiguous(), w.contiguous()
 
 
+def digest_candidates(s: int, m: int, seed: int, device):
+    """[s, m] candidate rows as the main path builds them: m // C digest
+    rows side by side (each a compressed row: live centroids sorted, then
+    +inf and weight 0), then m % C raw samples (the staged fold's),
+    unsorted, a third of them empty."""
+    import torch
+
+    from veneur_tpu_torch.ops import tdigest as td
+
+    parts_m, parts_w = [], []
+    for r in range(m // C):
+        cm, cw = candidates(s, 2 * C, seed + r, device, edges=False)
+        cm, cw = td.compress_rows(cm, cw, COMPRESSION, C)
+        parts_m.append(cm)
+        parts_w.append(cw)
+    if m % C:
+        g = _gen(seed + 99, device)
+        raw = torch.randn((s, m % C), generator=g, device=device) * 20 + 50
+        rw = (torch.rand((s, m % C), generator=g, device=device)
+              > 1 / 3).float()
+        parts_m.append(raw)
+        parts_w.append(rw)
+    return (torch.cat(parts_m, dim=1).contiguous(),
+            torch.cat(parts_w, dim=1).contiguous())
+
+
 def sample_batch(k: int, n: int, seed: int, device, edge: bool = False):
     """A spill batch of n samples over k rows (int32 rows, f32 values and
     weights; a tenth zero-weight padding on the last row), or, with
@@ -195,13 +241,17 @@ def check_compress(td, cases=COMPRESS_CASES) -> dict:
     """K2a against the plain version at every case; the worst error."""
     worst = 0.0
     for s, m in cases:
-        means, w = candidates(s, m, s + m, DEVICE)
-        km, kw = td.compress_rows(means, w, COMPRESSION, C)
-        pm, pw = td._compress_rows_plain(means, w, COMPRESSION, C)
-        worst = max(worst, _equal(km, pm, f"compress [{s}, {m}] means"),
-                    _equal(kw, pw, f"compress [{s}, {m}] weights"))
-        log(f"[tdigest] K2a [{s:,}, {m:,}]: bitwise equal (16 edge rows)")
-        del means, w, km, kw, pm, pw
+        for kind, make in (("16 edge rows", candidates),
+                           ("digest rows", digest_candidates)):
+            means, w = make(s, m, s + m, DEVICE)
+            km, kw = td.compress_rows(means, w, COMPRESSION, C)
+            pm, pw = td._compress_rows_plain(means, w, COMPRESSION, C)
+            worst = max(worst,
+                        _equal(km, pm, f"compress [{s}, {m}] means"),
+                        _equal(kw, pw, f"compress [{s}, {m}] weights"))
+            del means, w, km, kw, pm, pw
+        log(f"[tdigest] K2a [{s:,}, {m:,}]: bitwise equal (random rows, 16 "
+            f"edge rows; digest rows as the main path builds them)")
     return {"cases": [list(c) for c in cases], "bitwise": True,
             "max_abs_err": worst}
 
@@ -214,13 +264,19 @@ def _add_both(td, pool, batch):
 
 def check_add(td, cases=ADD_CASES) -> dict:
     """K2b against the plain version: each case's batch into a fresh pool
-    and again into the rows it made; the edge batch likewise."""
+    and again into the rows it made; the edge batch and a batch all in
+    one row likewise."""
+    import torch
+
     worst = 0.0
     names = ("means", "weights", "min", "max", "recip") + tuple(
         f"stats.{f}" for f in td.BatchStats._fields)
-    runs = [(k, n, False) for k, n in cases] + [(*EDGE_ADD, True)]
+    runs = [(k, n, False) for k, n in cases] + [(*EDGE_ADD, True),
+                                                 (*ONE_ROW_ADD, False)]
     for k, n, edge in runs:
         batch = sample_batch(k, n, k + n, DEVICE, edge)
+        if (k, n) == ONE_ROW_ADD:
+            batch = (torch.full_like(batch[0], 2),) + batch[1:]
         pool = empty_pool(k, DEVICE)
         for rnd in range(2):
             k_out, p_out = _add_both(td, pool, batch)
@@ -232,8 +288,127 @@ def check_add(td, cases=ADD_CASES) -> dict:
             pool = tuple(p_out[:5])
         log(f"[tdigest] K2b (K {k:,}, N {n:,}){' edge' if edge else ''}: "
             f"bitwise equal, two rounds")
-    return {"cases": [list(c) for c in cases] + [list(EDGE_ADD)],
+    return {"cases": [list(c) for c in cases] + [list(EDGE_ADD),
+                                                 list(ONE_ROW_ADD)],
             "bitwise": True, "max_abs_err": worst}
+
+
+NAN_POS, NAN_NEG = 0x7FC00001, 0xFFC00002
+F6_WIDTHS = (1, 9, 33, 64)
+
+
+def mixed(g, shape, device, nan: bool = True):
+    """f32 values drawn from +0.0 and -0.0 (most), +-1, +-inf and, with
+    ``nan``, NaNs of both signs; the first row alternating zeros."""
+    import torch
+
+    pool = torch.tensor([0.0, -0.0, 0.0, -0.0, 1.0, -1.0, float("inf"),
+                         float("-inf")], device=device)
+    if nan:
+        bits = torch.tensor([NAN_POS, NAN_NEG], dtype=torch.int64)
+        pool = torch.cat([pool, bits.to(torch.int32).view(torch.float32)
+                          .to(device)])
+    idx = torch.randint(0, pool.numel(), shape, generator=g, device=device)
+    out = pool[idx].reshape(-1, shape[-1])
+    out[0] = torch.where(torch.arange(shape[-1], device=device) % 2 == 0,
+                         0.0, -0.0)
+    return out.reshape(shape).contiguous()
+
+
+def _same_signed(got, ref, what: str) -> None:
+    """Bits equal, NaN positions and NaN signs equal."""
+    import torch
+
+    got = got.cpu()
+    ok, _ = pe.bitwise_equal(got, ref)
+    if not ok or not torch.equal(torch.signbit(got), torch.signbit(ref)):
+        raise AssertionError(f"{what}: the card differs from the CPU in "
+                             f"min or max (bits or a sign)")
+
+
+def check_signed_zeros(td) -> dict:
+    """XLA-order min and max on the card against the CPU, and K2b's min
+    and max of signed zeros against its plain version."""
+    import torch
+
+    from veneur_tpu_torch.ops import exactnum as exn
+
+    g = _gen(77, DEVICE)
+    cases = 0
+    for w in F6_WIDTHS:
+        a, b = mixed(g, (8, w), DEVICE), mixed(g, (8, w), DEVICE)
+        ac, bc = a.cpu(), b.cpu()
+        pairs = [(exn.minimum(a, b), exn.minimum(ac, bc), "minimum"),
+                 (exn.maximum(a, b), exn.maximum(ac, bc), "maximum"),
+                 (exn.pmin0(a), exn.pmin0(ac), "pmin0"),
+                 (exn.pmax0(a), exn.pmax0(ac), "pmax0")]
+        for axis in (0, -1):
+            pairs += [(exn.amin(a, axis), exn.amin(ac, axis), "amin"),
+                      (exn.amax(a, axis), exn.amax(ac, axis), "amax")]
+        dst = mixed(g, (1, 5), DEVICE)[0]
+        idx = torch.randint(0, 5, (w,), generator=g, device=DEVICE)
+        src = mixed(g, (1, w), DEVICE)[0]
+        pairs += [(exn.scatter_amin_(dst.clone(), idx, src),
+                   exn.scatter_amin_(dst.cpu().clone(), idx.cpu(), src.cpu()),
+                   "scatter_amin_"),
+                  (exn.scatter_amax_(dst.clone(), idx, src),
+                   exn.scatter_amax_(dst.cpu().clone(), idx.cpu(), src.cpu()),
+                   "scatter_amax_")]
+        for got, ref, name in pairs:
+            _same_signed(got, ref, f"{name} width {w}")
+            cases += 1
+        k, n = w, 4 * w
+        rows = torch.randint(0, k, (n,), generator=g, device=DEVICE,
+                             dtype=torch.int32)
+        vals = mixed(g, (1, n), DEVICE, nan=False)[0]
+        wts = torch.ones((n,), device=DEVICE)
+        pool = list(empty_pool(k, DEVICE))
+        pool[2], pool[3] = mixed(g, (2, k), DEVICE)
+        got = td.add_batch(*pool, rows, vals, wts)
+        ref = td.add_batch_plain(*pool, rows, vals, wts)
+        for i, name in ((2, "min"), (3, "max")):
+            _same_signed(got[i], ref[i].cpu(), f"add_batch {name} width {w}")
+            cases += 1
+    log(f"[tdigest] signed zeros: the card equals the CPU in {cases} min "
+        f"and max cases (widths {', '.join(map(str, F6_WIDTHS))}), "
+        f"K2b's min and max its plain version's")
+    return {"cases": cases, "widths": list(F6_WIDTHS), "bitwise": True}
+
+
+def profile_chain(td, k: int = 1_024, n: int = 65_536) -> dict:
+    """The kernels one ``add_batch`` at (k, n) launches, from a
+    torch.profiler trace: their names, counts and device microseconds,
+    and whether any is not csrc/tdigest.cu's."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    rows, vals, wts = sample_batch(k, n, 5, DEVICE)
+    pool = empty_pool(k, DEVICE)
+    td.add_batch(*pool, rows, vals, wts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        td.add_batch(*pool, rows, vals, wts)
+        torch.cuda.synchronize()
+    names, us = {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or ev.name.startswith(("Memcpy", "Memset")):
+            continue
+        m = re.search(r"(td_\w+)(<(true|false)>)?", ev.name)
+        short = (m.group(1) + ("_block" if m.group(3) == "true" else
+                               "_warp" if m.group(3) else "")
+                 if m else ev.name)
+        names[short] = names.get(short, 0) + 1
+        t = getattr(ev, "device_time", None)
+        us[short] = us.get(short, 0.0) + float(
+            t if t is not None else ev.cuda_time)
+    foreign = sorted(nm for nm in names if "td_" not in nm)
+    out = {"rows": k, "samples": n, "kernels": sum(names.values()),
+           "names": names, "device_us": us, "foreign": foreign}
+    log(f"[tdigest] K2b chain at (K {k:,}, N {n:,}): {out['kernels']} "
+        f"kernel launches in a trace, {len(foreign)} not of tdigest.cu; "
+        f"device us: " + ", ".join(f"{nm} {v:.1f}" for nm, v in us.items()))
+    return out
 
 
 def compress_bound(s: int, m: int) -> float:
@@ -260,19 +435,23 @@ def time_kernels(td, tk, reps: int = REPS) -> dict:
         ms = pe.cuda_ms(lambda: tk.compress(means, w, C, table), reps, spin)
         plain = pe.cuda_ms(lambda: td._compress_rows_plain(
             means, w, COMPRESSION, C), max(5, reps // 4), spin)
+        dm, dw = digest_candidates(s, m, 3 + s + m, DEVICE)
+        ms_d = pe.cuda_ms(lambda: tk.compress(dm, dw, C, table), reps, spin)
         b = compress_bound(s, m)
         out["compress"].append({"rows": s, "m": m, "ms": ms,
+                                "ms_digest_rows": ms_d,
                                 "plain_ms": plain, "bound_ms": b,
                                 "bound_by": "bytes", "share": b / ms})
         log(f"[tdigest] K2a [{s:,}, {m:,}]: {ms:.4f} ms (bound {b:.4f} ms, "
-            f"{100 * b / ms:.1f}%), plain {plain:.4f} ms")
-        del means, w
+            f"{100 * b / ms:.1f}%), on digest rows {ms_d:.4f} ms, plain "
+            f"{plain:.4f} ms")
+        del means, w, dm, dw
     for k, n in ADD_CASES:
         rows, vals, wts = sample_batch(k, n, 11 + k + n, DEVICE)
         pool = empty_pool(k, DEVICE)
         pool = tuple(td.add_batch(*pool, rows, vals, wts)[:5])
-        srt = td._sort_batch(rows, vals, wts, k)
-        ms = pe.cuda_ms(lambda: tk.add_batch(*pool, *srt, table), reps, spin)
+        ms = pe.cuda_ms(lambda: tk.add_batch(*pool, rows, vals, wts, table),
+                        reps, spin)
         sort_ms = pe.cuda_ms(lambda: td._sort_batch(rows, vals, wts, k),
                              reps, spin)
         whole = pe.cuda_ms(lambda: td.add_batch(*pool, rows, vals, wts),
@@ -281,13 +460,16 @@ def time_kernels(td, tk, reps: int = REPS) -> dict:
                                                       wts),
                            max(5, reps // 4), spin)
         b = add_bound(k, n)
+        launches = tk.chain_launches(n)
         out["add_batch"].append({"rows": k, "samples": n, "ms": ms,
                                  "sort_ms": sort_ms, "with_sort_ms": whole,
                                  "plain_ms": plain, "bound_ms": b,
-                                 "bound_by": "bytes", "share": b / ms})
-        log(f"[tdigest] K2b (K {k:,}, N {n:,}): {ms:.4f} ms (bound {b:.4f} "
-            f"ms, {100 * b / ms:.1f}%), the sort before it {sort_ms:.4f} "
-            f"ms, sort + K2b {whole:.4f} ms, plain {plain:.4f} ms")
+                                 "bound_by": "bytes", "share": b / ms,
+                                 "launches": launches})
+        log(f"[tdigest] K2b (K {k:,}, N {n:,}): the chain {ms:.4f} ms, "
+            f"{launches} launches (bound {b:.4f} ms, {100 * b / ms:.1f}%), "
+            f"the dispatcher {whole:.4f} ms, the plain sort alone "
+            f"{sort_ms:.4f} ms, plain {plain:.4f} ms")
     return out
 
 
@@ -322,9 +504,12 @@ def main() -> int:
     if args.quick:
         res["compress"] = check_compress(td, [(4_099, 192), (1_024, 1_152)])
         res["add_batch"] = check_add(td, [(64, 256)])
+        res["signed_zeros"] = check_signed_zeros(td)
     else:
         res["compress"] = check_compress(td)
         res["add_batch"] = check_add(td)
+        res["signed_zeros"] = check_signed_zeros(td)
+        res["chain"] = profile_chain(td)
         res["times"] = time_kernels(td, tk)
     res["launches"] = {"compress_rows": td.compress_rows.launches,
                        "add_batch": td.add_batch.launches}

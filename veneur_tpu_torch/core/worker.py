@@ -265,8 +265,8 @@ def _write_ingest_rows(fields, update) -> None:
     dmax[active] = n_max
     drecip[active] = n_recip
     drecip_c[active] = n_recip_c
-    lmin.scatter_reduce_(0, active, s_min, reduce="amin")
-    lmax.scatter_reduce_(0, active, s_max, reduce="amax")
+    exn.scatter_amin_(lmin, active, s_min)
+    exn.scatter_amax_(lmax, active, s_max)
     lsum[active] = n_lsum
     lsum_c[active] = n_lsum_c
     lweight[active] = n_lw
@@ -313,8 +313,8 @@ def _histo_import_rows(means, weights, dmin, dmax, drecip, drecip_c,
     n_means, n_w = td._compress_rows(
         torch.cat([means[rows], imp_means], dim=-1),
         torch.cat([weights[rows], imp_w], dim=-1), compression, c)
-    n_min = z(torch.minimum(dmin[rows], imp_min))
-    n_max = z(torch.maximum(dmax[rows], imp_max))
+    n_min = z(exn.minimum(dmin[rows], imp_min))
+    n_max = z(exn.maximum(dmax[rows], imp_max))
     n_recip, n_recip_c = _comp_add_ftz(drecip[rows], drecip_c[rows],
                                        imp_recip)
     return rows, n_means, n_w, n_min, n_max, n_recip, n_recip_c
@@ -416,18 +416,18 @@ def _histo_fold_staged(
     s_w = exn.tsum(swts)
     s_sum = exn.tsum(torch.where(live, svals * swts, 0.0))
     s_recip = exn.tsum(torch.where(live, swts / svals, 0.0))
-    s_min = torch.amin(torch.where(live, svals, _INF), dim=-1)
-    s_max = torch.amax(torch.where(live, svals, -_INF), dim=-1)
+    s_min = exn.amin(torch.where(live, svals, _INF), dim=-1)
+    s_max = exn.amax(torch.where(live, svals, -_INF), dim=-1)
 
     cat_means = torch.cat([means, svals], dim=-1)
     cat_w = torch.cat([weights, swts], dim=-1)
     means, weights = td._compress_rows(cat_means, cat_w, compression, c)
 
-    dmin = torch.minimum(dmin, s_min)
-    dmax = torch.maximum(dmax, s_max)
+    dmin = exn.minimum(dmin, s_min)
+    dmax = exn.maximum(dmax, s_max)
     drecip, drecip_c = _comp_add(drecip, drecip_c, s_recip)
-    lmin = torch.minimum(lmin, s_min)
-    lmax = torch.maximum(lmax, s_max)
+    lmin = exn.minimum(lmin, s_min)
+    lmax = exn.maximum(lmax, s_max)
     lsum, lsum_c = _comp_add(lsum, lsum_c, s_sum)
     lweight, lweight_c = _comp_add(lweight, lweight_c, s_w)
     lrecip, lrecip_c = _comp_add(lrecip, lrecip_c, s_recip)

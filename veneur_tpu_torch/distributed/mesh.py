@@ -41,6 +41,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from veneur_tpu_torch.ops import exactnum as exn
 from veneur_tpu_torch.ops import extract_kernel as ek
 from veneur_tpu_torch.ops import tdigest as td
 
@@ -170,8 +171,8 @@ def _merge_extract(means, weights, dmin, dmax, drecip, qs, d: int,
     cat_m = g_m.permute(1, 0, 2).reshape(s_loc, h * c)
     cat_w = g_w.permute(1, 0, 2).reshape(s_loc, h * c)
     mg_m, mg_w = td.compress_rows(cat_m, cat_w, compression, c)
-    mn = torch.amin(_all_gather(dmin, d, dev), dim=0)
-    mx = torch.amax(_all_gather(dmax, d, dev), dim=0)
+    mn = exn.pmin0(_all_gather(dmin, d, dev))
+    mx = exn.pmax0(_all_gather(dmax, d, dev))
     rc = _psum(drecip, d, dev)
     zero = torch.zeros((s_loc,), dtype=torch.float32, device=dev)
     inf = torch.full((s_loc,), _INF, dtype=torch.float32, device=dev)

@@ -13,7 +13,9 @@ an add behind our back; ``block`` is kept anyway for its NaN semantics
 (NaN → 0), which the reference's outputs carry.
 
 The table builders are NumPy and copied from the reference, which builds
-them next to a ``jax.numpy`` import.
+them next to a ``jax.numpy`` import. Min and max follow XLA on the CPU
+(``minimum``, ``amin``, ``scatter_amin_``, ``pmin0`` and their max
+twins: see the section below).
 """
 
 from __future__ import annotations
@@ -157,3 +159,118 @@ def flush_denormals(x: torch.Tensor) -> torch.Tensor:
     where such an op reads a function's inputs and to every arithmetic
     result that can come out denormal."""
     return torch.where(torch.abs(x) < _F32_TINY, x * 0.0, x)
+
+
+# ---------------------------------------------------------------------------
+# min and max as XLA on the CPU computes them
+#
+# XLA on the CPU orders -0.0 below +0.0 in the min and max of one program
+# (jnp.minimum, jnp.min, a scatter's .at[].min), whichever operand comes
+# first, and a NaN operand wins. Its cross-device collectives do not:
+# lax.pmin and pmax fold the devices in order from the identity, never
+# take a NaN and keep the earlier device's value on a tie (``pmin0``,
+# ``pmax0``). Of two NaNs, min keeps a positive one
+# and max a negative one (LLVM's minimum on x86: the operands swapped when
+# the first is negative, then the first kept if it is a NaN). torch's own
+# min and max keep whichever zero their loop meets first, which changes
+# with the width on the CPU, so the port writes its own: elementwise as
+# selects, reductions and scatters over an integer order of the bits
+# (exact in any order, -0.0 and +0.0 apart).
+
+_NAN_SHIFT = 1 << 33
+
+
+def _bits_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys that order f32 ``x`` as its values order, -0.0 below
+    +0.0 (NaNs wherever their bits put them: the callers move them)."""
+    i = x.view(torch.int32)
+    return (i ^ ((i >> 31) & 0x7FFFFFFF)).to(torch.int64)
+
+
+def _from_bits_key(k: torch.Tensor) -> torch.Tensor:
+    i = k.to(torch.int32)
+    return (i ^ ((i >> 31) & 0x7FFFFFFF)).view(torch.float32)
+
+
+def _min_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose least is ``x``'s XLA min: every NaN below every
+    number, a positive NaN below a negative one."""
+    k = _bits_key(x)
+    return torch.where(torch.isnan(x), -_NAN_SHIFT - k, k)
+
+
+def _from_min_key(k: torch.Tensor) -> torch.Tensor:
+    return _from_bits_key(torch.where(k < -(1 << 32), -_NAN_SHIFT - k, k))
+
+
+def _max_key(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys whose greatest is ``x``'s XLA max: every NaN above
+    every number, a negative NaN above a positive one."""
+    k = _bits_key(x)
+    return torch.where(torch.isnan(x), _NAN_SHIFT - k, k)
+
+
+def _from_max_key(k: torch.Tensor) -> torch.Tensor:
+    return _from_bits_key(torch.where(k > 1 << 32, _NAN_SHIFT - k, k))
+
+
+def minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.minimum`` as XLA on the CPU computes it (see above), as
+    selects: the operands swapped where ``a`` is negative, then the first
+    kept if it is a NaN or the lesser."""
+    neg = torch.signbit(a)
+    x, y = torch.where(neg, b, a), torch.where(neg, a, b)
+    return torch.where(torch.isnan(x) | (x < y), x, y)
+
+
+def maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``jnp.maximum`` as XLA on the CPU computes it (see ``minimum``)."""
+    neg = torch.signbit(a)
+    x, y = torch.where(neg, a, b), torch.where(neg, b, a)
+    return torch.where(torch.isnan(x) | (x > y), x, y)
+
+
+def amin(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.min(x, axis=dim)`` as XLA on the CPU reduces it."""
+    return _from_min_key(torch.amin(_min_key(x), dim=dim))
+
+
+def amax(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``jnp.max(x, axis=dim)`` as XLA on the CPU reduces it."""
+    return _from_max_key(torch.amax(_max_key(x), dim=dim))
+
+
+def pmin0(x: torch.Tensor) -> torch.Tensor:
+    """``lax.pmin`` over the devices stacked along axis 0, as XLA on the
+    CPU reduces across devices: from +inf, each device in order taken
+    where it is less (so a NaN is never taken, and of -0.0 and +0.0 the
+    earlier stays)."""
+    acc = torch.full_like(x[0], float("inf"))
+    for v in x:
+        acc = torch.where(v < acc, v, acc)
+    return acc
+
+
+def pmax0(x: torch.Tensor) -> torch.Tensor:
+    """``lax.pmax`` over axis 0, from -inf (see ``pmin0``)."""
+    acc = torch.full_like(x[0], float("-inf"))
+    for v in x:
+        acc = torch.where(v > acc, v, acc)
+    return acc
+
+
+def scatter_amin_(dst: torch.Tensor, index: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """``dst.at[index].min(src)`` in place, as XLA on the CPU scatters it:
+    an ``amin`` scatter of the keys, then one write of ``dst``."""
+    k = _min_key(dst)
+    k.scatter_reduce_(0, index, _min_key(src), reduce="amin")
+    return dst.copy_(_from_min_key(k))
+
+
+def scatter_amax_(dst: torch.Tensor, index: torch.Tensor,
+                  src: torch.Tensor) -> torch.Tensor:
+    """``dst.at[index].max(src)`` in place (see ``scatter_amin_``)."""
+    k = _max_key(dst)
+    k.scatter_reduce_(0, index, _max_key(src), reduce="amax")
+    return dst.copy_(_from_max_key(k))

@@ -13,7 +13,10 @@ bits) and run on an integer order key (``_order_key``: -0.0 and +0.0
 equal, every NaN equal and after +inf, as ``lax.sort`` and ``torch.sort``
 on the CPU order floats), so they give one order on every device; the
 reference's two-key sort is two stable sorts, secondary key first. Scans
-and sums go through ``ops/exactnum.py``.
+and sums go through ``ops/exactnum.py``, and so do min and max
+(``exactnum.minimum``, ``amin``...: -0.0 below +0.0 and a NaN operand
+winning, as XLA on the CPU orders them; the sort's order key keeps -0.0
+and +0.0 equal, as ``lax.sort`` does).
 
 K2: the two folds, ``compress_rows`` (also ``_compress_rows``) and
 ``add_batch``, are dispatchers. A CPU tensor takes the plain version
@@ -107,18 +110,6 @@ def _stable_sort_pair(keys: torch.Tensor, payload: torch.Tensor):
     """``lax.sort((keys, payload), num_keys=1)`` along the last axis."""
     order = torch.sort(_order_key(keys), dim=-1, stable=True).indices
     return torch.gather(keys, -1, order), torch.gather(payload, -1, order)
-
-
-def _minimum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.minimum`` as the CPU computes it, written out as selects
-    so every device agrees: a NaN operand wins (the first one if both
-    are NaN), a tie (-0.0 against +0.0) keeps the first operand."""
-    return torch.where(torch.isnan(a) | ~(b < a) & ~torch.isnan(b), a, b)
-
-
-def _maximum(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """``torch.maximum`` as the CPU computes it (see ``_minimum``)."""
-    return torch.where(torch.isnan(a) | ~(b > a) & ~torch.isnan(b), a, b)
 
 
 def _k_bucket(q: torch.Tensor, compression: float, capacity: int
@@ -221,8 +212,8 @@ def merge_pools(a: TDigestPool, b: TDigestPool,
                                     compression, c)
     return TDigestPool(
         means=means, weights=weights,
-        min=z(torch.minimum(a.min, b.min)),
-        max=z(torch.maximum(a.max, b.max)),
+        min=z(exn.minimum(a.min, b.min)),
+        max=z(exn.maximum(a.max, b.max)),
         recip=z(z(a.recip) + z(b.recip)))
 
 
@@ -239,8 +230,8 @@ def merge_many(stacked: TDigestPool,
     means, weights = _compress_rows(means, weights, compression, c)
     return TDigestPool(
         means=means, weights=weights,
-        min=z(torch.amin(stacked.min, dim=0)),
-        max=z(torch.amax(stacked.max, dim=0)),
+        min=z(exn.amin(stacked.min, dim=0)),
+        max=z(exn.amax(stacked.max, dim=0)),
         recip=exn.tsum0(z(stacked.recip), flush=True))
 
 
@@ -275,7 +266,7 @@ def _prefix_scans(srows, svals, sw):
 
 
 def _sort_batch(rows, values, sample_weights, k: int):
-    """Step 1 of ``add_batch``, the sort before K2b on every device: the
+    """Step 1 of ``add_batch_plain``, the plain version of K2b's sort: the
     batch sorted by (row, value), two stable sorts, secondary key first;
     padding samples (weight <= 0) keyed to row k, past every real row.
     Returns (rows int64, flushed values, flushed weights, raw values)."""
@@ -329,17 +320,15 @@ def _check_add(means, weights, dmin, dmax, drecip, rows, values,
 def add_batch(means, weights, dmin, dmax, drecip, rows, values,
               sample_weights, compression: float = DEFAULT_COMPRESSION):
     """Ingest a batch of raw samples into digest rows (see
-    ``add_batch_plain``): on a CUDA tensor the sort before it, then K2b;
-    on a CPU one the plain version."""
+    ``add_batch_plain``): on a CUDA tensor K2b, its sort included (no
+    torch op runs); on a CPU one the plain version."""
     _check_add(means, weights, dmin, dmax, drecip, rows, values,
                sample_weights)
     if means.device.type == "cpu":
         return add_batch_plain(means, weights, dmin, dmax, drecip, rows,
                                values, sample_weights, compression)
-    srows, svals, sw, raw_svals = _sort_batch(rows, values, sample_weights,
-                                              means.shape[0])
     out = tdigest_kernel.add_batch(
-        means, weights, dmin, dmax, drecip, srows, svals, sw, raw_svals,
+        means, weights, dmin, dmax, drecip, rows, values, sample_weights,
         exn._table(compression, means.device))
     add_batch.launches += 1
     return (*out[:5], BatchStats(*out[5:]))
@@ -422,8 +411,8 @@ def add_batch_plain(means, weights, dmin, dmax, drecip, rows, values,
                                             c)
 
     # 5. digest scalars (the min and max of flushed values are flushed)
-    new_min = _minimum(z(dmin), z(seg_min))
-    new_max = _maximum(z(dmax), z(seg_max))
+    new_min = exn.minimum(z(dmin), z(seg_min))
+    new_max = exn.maximum(z(dmax), z(seg_max))
     new_recip = z(z(drecip) + seg_recip)
     return new_means, new_w, new_min, new_max, new_recip, stats
 

@@ -1,17 +1,19 @@
 """The t-digest fold kernels for Hopper (K2): build, load and launch.
 
-``csrc/tdigest.cu`` holds two hand-written CUDA C++ kernels for sm_90a
+``csrc/tdigest.cu`` holds the hand-written CUDA C++ kernels for sm_90a
 (see the source for their design, bounds and the places where the bits
 would differ unless they do as the plain version does):
 
 * K2a ``compress`` — the per-row compression of candidate centroid rows
-  f32[S, M] → [S, C], one block a row. It replaces ``_compress_rows`` of
+  f32[S, M] → [S, C]: a warp a row for M <= 256 (rows sorted and scanned
+  in registers), a block a row up to 4,096 candidates, a global slab a
+  row past that. It replaces ``_compress_rows`` of
   veneur_tpu/ops/tdigest.py (a jitted XLA program).
-* K2b ``add_batch`` — the spill fold of a raw-sample batch, already
-  sorted by (row, value), into digest rows [K, C]: the prefix scans, the
-  per-row stats, the run table and the batch digest, then K2a's routine
-  over [K, 2C]. It replaces ``add_batch`` of veneur_tpu/ops/tdigest.py
-  after its sort.
+* K2b ``add_batch`` — the spill fold of a raw-sample batch into digest
+  rows [K, C], from the unsorted batch: the sort by (row, value) (tiles
+  in a block, then merge passes), the prefix scans, the per-row stats,
+  the run table and the batch digest, then K2a's row routine over
+  [K, 2C]. It replaces ``add_batch`` of veneur_tpu/ops/tdigest.py.
 
 The library is built with nvcc at first use (ops/nvcc.py, with the flush
 extract's flags: ``-ftz=true``, no FMA contraction) and loaded with
@@ -32,7 +34,8 @@ from veneur_tpu_torch.ops import nvcc
 _SRC = nvcc.CSRC / "tdigest.cu"
 # the widest digest row K2b takes (its [2C] candidates in shared memory)
 MAX_ADD_CAPACITY = 2048
-_CHUNK = 128
+_KERNELS = (r"(td_(?:compress_warps|compress_wide|compress_scratch|sort_tile|"
+            r"sort_merge|scan_tile|scan_step|add_rows)(?:ILb[01]E)?)")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -43,11 +46,18 @@ def build():
     return nvcc.build(_SRC, nvcc.EXTRACT_FLAGS)
 
 
+def _kernel_name(mangled: str) -> str:
+    """``td_add_rows<true>``'s mangled stem as ``td_add_rows_block``,
+    ``<false>`` as ``td_add_rows_warp``."""
+    return mangled.replace("ILb1E", "_block").replace("ILb0E", "_warp")
+
+
 def parse_ptxas(text: str) -> dict[str, dict[str, int]]:
-    """Per kernel (``td_compress``, ``td_scan_tile``, ``td_scan_step``,
-    ``td_add_rows``), what ptxas reported (ops/nvcc.parse_ptxas)."""
-    return nvcc.parse_ptxas(
-        text, r"(td_compress|td_scan_tile|td_scan_step|td_add_rows)")
+    """Per kernel (``td_compress_warps``, ``_wide``, ``_scratch``,
+    ``td_sort_tile``, ``td_sort_merge``, ``td_scan_tile``,
+    ``td_scan_step``, ``td_add_rows_warp``/``_block``), what ptxas
+    reported (ops/nvcc.parse_ptxas)."""
+    return nvcc.parse_ptxas(text, _KERNELS, key=_kernel_name)
 
 
 def build_report() -> dict[str, dict[str, int]]:
@@ -65,8 +75,12 @@ def bind(lib):
     lib.td_compress_launch.argtypes = [vp, vp, ll, ci, ci, vp, ci, vp, vp,
                                        vp, vp]
     lib.td_compress_launch.restype = ci
+    lib.td_add_batch_scratch_bytes.argtypes = [ci]
+    lib.td_add_batch_scratch_bytes.restype = ll
+    lib.td_add_batch_launches.argtypes = [ci]
+    lib.td_add_batch_launches.restype = ci
     lib.td_add_batch_launch.argtypes = (
-        [vp] * 5 + [ci, ci] + [vp] * 4 + [ci] + [vp, ci] + [vp] * 2
+        [vp] * 5 + [ci, ci] + [vp, ci] + [vp, vp] + [ci] + [vp, ci] + [vp]
         + [vp] * 10 + [vp])
     lib.td_add_batch_launch.restype = ci
     return lib
@@ -83,13 +97,13 @@ def load():
 
 def _check_cuda(*tensors: torch.Tensor) -> torch.device:
     """The card every tensor lies on; contiguous float32 (but for the
-    sorted rows, int64) or ValueError."""
+    batch's rows, int32 or int64) or ValueError."""
     dev = tensors[0].device
     if dev.type != "cuda":
         raise ValueError(f"the t-digest kernels run on cuda, not {dev.type}")
     for t in tensors:
         if t.device != dev or not t.is_contiguous() \
-                or t.dtype not in (torch.float32, torch.int64):
+                or t.dtype not in (torch.float32, torch.int32, torch.int64):
             raise ValueError("the t-digest kernels take contiguous float32 "
                              "tensors on one card")
     return dev
@@ -143,44 +157,48 @@ def compress(means: torch.Tensor, weights: torch.Tensor, capacity: int,
                             _stream(dev))
 
 
-def add_batch(means, weights, dmin, dmax, drecip, srows, svals, sw,
-              raw_svals, table) -> tuple[torch.Tensor, ...]:
-    """Launch K2b over a batch sorted by (row, value) (ops/tdigest.
-    _sort_batch: int64 rows, flushed values and weights, raw values; the
-    shapes checked by ops/tdigest.add_batch). Returns the new means and
-    weights [K, C], min, max and recip [K], and the five BatchStats
-    fields [K], all new tensors."""
-    dev = _check_cuda(means, weights, dmin, dmax, drecip, srows, svals, sw,
-                      raw_svals, table)
+def add_batch(means, weights, dmin, dmax, drecip, rows, values,
+              sample_weights, table) -> tuple[torch.Tensor, ...]:
+    """Launch K2b over an unsorted batch (int32 or int64 rows in [0, K),
+    float32 values and weights, padding samples weighted <= 0; the shapes
+    checked by ops/tdigest.add_batch). Returns the new means and weights
+    [K, C], min, max and recip [K], and the five BatchStats fields [K],
+    all new tensors."""
+    dev = _check_cuda(means, weights, dmin, dmax, drecip, rows, values,
+                      sample_weights, table)
     lib = load()
     with torch.cuda.device(dev):
-        return run_add_batch(lib, means, weights, dmin, dmax, drecip, srows,
-                             svals, sw, raw_svals, table, _stream(dev))
+        return run_add_batch(lib, means, weights, dmin, dmax, drecip, rows,
+                             values, sample_weights, table, _stream(dev))
 
 
-def run_add_batch(lib, means, weights, dmin, dmax, drecip, srows, svals, sw,
-                  raw_svals, table, stream) -> tuple[torch.Tensor, ...]:
+def run_add_batch(lib, means, weights, dmin, dmax, drecip, rows, values,
+                  sample_weights, table, stream) -> tuple[torch.Tensor, ...]:
     """K2b through ``lib``'s launcher on ``stream``, outputs and scratch
     on the inputs' device (``add_batch`` checks them)."""
-    if srows.dtype != torch.int64:
-        raise ValueError("the sorted rows must be int64")
+    if rows.dtype not in (torch.int32, torch.int64):
+        raise ValueError("the batch's rows must be int32 or int64")
     dev = means.device
     k, c = means.shape
-    n = srows.shape[0]
-    g = -(-n // _CHUNK)
+    n = rows.shape[0]
     f32 = torch.float32
-    fscratch = torch.empty((6 * n + 2 * g * _CHUNK + 4 * g,), dtype=f32,
-                           device=dev)
-    iscratch = torch.empty((6 * g,), dtype=torch.int32, device=dev)
+    scratch = torch.empty((lib.td_add_batch_scratch_bytes(n),),
+                          dtype=torch.uint8, device=dev)
     out_m = torch.empty((k, c), dtype=f32, device=dev)
     out_w = torch.empty((k, c), dtype=f32, device=dev)
     scal = torch.empty((8, k), dtype=f32, device=dev)
     rc = lib.td_add_batch_launch(
         means.data_ptr(), weights.data_ptr(), dmin.data_ptr(),
-        dmax.data_ptr(), drecip.data_ptr(), k, c, srows.data_ptr(),
-        svals.data_ptr(), sw.data_ptr(), raw_svals.data_ptr(), n,
-        table.data_ptr(), table.numel(), fscratch.data_ptr(),
-        iscratch.data_ptr(), out_m.data_ptr(), out_w.data_ptr(),
+        dmax.data_ptr(), drecip.data_ptr(), k, c, rows.data_ptr(),
+        int(rows.dtype == torch.int64), values.data_ptr(),
+        sample_weights.data_ptr(), n, table.data_ptr(), table.numel(),
+        scratch.data_ptr(), out_m.data_ptr(), out_w.data_ptr(),
         *(scal[i].data_ptr() for i in range(8)), stream)
     nvcc.check(rc, "td_add_batch launch failed")
     return (out_m, out_w, *scal.unbind(0))
+
+
+def chain_launches(n: int) -> int:
+    """The kernel launches of one K2b call over n samples (the sort's
+    tile and merge passes, the scan tile and steps, the rows)."""
+    return load().td_add_batch_launches(n)
