@@ -47,7 +47,14 @@ script exits non-zero:
    chain's kernels in a torch.profiler trace (none of torch's). Medians
    of kernel (K2b: the whole chain from the unsorted batch, its sort
    included) and plain, the plain sort alone, and each kernel's bound
-   (bytes over 3.35 TB/s).
+   (bytes over 3.35 TB/s). Then K3, the staged fold (core/worker.
+   fold_staged), bitwise its plain chain at phase 4's [131,072, C = 128,
+   B = 64], ragged 131,071 and 4,099 rows and B = 40, each dense, flat
+   with unit weights and flat weighted and a dense mirror a third
+   shorter, a 4-shard split of the first, and 16 edge rows each; one
+   staged fold's torch.profiler trace (K3 alone, or the run fails); its
+   median ms in each form, the plain chain's, the bound; the seconds it
+   added.
 4. one worker interval at the mixed configuration of BASELINE.md
    (100k series, bench.py's "mixed" mix): 80,000 histogram/timer series
    made through process_metric, 40 samples each staged through
@@ -75,7 +82,7 @@ script exits non-zero:
    In phases 4, 4b and 4c the CPU worker runs after the card's, in this
    process, so nothing else loads the host while the card's steps are
    timed; compare_snapshots holds the two snapshots to each other. The
-   card's staged fold runs K2a and its spill folds (the hot series) K2b,
+   card's staged fold runs K3 and its spill folds (the hot series) K2b,
    the CPU's their plain versions: phases 4 and 4c fail unless both
    kernels launched.
 5. server: the port's Server built by its factory with a UDP listener on
@@ -139,10 +146,11 @@ script exits non-zero:
 9. reader shards at phase 4c's width: its datagrams dealt round-robin
    over 4 owned native contexts (ingest_owned, each reader's order
    kept) on the card, flushed through the stacked fold (the contexts'
-   planes merged on the host, _expand_flat_planes, the staged fold);
+   planes merged on the host into one flat plane, K3's staged fold);
    series-identical, bitwise, to a legacy worker fed the same datagrams
-   in context order, and bitwise the sharded interval on the CPU. Prints
-   fold_s with K3's (_expand_flat_planes) time on the card, the merge's
+   in context order, and bitwise the sharded interval on the CPU; both
+   card workers' staged folds launched K3. Prints
+   fold_s with K3's time on the card over the interval's plane, the merge's
    seconds and each context's commits. Then phase 5b's server with
    num_readers 4 and the default reader_shards: 4 C++ reader threads in
    4 owned contexts, 8 UDP senders (each series on one flow); its
@@ -277,7 +285,7 @@ script exits non-zero:
    (shard_devices repeats it), on the Python path and, from 4c's
    datagrams, the native path, micro-folds on: each snapshot bitwise
    phase 4's unsharded card snapshot, the Python path's InterMetrics
-   equal to phase 4's; K1, K4 and K5 launched at least once per shard
+   equal to phase 4's; K1, K3, K4 and K5 launched at least once per shard
    (``launches_series``), sharding engaged (a quiet fall back fails the
    run). 16b: MESH_LOCALS card locals of MESH_SERIES series (phase 10's
    interval, cut in width) flush and encode their forward frames; a
@@ -1954,42 +1962,57 @@ def phase_shards(tw, generate, qs, steps):
     context order (series-identical, bitwise) and against the sharded
     interval on the CPU (bitwise); then a server with num_readers 4 and
     the default reader_shards."""
-    expand_args = []
-    orig_expand = tw._expand_flat_planes
+    fold_args = []
+    orig_fold = tw.fold_staged
 
-    def keep_expand(*args):
-        expand_args.append(args)
-        return orig_expand(*args)
+    def keep_fold(*args, **kwargs):
+        fold_args.append((args, kwargs))
+        return orig_fold(*args, **kwargs)
 
+    keep_fold.launches = 0
     w = tw.DeviceWorker(**INTERVAL_KW, device=DEVICE)
     w.attach_native()
     if not w.attach_reader_shards(SHARDS) or len(w._reader_ctxs) != SHARDS:
         raise AssertionError("phase 9: the reader shards did not attach")
-    tw._expand_flat_planes = keep_expand
+    tw.fold_staged = keep_fold
     try:
         snap, card = run_shard_interval(w, steps, qs, sharded=True)
     finally:
-        tw._expand_flat_planes = orig_expand
+        tw.fold_staged = orig_fold
+    # the wrapped fold counted its launches on the name it was called by
+    card["tdigest_fold_staged_launches"] = keep_fold.launches
+    orig_fold.launches += keep_fold.launches
     check_guard_clean(w, snap, "phase 9, card")
     committed = list(w.reader_committed)
     if sum(committed) != w.processed_total or committed[0] != 0 \
             or min(committed[1:]) < 1:
         raise AssertionError(f"phase 9 attribution: committed {committed},"
                              f" processed {w.processed_total}")
-    if len(expand_args) != 1 or w.micro_folds_total:
-        raise AssertionError(f"phase 9: {len(expand_args)} stacked folds "
-                             f"through _expand_flat_planes, "
+    if len(fold_args) != 1 or w.micro_folds_total \
+            or not isinstance(fold_args[0][0][1], tw.FlatStage):
+        raise AssertionError(f"phase 9: {len(fold_args)} staged folds of "
+                             f"the merged flat plane, "
                              f"{w.micro_folds_total} micro-folds")
+    if DEVICE == "cuda" and card["tdigest_fold_staged_launches"] != 1:
+        raise AssertionError("phase 9: the stacked fold did not launch K3")
     # K3 at this interval's shape, on the card: the merged plane's flat
-    # samples and counts rebuilt into the [S, 64] planes
-    card["k3_ms"] = probe.cuda_ms(lambda: orig_expand(*expand_args[0]), 21)
+    # samples folded into the pool (its launches here are not the path's)
+    args, kwargs = fold_args[0]
+    saved = orig_fold.launches
+    card["k3_ms"] = probe.cuda_ms(lambda: orig_fold(*args, **kwargs), 21)
+    orig_fold.launches = saved
     card["k3_share_of_fold"] = card["k3_ms"] / (1e3 * card["fold_s"])
-    card["k3_rows"], card["k3_samples"] = (int(expand_args[0][2].shape[0]),
-                                           int(expand_args[0][0].shape[0]))
-    del expand_args, w
+    card["k3_rows"] = int(args[0][0].shape[0])
+    card["k3_samples"] = int(args[1].counts.sum())
+    del fold_args, args, kwargs, w
     legacy = tw.DeviceWorker(**INTERVAL_KW, device=DEVICE)
     legacy.attach_native()
+    k3 = tw.fold_staged.launches
     snap_l, t_l = run_shard_interval(legacy, steps, qs, sharded=False)
+    t_l["tdigest_fold_staged_launches"] = tw.fold_staged.launches - k3
+    if DEVICE == "cuda" and t_l["tdigest_fold_staged_launches"] < 1:
+        raise AssertionError("phase 9: the legacy worker's staged fold did "
+                             "not launch K3")
     check_guard_clean(legacy, snap_l, "phase 9, legacy card")
     if legacy.processed_total != sum(committed):
         raise AssertionError("phase 9: the legacy worker processed "
@@ -2016,7 +2039,7 @@ def phase_shards(tw, generate, qs, steps):
         f"contexts (committed by context {committed}): series-identical "
         f"bitwise to the legacy worker ({many} gauge series reach more "
         f"than one reader, none left out), and bitwise the sharded CPU "
-        f"worker's; K3 (_expand_flat_planes) {card['k3_ms']:.4f} ms over "
+        f"worker's; K3 (the staged fold) {card['k3_ms']:.4f} ms over "
         f"{card['k3_rows']} rows and {card['k3_samples']} samples, "
         f"{100 * card['k3_share_of_fold']:.2f}% of fold_s")
     for where, t in (("card sharded", card), ("card legacy", t_l),
@@ -2592,7 +2615,7 @@ def phase_series_shards(tw, ek, hll, parse, generate, qs, plan, steps,
         k1 = read_launches(ek, hll)
         t.update({f"{k}_launches": k1[k] - k0[k] for k in (
             "flush_extract", "hll_insert", "hll_estimate",
-            "tdigest_compress", "tdigest_add_batch")})
+            "tdigest_compress", "tdigest_add_batch", "tdigest_fold_staged")})
         t["h2d_per_shard"] = w.ledger.flush_h2d_per_shard()
         t["d2h_per_shard"] = w.ledger.flush_d2h_per_shard()
         check_guard_clean(w, snap, f"phase 16a {name}")
@@ -2601,9 +2624,9 @@ def phase_series_shards(tw, ek, hll, parse, generate, qs, plan, steps,
                           "against phase 4's unsharded card snapshot")
         if t["micro_folds"] < 2:
             raise AssertionError(f"phase 16a {name}: {t}")
-        if min(t[f"{k}_launches"] for k in ("flush_extract", "hll_insert",
-                                             "hll_estimate")) \
-                < SERIES_SHARDS:
+        need = ("flush_extract", "hll_insert", "hll_estimate") + (
+            ("tdigest_fold_staged",) if DEVICE == "cuda" else ())
+        if min(t[f"{k}_launches"] for k in need) < SERIES_SHARDS:
             raise AssertionError(f"phase 16a {name}: a kernel launched "
                                  f"less than once per shard: {t}")
         if name == "python":
@@ -5298,6 +5321,7 @@ def phase_loadgen_child(timeout_s: float = 600.0) -> tuple:
 
 
 def reset_launches(ek, hll) -> None:
+    from veneur_tpu_torch.core import worker as tw
     from veneur_tpu_torch.ops import tdigest as td
 
     ek.flush_extract.launches = 0
@@ -5305,10 +5329,12 @@ def reset_launches(ek, hll) -> None:
         ek.variant_launches[r] = 0
     hll.insert_batch.launches = hll.estimate.launches = 0
     td.compress_rows.launches = td.add_batch.launches = 0
+    tw.fold_staged.launches = 0
 
 
 def read_launches(ek, hll) -> dict:
     """Each kernel's launches since reset_launches, by kernels-line name."""
+    from veneur_tpu_torch.core import worker as tw
     from veneur_tpu_torch.ops import tdigest as td
 
     return {"flush_extract": ek.flush_extract.launches,
@@ -5317,24 +5343,31 @@ def read_launches(ek, hll) -> dict:
             "hll_insert": hll.insert_batch.launches,
             "hll_estimate": hll.estimate.launches,
             "tdigest_compress": td.compress_rows.launches,
-            "tdigest_add_batch": td.add_batch.launches}
+            "tdigest_add_batch": td.add_batch.launches,
+            "tdigest_fold_staged": tw.fold_staged.launches}
 
 
-def td_launches() -> tuple[int, int]:
-    """K2a's and K2b's launch counts now."""
+def td_launches() -> tuple[int, int, int]:
+    """K2a's, K2b's and K3's launch counts now."""
+    from veneur_tpu_torch.core import worker as tw
     from veneur_tpu_torch.ops import tdigest as td
 
-    return td.compress_rows.launches, td.add_batch.launches
+    return (td.compress_rows.launches, td.add_batch.launches,
+            tw.fold_staged.launches)
 
 
 def check_td_launches(before: tuple, what: str) -> dict:
-    """K2a's and K2b's launches since ``before``; raises unless both
-    launched: a fold that quietly ran its plain version on the card fails
-    the run."""
-    a, b = td_launches()
+    """K2a's, K2b's and K3's launches since ``before``; raises unless the
+    staged fold launched K3 and the spill folds K2b: a fold that quietly
+    ran its plain version on the card fails the run. (The staged fold
+    runs K2a's row routine inside K3; K2a's own launches are the import
+    merges'.)"""
+    a, b, k = td_launches()
     got = {"tdigest_compress_launches": a - before[0],
-           "tdigest_add_batch_launches": b - before[1]}
-    if DEVICE == "cuda" and min(got.values()) < 1:
+           "tdigest_add_batch_launches": b - before[1],
+           "tdigest_fold_staged_launches": k - before[2]}
+    if DEVICE == "cuda" and min(got["tdigest_add_batch_launches"],
+                                got["tdigest_fold_staged_launches"]) < 1:
         raise AssertionError(f"{what}: the t-digest folds did not launch "
                              f"their kernels ({got})")
     return got
@@ -5466,6 +5499,18 @@ def main() -> int:
                              f"tdigest.cu: {td_chain['foreign']}")
     td_times = probe_td.time_kernels(td, tk)
     wall["tdigest_kernels_s"] = time.perf_counter() - t0
+    # 3c. K3, the staged fold (its seconds apart: this slice's addition)
+    t0 = time.perf_counter()
+    td_checks["tdigest_fold_staged"] = probe_td.check_fold_staged(tw)
+    td_fold_trace = probe_td.profile_fold(tw)
+    if DEVICE == "cuda" and (td_fold_trace["foreign"]
+                             or td_fold_trace["kernels"] != 1):
+        raise AssertionError(f"a staged fold on the card launched "
+                             f"{td_fold_trace['names']}, not K3 alone")
+    td_times["fold_staged"] = probe_td.time_fold_staged(tw)
+    wall["tdigest_fold_staged_s"] = time.perf_counter() - t0
+    log(f"[tdigest] K3's checks, trace and times added "
+        f"{wall['tdigest_fold_staged_s']:.1f} s")
 
     # 4 + 5: the main path, launch counts reset just before
     aggs = HistogramAggregates.from_names(["min", "max", "count"])
@@ -5499,7 +5544,7 @@ def main() -> int:
         wall["native_server_s"] += time.perf_counter() - t0
     launches = read_launches(ek, hll)
     for name in ("flush_extract", "hll_insert", "hll_estimate",
-                 "tdigest_compress", "tdigest_add_batch"):
+                 "tdigest_fold_staged", "tdigest_add_batch"):
         if launches[name] < 1:
             raise AssertionError(f"{name} was not launched on the main "
                                  f"path")
@@ -5708,9 +5753,30 @@ def main() -> int:
             "at_shapes": t,
             **({"chain": td_chain, "signed_zeros": td_checks["signed_zeros"]}
                if what == "add_batch" else {}),
+            **({"main_path_note": "phases 4 to 5b fold through K3, which "
+                "runs K2a's row routine; K2a's own launches are the import "
+                "merges' (launches_global) and the mesh's (launches_mesh)"}
+               if what == "compress" else {}),
             "build": {k: v for k, v in td_build.items()
                       if k.startswith("td_compress") == (
-                          what == "compress")}})
+                          what == "compress")
+                      and not k.startswith(("td_fold", "td_stage"))}})
+    main_t = td_times["fold_staged"][0]
+    kernels["kernels"].append({
+        "name": "tdigest_fold_staged", "route": "cuda",
+        "source": "veneur_tpu_torch/csrc/tdigest.cu",
+        "replaces": "veneur_tpu/core/worker.py:216",
+        **counts("tdigest_fold_staged"),
+        "max_abs_err": td_checks["tdigest_fold_staged"]["max_abs_err"],
+        "ms": main_t["ms"], "plain_ms": main_t["plain_ms"],
+        "bound_ms": main_t["bound_ms"], "bound_by": main_t["bound_by"],
+        "library_ms": None,
+        "library_note": "no single PyTorch call computes it",
+        "also_replaces": "veneur_tpu/core/worker.py:245 (the staged fold "
+                         "around _compress_rows)",
+        "at_forms": td_times["fold_staged"], "trace": td_fold_trace,
+        "build": {k: v for k, v in td_build.items()
+                  if k.startswith(("td_fold", "td_stage"))}})
     wall["total_s"] = time.perf_counter() - t_start
     log("[timing] " + ", ".join(f"{k} {v:.1f}" for k, v in wall.items()))
     result = {"ok": True, "device": {

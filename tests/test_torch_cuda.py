@@ -39,7 +39,12 @@ included, K2b with torch.sort patched to raise (the sort is the
 kernels'), and a card worker's interval with the plain folds patched to
 raise (no fallback); and digest min and max in XLA's order (-0.0 below
 +0.0, a NaN winning) on the card bitwise the CPU, the functions and the
-worker's fold steps, on rows that mix +0.0, -0.0 and NaN.
+worker's fold steps, on rows that mix +0.0, -0.0 and NaN; and K3, the
+staged fold (core/worker.fold_staged), against the CPU's plain chain:
+dense and flat planes, unit and weighted, a short mirror, ragged S,
+depths 64, 40 and 1, the edge rows of probe_td.fold_inputs, rows of
+denormals (F7), the wide form past 256 candidates (K2a's block kernel
+and its slab), a 4-shard split, and with torch's ops patched to raise.
 
 Every test here is marked ``cuda`` and skips without a card. On a card
 machine (no JAX needed) run them with
@@ -1542,8 +1547,8 @@ def test_tdigest_kernels_refuse_what_they_cannot_take(card):
 def test_worker_interval_never_reaches_the_plain_folds(card, monkeypatch):
     """No fallback: with the plain folds patched to raise, a card worker's
     interval (spill folds past the staging depth, the staged fold, an
-    import merge) still runs, through K2a and K2b; its snapshot is the CPU
-    twin's, computed after the patches are undone."""
+    import merge) still runs, through K2b, K3 and K2a; its snapshot is
+    the CPU twin's, computed after the patches are undone."""
     from veneur_tpu_torch.ops import tdigest as td
 
     def refuse(*_a, **_k):
@@ -1552,18 +1557,23 @@ def test_worker_interval_never_reaches_the_plain_folds(card, monkeypatch):
 
     monkeypatch.setattr(td, "_compress_rows_plain", refuse)
     monkeypatch.setattr(td, "add_batch_plain", refuse)
+    for name in ("_fold_staged_plain", "_histo_fold_staged",
+                 "_expand_flat_planes"):
+        monkeypatch.setattr(tw, name, refuse)
     kw = dict(stage_depth=16, batch_size=512, initial_histo_rows=64)
     qs = np.array([0.5, 0.9, 0.99])
     a0, b0 = td.compress_rows.launches, td.add_batch.launches
+    f0 = tw.fold_staged.launches
     gpu = tw.DeviceWorker(**kw, device=card)
     for line in _lines(5):
         gpu.process_metric(parse_metric(line))
     snap_g = gpu.flush(qs)
-    assert td.compress_rows.launches > a0 and td.add_batch.launches > b0
+    assert tw.fold_staged.launches > f0 and td.add_batch.launches > b0
     pool, imp = _import_inputs(8192, 16, 16)
     fields_g = [torch.from_numpy(a.copy()).to(card) for a in pool]
     tw._histo_import_step(*fields_g,
                           *(torch.from_numpy(a).to(card) for a in imp))
+    assert td.compress_rows.launches > a0
     monkeypatch.undo()
     cpu = tw.DeviceWorker(**kw, device="cpu")
     for line in _lines(5):
@@ -1686,3 +1696,120 @@ def test_signed_zero_fold_steps_card_equals_cpu(card, w):
         b = b.cpu()
         assert _bitwise(a, b) and torch.equal(torch.signbit(a),
                                               torch.signbit(b))
+
+
+# -- K3, the staged fold ---------------------------------------------------------
+
+
+def _fold_cpu(fields, stage):
+    """The plain chain over CPU copies of the card's inputs."""
+    f = [t.cpu() for t in fields]
+    if isinstance(stage, tw.FlatStage):
+        st = tw.FlatStage(stage.vals.cpu(), None if stage.wts is None
+                          else stage.wts.cpu(), stage.counts, stage.depth)
+    else:
+        st = tw.DenseStage(stage.vals.cpu(), stage.wts.cpu())
+    return tw.fold_staged(f, st)
+
+
+@pytest.mark.parametrize("form", ["dense", "flat_unit", "flat_weighted",
+                                  "dense_short"])
+@pytest.mark.parametrize("s,b", [(131_072, 64), (131_071, 64), (4_099, 64),
+                                 (4_099, 40), (1_000, 1)])
+def test_fold_staged_card_equals_cpu(card, form, s, b):
+    """K3 on the card against the plain chain on the CPU over the same
+    inputs (probe_td.fold_inputs: 16 edge rows of +-0.0, denormal, +-inf
+    and NaN samples, denormal weights, empty, full and one-sample rows,
+    scalars drawn from normal values, +-0.0, +-inf, NaN and denormals):
+    dense and flat planes, unit and weighted, a mirror a third shorter
+    than the pool; one launch a fold, all 14 fields bitwise."""
+    fields, v, w, counts = probe_td.fold_inputs(s, b, s + b, card)
+    stage = probe_td.stage_of(tw, "dense" if form == "dense_short" else form,
+                              v, w, counts,
+                              rows=s - s // 3 if form == "dense_short"
+                              else None)
+    before = tw.fold_staged.launches
+    got = tw.fold_staged(fields, stage)
+    assert tw.fold_staged.launches == before + 1
+    ref = _fold_cpu(fields, stage)
+    for a, r in zip(got, ref):
+        assert _bitwise(a, r)
+
+
+@pytest.mark.parametrize("form", ["dense", "flat_weighted"])
+@pytest.mark.parametrize("b", [200, 4_000])
+def test_fold_staged_wide_card_equals_cpu(card, form, b):
+    """C + B past a warp's row: td_stage_rows, then K2a's block kernel
+    (B = 200) or its global slab (B = 4,000), against the CPU."""
+    fields, v, w, counts = probe_td.fold_inputs(257, b, b, card)
+    stage = probe_td.stage_of(tw, form, v, w, counts)
+    got = tw.fold_staged(fields, stage)
+    ref = _fold_cpu(fields, stage)
+    for a, r in zip(got, ref):
+        assert _bitwise(a, r)
+
+
+def test_fold_staged_four_shards_card_equals_cpu(card):
+    """A sharded worker's staged fold (4 shards on the one card, each its
+    own flat segment and counts block) against an unsharded CPU fold of
+    the same rows: core/worker.DeviceWorker._fold_one_plane's split."""
+    s, b = 8_192, 64
+    fields, v, w, counts = probe_td.fold_inputs(s, b, 3, card)
+    cut = s // 4
+    parts = []
+    for d in range(4):
+        sl = slice(d * cut, (d + 1) * cut)
+        st = probe_td.stage_of(tw, "flat_unit", v[sl], w[sl],
+                               counts[sl].copy())
+        parts.append(tw.fold_staged([f[sl].contiguous() for f in fields],
+                                    st))
+    ref = _fold_cpu(fields, probe_td.stage_of(tw, "flat_unit", v, w, counts))
+    for i, r in enumerate(ref):
+        assert _bitwise(torch.cat([p[i] for p in parts]), r)
+
+
+def test_fold_staged_runs_no_torch_op(card, monkeypatch):
+    """Between the staged samples' upload and the 14 fields no torch op
+    runs: with torch's elementwise, cat, sort and index ops patched to
+    raise, a card fold still returns the CPU's fields."""
+    fields, v, w, counts = probe_td.fold_inputs(4_099, 64, 8, card)
+    stage = probe_td.stage_of(tw, "flat_weighted", v, w, counts)
+
+    def refuse(*_a, **_k):
+        raise AssertionError("the staged fold ran a torch op on the card")
+
+    for name in ("where", "cat", "sort", "cumsum", "clamp", "gather",
+                 "searchsorted", "amin", "amax"):
+        monkeypatch.setattr(torch, name, refuse)
+    got = tw.fold_staged(fields, stage)
+    monkeypatch.undo()
+    ref = _fold_cpu(fields, stage)
+    for a, r in zip(got, ref):
+        assert _bitwise(a, r)
+
+
+def test_fold_staged_denormal_rows_card_equals_cpu(card):
+    """F7 on the card: rows of denormal samples and weights, and samples
+    whose w / v or v * w is denormal, folded by K3 into pool scalars
+    that are denormal too; the CPU's plain chain bitwise."""
+    g = probe_td._gen(41, card)
+    s, b = 512, 64
+    fields, v, w, counts = probe_td.fold_inputs(s, b, 41, card, edges=False)
+    den = (torch.randint(-2 ** 20, 2 ** 20, (s, b), generator=g,
+                         device=card).float() * 1e-45)
+    kind = torch.arange(s, device=card) % 4
+    v = torch.where((kind == 0)[:, None], den, v)
+    w = torch.where((kind == 1)[:, None], den.abs(), w)
+    v = torch.where((kind == 2)[:, None], torch.full_like(v, 1e38), v)
+    v = torch.where((kind == 3)[:, None], torch.full_like(v, 1e-20), v)
+    w = torch.where((kind == 3)[:, None], torch.full_like(w, 1e-19), w)
+    valid = torch.arange(b, device=card)[None, :] < torch.from_numpy(
+        counts).to(card)[:, None]
+    v = torch.where(valid, v, 0.0).contiguous()
+    w = torch.where(valid, w, 0.0).contiguous()
+    for form in ("dense", "flat_weighted"):
+        stage = probe_td.stage_of(tw, form, v, w, counts)
+        got = tw.fold_staged(fields, stage)
+        ref = _fold_cpu(fields, stage)
+        for a, r in zip(got, ref):
+            assert _bitwise(a, r)

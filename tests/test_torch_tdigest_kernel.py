@@ -36,6 +36,7 @@ import pytest
 import torch
 
 from veneur_tpu.ops import tdigest as jtd
+from veneur_tpu_torch.core import worker as tw
 from veneur_tpu_torch.ops import exactnum as exn
 from veneur_tpu_torch.ops import nvcc
 from veneur_tpu_torch.ops import tdigest as ttd
@@ -497,3 +498,168 @@ def test_emulated_compress_sorted_runs(emulated, m, c):
     km, kw = tk.run_compress(emulated, mt, wt, c, _table(), None)
     _assert_bitwise(pm, km, "means")
     _assert_bitwise(pw, kw, "weights")
+
+
+# ---------------------------------------------------------------------------
+# K3, the staged fold, under emulation against the plain chain
+
+F7 = np.float32
+
+
+def _fold_fields(rng, s: int) -> list:
+    """The worker's 14 pool fields over s rows: compressed digest rows
+    of a few centroids (some rows empty), the scalars drawn from normal
+    values, +-0.0, +-inf, NaN and denormals (the sums' compensations
+    among them)."""
+    means = np.full((s, C), np.inf, F7)
+    w = np.zeros((s, C), F7)
+    k = rng.integers(0, 6, s)
+    for r in range(s):
+        means[r, :k[r]] = np.sort(rng.normal(10.0, 5.0, k[r]))
+        w[r, :k[r]] = rng.choice([1.0, 2.0], k[r])
+    pool = np.array([-1.0, 1.0, 0.0, -0.0, np.inf, -np.inf, np.nan, 1e-40,
+                     -2e-40, 3e-38, 1.5e-38, -1.3e-38], F7)
+    return [means, w] + [rng.choice(pool, s).astype(F7) for _ in range(12)]
+
+
+def _staged(rng, s: int, b: int, edge: bool):
+    """A dense staged plane [s, b] as the host stages it (filled slots
+    first, counts per row, empty slots 0.0 and weight 0.0) and its
+    counts. With ``edge``, rows (i % 12) of +-0.0 samples, denormal
+    samples, denormal weights, +-inf, NaN, samples whose w/v or v*w is
+    denormal, an empty row, a full row and a row of one sample."""
+    counts = rng.integers(0, b + 1, s).astype(np.int32)
+    v = rng.normal(20.0, 15.0, (s, b)).astype(F7)
+    w = rng.choice(np.array([1.0, 0.5, 2.0, 4.0], F7), (s, b))
+    if edge:
+        kind = np.arange(s) % 12
+        n = (s, b)
+        v = np.where((kind == 0)[:, None], rng.choice(
+            np.array([0.0, -0.0], F7), n), v)
+        v = np.where((kind == 1)[:, None], (rng.integers(
+            -2**20, 2**20, n) * F7(1e-45)).astype(F7), v)
+        w = np.where((kind == 2)[:, None], (rng.integers(
+            1, 2**20, n) * F7(1e-45)).astype(F7), w)
+        v = np.where((kind == 3)[:, None], rng.choice(
+            np.array([np.inf, -np.inf, 3.0], F7), n), v)
+        v = np.where((kind == 4)[:, None], rng.choice(
+            np.array([np.nan, -np.nan, 1.0], F7), n), v)
+        v = np.where((kind == 5)[:, None], rng.choice(
+            np.array([1e38, -3e38, 1e-20], F7), n), v)
+        w = np.where((kind == 5)[:, None], rng.choice(
+            np.array([1.0, 1e-19], F7), n), w)
+        w = np.where((kind == 6)[:, None], rng.choice(
+            np.array([0.0, -1.0, np.nan, 1.0], F7), n), w)
+        counts[kind == 7] = 0
+        counts[kind == 8] = b
+        counts[kind == 9] = 1
+    valid = np.arange(b)[None, :] < counts[:, None]
+    v = np.where(valid, v, F7(0.0)).astype(F7)
+    w = np.where(valid, w, F7(0.0)).astype(F7)
+    return v, w, counts
+
+
+def _flat(v, w, counts, unit: bool):
+    """The host's compaction of a staged plane: flat samples padded to
+    the worker's pow2 length (at least 1,024), weights None if unit."""
+    mask = np.arange(v.shape[1])[None, :] < counts[:, None]
+    n_pad = max(1024, 1 << max(int(mask.sum()) - 1, 0).bit_length())
+    fv = np.zeros(n_pad, F7)
+    fv[:mask.sum()] = v[mask]
+    fw = None
+    if not unit:
+        fw = np.zeros(n_pad, F7)
+        fw[:mask.sum()] = w[mask]
+    return fv, fw
+
+
+def _emulated_fold(emulated, fields, stage):
+    """K3 under emulation, through the launcher wrapper of the card's."""
+    s = fields[0].shape[0]
+    if isinstance(stage, tw.FlatStage):
+        c64 = stage.counts.astype(np.int64)
+        off = np.zeros(s, np.int32)
+        np.cumsum(c64[:-1], out=off[1:], dtype=np.int64)
+        return tk.run_fold_staged(
+            emulated, fields, stage.vals, stage.wts, torch.from_numpy(off),
+            int(c64.sum()), stage.depth, _table(), None)
+    return tk.run_fold_staged(emulated, fields, stage.vals, stage.wts, None,
+                              stage.vals.shape[0], stage.vals.shape[1],
+                              _table(), None)
+
+
+FOLD_NAMES = ("means", "weights", "dmin", "dmax", "drecip", "drecip_c",
+              "lmin", "lmax", "lsum", "lsum_c", "lweight", "lweight_c",
+              "lrecip", "lrecip_c")
+
+
+@pytest.mark.parametrize("form", ["dense", "flat_unit", "flat_weighted",
+                                  "dense_short"])
+@pytest.mark.parametrize("s,b,edge", [(37, 64, True), (101, 40, True),
+                                      (24, 64, False), (13, 1, True),
+                                      (50, 33, False)])
+def test_emulated_fold_staged_bitwise_plain(emulated, form, s, b, edge):
+    """td_fold_warps (C + B <= 256) against the plain chain on the CPU:
+    dense and flat planes, unit and weighted, a mirror plane shorter
+    than the pool (its rows past the plane empty), ragged S, depths 64,
+    40, 33 and 1, edge rows; all 14 fields bitwise."""
+    rng = np.random.default_rng(31 * s + b + len(form))
+    fields = [torch.from_numpy(a) for a in _fold_fields(rng, s)]
+    v, w, counts = _staged(rng, s, b, edge)
+    if form.startswith("flat"):
+        unit = form == "flat_unit"
+        if unit:
+            w = (np.arange(b)[None, :] < counts[:, None]).astype(F7)
+        fv, fw = _flat(v, w, counts, unit)
+        stage = tw.FlatStage(torch.from_numpy(fv),
+                             None if unit else torch.from_numpy(fw), counts,
+                             b)
+    else:
+        r = s if form == "dense" else s - s // 3
+        stage = tw.DenseStage(torch.from_numpy(v[:r].copy()),
+                              torch.from_numpy(w[:r].copy()))
+    plain = tw.fold_staged(fields, stage)
+    got = _emulated_fold(emulated, fields, stage)
+    for name, a, g in zip(FOLD_NAMES, plain, got):
+        _assert_bitwise(a, g, f"{form} [{s}, {b}] {name}")
+
+
+@pytest.mark.parametrize("form", ["dense", "flat_weighted"])
+@pytest.mark.parametrize("b", [200, 1_100, 4_000])
+def test_emulated_fold_staged_wide_bitwise_plain(emulated, form, b):
+    """C + B past a warp's 256 candidates: td_stage_rows writes the
+    candidates and the scalars, then K2a compresses them: a block of 2
+    or 8 warps a row (B = 200, 1,100), the global slab past 4,096
+    candidates (B = 4,000)."""
+    rng = np.random.default_rng(b)
+    s = 19
+    fields = [torch.from_numpy(a) for a in _fold_fields(rng, s)]
+    v, w, counts = _staged(rng, s, b, True)
+    if form == "dense":
+        stage = tw.DenseStage(torch.from_numpy(v), torch.from_numpy(w))
+    else:
+        fv, fw = _flat(v, w, counts, False)
+        stage = tw.FlatStage(torch.from_numpy(fv), torch.from_numpy(fw),
+                             counts, b)
+    plain = tw.fold_staged(fields, stage)
+    got = _emulated_fold(emulated, fields, stage)
+    for name, a, g in zip(FOLD_NAMES, plain, got):
+        _assert_bitwise(a, g, f"{form} [{s}, {b}] {name}")
+
+
+def test_emulated_fold_staged_many_rows(emulated):
+    """Past 32,768 rows a warp folds 4 consecutive rows, each loaded
+    ahead into its other buffer while the one before is folded; a ragged
+    last block."""
+    rng = np.random.default_rng(5)
+    s, b = 32_771, 64
+    fields = _fold_fields(rng, 64)
+    fields = [torch.from_numpy(np.resize(a, (s,) + a.shape[1:]))
+              for a in fields]
+    v, w, counts = _staged(rng, s, b, False)
+    fv, _ = _flat(v, w, counts, True)
+    stage = tw.FlatStage(torch.from_numpy(fv), None, counts, b)
+    plain = tw.fold_staged(fields, stage)
+    got = _emulated_fold(emulated, fields, stage)
+    for name, a, g in zip(FOLD_NAMES, plain, got):
+        _assert_bitwise(a, g, f"{name}")

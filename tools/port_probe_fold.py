@@ -8,8 +8,13 @@ Times the worker's fold steps of this checkout and of the checkout at DIR
 own package, sources and kernel builds) in turns, other, this, this,
 other, at the shapes chip_smoke.py's phases give them:
 
-* staged fold: core/worker._histo_fold_staged over a 131,072-row pool of
-  C = 128 and a [131,072, 64] staged plane (phase 4's fold at the swap);
+* staged fold: a 131,072-row pool of C = 128 and a [131,072, 64] staged
+  plane (phase 4's fold at the swap), each checkout's staged fold as it
+  runs on the card (port_probe_tdigest.staged_fold_fn: ``fold_staged``,
+  K3, where the checkout has it, else ``_expand_flat_planes`` and
+  ``_histo_fold_staged``), the plane dense (the mirror's) and flat (a
+  compacted native or reader-shard plane: its upload of the counts or
+  offsets included), unit and weighted;
 * spill fold: _histo_ingest_rows (the update, before its writes) at
   (K, N) = (1,024, 16,384), phase 4's hot-series batches, and (64, 256);
 * import merge: _histo_import_rows, 65,536 rows each merging W = 1,024
@@ -30,6 +35,12 @@ other, at the shapes chip_smoke.py's phases give them:
 Each time is the median of REPS calls behind a device spin
 (port_probe_extract.cuda_ms); every output of the two checkouts is
 bitwise equal (the inputs hold no signed zero, NaN or denormal). Then
+phase 4's interval (chip_smoke.py's plan and worker configuration) once
+a checkout in turns, its ``fold_s`` split into the staged fold (the
+folds of the staged planes and of the mirror), the mirror's residual
+feed at the swap (its chunks' uploads and scatters, and ``finish``), the
+deferred spill folds and the rest, each step synchronised before and
+after (so their sum runs a little past an unsplit fold_s). Then
 the edge rows of port_probe_tdigest (16 kinds, 4,096 rows) through each
 checkout's compress: the rows where the other checkout's card result
 differs from this one's, which is bitwise its plain version and the
@@ -46,10 +57,12 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+import time
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT / "tools"))
+sys.path.insert(0, str(ROOT))
 
 import port_probe_extract as pe  # noqa: E402
 import port_probe_tdigest as ptd  # noqa: E402
@@ -89,13 +102,6 @@ def cases(td, device) -> dict:
     import torch
 
     out = {}
-    s = STAGED_ROWS
-    fields = pool(s, 1, td, device)
-    g = ptd._gen(2, device)
-    svals = torch.randn((s, 64), generator=g, device=device) * 20 + 50
-    swts = (torch.rand((s, 64), generator=g, device=device) < 0.6).float()
-    out[f"staged_fold_{s}x64"] = ("_histo_fold_staged",
-                                  (*fields, svals, swts))
     for k, n in SPILL_CASES:
         f = pool(k + 1, 3 + k, td, device)
         rows, vals, wts = ptd.sample_batch(k, n, 4 + k, device)
@@ -126,6 +132,93 @@ def kernel_cases(device) -> dict:
         rows, vals, wts = ptd.sample_batch(k, n, 11 + k + n, device)
         out[f"k2b_{k}x{n}"] = ("add_batch",
                                (*ptd.empty_pool(k, device), rows, vals, wts))
+    return out
+
+
+def staged_cases(worker, ow, td, device) -> dict:
+    """name -> (this checkout's staged fold, the other's), over one pool
+    and one [STAGED_ROWS, 64] plane in each form."""
+    fields = pool(STAGED_ROWS, 1, td, device)
+    _f, v, w, counts = ptd.fold_inputs(STAGED_ROWS, 64, 2, device,
+                                       edges=False)
+    return {f"staged_fold_{STAGED_ROWS}x64_{form}": (
+        ptd.staged_fold_fn(worker, fields, form, v, w, counts),
+        ptd.staged_fold_fn(ow, fields, form, v, w, counts))
+        for form in ptd.FOLD_FORMS}
+
+
+def fold_split(wmod, mfmod, parse, reps: int = 1, device="cuda") -> dict:
+    """Phase 4's interval on a worker of ``wmod``'s checkout (chip_smoke's
+    plan and INTERVAL_KW; micro-folds on and none run before the swap, so
+    the whole plane streams into the mirror as its residual feed): the
+    extraction's ``fold_s`` split by step (module docstring), medians of
+    ``reps`` intervals."""
+    import torch
+
+    import chip_smoke as cs
+    from veneur_tpu_torch.core.flusher import device_quantiles
+    from veneur_tpu_torch.core.metrics import HistogramAggregates
+
+    qs = device_quantiles(cs.QS, HistogramAggregates.from_names(
+        ["min", "max", "count"]))
+    plan = cs.interval_plan(seed=5)
+    sync = (torch.cuda.synchronize if torch.device(device).type == "cuda"
+            else (lambda: None))
+    acc = {"staged_fold_s": 0.0, "residual_feed_s": 0.0, "spill_s": 0.0}
+    state = {"in_extract": False}
+
+    def timed(cls, name, key, always=True):
+        real = getattr(cls, name)
+
+        def wrap(*args, **kwargs):
+            if not (always or state["in_extract"]):
+                return real(*args, **kwargs)
+            sync()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            sync()
+            acc[key] += time.perf_counter() - t0
+            return out
+
+        setattr(cls, name, wrap)
+        return real
+
+    w_cls, m_cls = wmod.DeviceWorker, mfmod.MicroFoldMirror
+    real_extract = w_cls.extract_snapshot
+
+    def extract(self, *args, **kwargs):
+        state["in_extract"] = True
+        try:
+            return real_extract(self, *args, **kwargs)
+        finally:
+            state["in_extract"] = False
+
+    saved = [(w_cls, "extract_snapshot", real_extract)]
+    w_cls.extract_snapshot = extract
+    for cls, name, key, always in (
+            (w_cls, "_fold_mirror", "staged_fold_s", True),
+            (w_cls, "_fold_one_plane", "staged_fold_s", True),
+            (w_cls, "_fold_spill_chunk", "spill_s", False),
+            (m_cls, "feed", "residual_feed_s", False),
+            (m_cls, "finish", "residual_feed_s", False)):
+        saved.append((cls, name, timed(cls, name, key, always)))
+    runs = []
+    try:
+        for _ in range(reps):
+            for k in acc:
+                acc[k] = 0.0
+            wk = wmod.DeviceWorker(**cs.INTERVAL_KW, device=device)
+            _snap, t = cs.run_interval(wk, plan, parse, qs)
+            del wk, _snap
+            split = {"fold_s": t["fold_s"], **acc}
+            split["rest_s"] = split["fold_s"] - sum(acc.values())
+            runs.append(split)
+    finally:
+        for cls, name, real in saved:
+            setattr(cls, name, real)
+    out = {k: sorted(r[k] for r in runs)[len(runs) // 2] for k in runs[0]}
+    log("[fold] phase 4's fold_s split: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in out.items()))
     return out
 
 
@@ -204,11 +297,15 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from veneur_tpu_torch.core import worker
+    from veneur_tpu_torch.ops import microfold as mf
     from veneur_tpu_torch.ops import tdigest as td
+    from veneur_tpu_torch.protocol.dogstatsd import parse_metric
 
     dev = torch.device("cuda")
-    ow, otd = pe.load_other(args.against.resolve(), "core.worker",
-                            "ops.tdigest")
+    ow, otd, omf, odsd = pe.load_other(
+        args.against.resolve(), "core.worker", "ops.tdigest",
+        "ops.microfold", "protocol.dogstatsd")
+    oparse = odsd.parse_metric
     card = pe.card_line()
     log(f"[fold] card: {card}")
     res = {"card": card, "reps": REPS, "cases": {}}
@@ -233,6 +330,22 @@ def main() -> int:
             f"{runs['other'][1]:.4f} ms, this {runs['this'][0]:.4f} "
             f"{runs['this'][1]:.4f} ms (medians of {REPS}; outputs bitwise "
             f"equal)")
+    for name, (this_fn, other_fn) in staged_cases(worker, ow, td,
+                                                  dev).items():
+        for a, b in zip(_flat(this_fn()), _flat(other_fn())):
+            if not pe.bitwise_equal(a, b)[0]:
+                raise AssertionError(f"{name}: the checkouts differ")
+        runs = {"other": [], "this": []}
+        for who in ("other", "this", "this", "other"):
+            fn = other_fn if who == "other" else this_fn
+            saved = worker.fold_staged.launches
+            runs[who].append(pe.cuda_ms(fn, REPS, spin))
+            worker.fold_staged.launches = saved
+        res["cases"][name] = runs
+        log(f"[fold] {name}: other {runs['other'][0]:.4f} "
+            f"{runs['other'][1]:.4f} ms, this {runs['this'][0]:.4f} "
+            f"{runs['this'][1]:.4f} ms (medians of {REPS}; outputs bitwise "
+            f"equal)")
     for name, (fn, fargs) in kernel_cases(dev).items():
         got = {"this": _flat(getattr(td, fn)(*fargs)),
                "other": _flat(getattr(otd, fn)(*fargs))}
@@ -251,6 +364,20 @@ def main() -> int:
             f"equal)")
     res["chain"] = {"this": ptd.profile_chain(td), "other":
                     ptd.profile_chain(otd)}
+    res["staged_trace"] = {
+        form: {"this": ptd.profile_fold(worker, form),
+               "other": ptd.profile_fold(ow, form)}
+        for form in ("dense", "flat_unit")}
+    log("[fold] a staged fold at [131,072, 64], kernels in a trace: " +
+        ", ".join(f"{form} this {t['this']['kernels']}, other "
+                  f"{t['other']['kernels']}"
+                  for form, t in res["staged_trace"].items()))
+    split = {"other": [], "this": []}
+    for who in ("other", "this", "this", "other"):
+        wmod, mfmod, parse = ((ow, omf, oparse) if who == "other"
+                              else (worker, mf, parse_metric))
+        split[who].append(fold_split(wmod, mfmod, parse))
+    res["fold_split"] = split
     log(f"[fold] K2b at (1,024, 65,536), kernels in a trace: this "
         f"{res['chain']['this']['kernels']}, other "
         f"{res['chain']['other']['kernels']}")

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""The t-digest fold kernels (K2) on one NVIDIA card: checks, times, bounds.
+"""The t-digest fold kernels (K2, K3) on one NVIDIA card: checks, times, bounds.
 
     python3 tools/port_probe_tdigest.py [--json PATH] [--quick]
 
@@ -27,6 +27,16 @@ veneur_tpu_torch/csrc/tdigest.cu against their plain PyTorch versions
   a row of one sample) at (16, 4,096); and a batch of 70,000 samples all
   in one row (the sort's merge passes over the whole batch).
 
+* K3, the staged fold (core/worker.fold_staged: ``td_fold_warps``, or
+  ``td_stage_rows`` and K2a past a warp's 256 candidates) against its
+  plain chain (``_fold_staged_plain``) at FOLD_CASES, [131,072, C = 128,
+  B = 64] (phase 4's) first, ragged 131,071 and 4,099 rows, B = 40: the
+  plane dense, flat with unit weights, flat weighted, and a dense mirror
+  a third shorter than the pool; at the first case the pool split in 4
+  row blocks (a sharded worker's segments); 16 edge rows each
+  (``fold_inputs``: +-0.0, denormal, +-inf and NaN samples, denormal
+  and non-positive weights, w / v and v * w denormal, empty, full and
+  one-sample rows; pool scalars normal, +-0.0, +-inf, NaN, denormal).
 * The signed zeros of digest min and max (``check_signed_zeros``): the
   port's XLA-order min and max (ops/exactnum.py: ``minimum``,
   ``maximum``, ``amin``, ``amax``, ``scatter_amin_``, ``scatter_amax_``,
@@ -47,11 +57,14 @@ torch.profiler trace of one call at (1,024, 65,536) records, with no
 kernel of torch's among them); the least time the card could take
 (bytes over 3.35 TB/s: K2a reads S * M * 8 and writes S * C * 8; K2b
 reads the [K, C] rows, three scalars a row and the batch's N * 12 and
-writes the [K, C] rows and eight scalars a row); and ptxas's report.
+writes the [K, C] rows and eight scalars a row; K3 ``fold_bound``); K3's
+kernels in a torch.profiler trace of one fold (``profile_fold``: K3
+alone); and ptxas's report.
 Inputs are made on the card from a seed (torch.Generator). No single
 PyTorch call computes either function (library_ms null). ``--quick``
 checks one shape of each, the edges and the signed zeros and times
-nothing. Imports torch and the port only; exits 2 without CUDA.
+nothing; ``--fold`` checks, traces and times K3 alone (with K2a alone
+over the same candidates beside it). Imports torch and the port only; exits 2 without CUDA.
 """
 
 from __future__ import annotations
@@ -411,6 +424,265 @@ def profile_chain(td, k: int = 1_024, n: int = 65_536) -> dict:
     return out
 
 
+# K3, the staged fold: phase 4's shape, ragged pools, a shallower plane
+FOLD_CASES = [(131_072, 64), (131_071, 64), (4_099, 64), (4_099, 40)]
+FOLD_TIMED = (131_072, 64)
+FOLD_SHARDS = 4
+FOLD_FORMS = ("dense", "flat_unit", "flat_weighted")
+SCALAR_POOL = (-1.0, 1.0, 0.0, -0.0, float("inf"), float("-inf"),
+               float("nan"), 3e-38, 1.5e-38, -1.3e-38, 1e-40, -2e-40)
+
+
+def fold_inputs(s: int, b: int, seed: int, device, edges: bool = True):
+    """The worker's 14 pool fields over s rows (compressed digest rows,
+    each scalar drawn from SCALAR_POOL: normal, +-0.0, +-inf, NaN and
+    denormal) and a staged plane [s, b] as the host stages it (each
+    row's count of samples first, empty slots 0.0 and weight 0.0): the
+    values, the weights and the counts. With ``edges``, the first 16
+    rows (i % 16): +-0.0 samples, denormal samples, denormal weights,
+    +-inf, NaN, samples whose w / v or v * w is denormal, weights 0, -1
+    and NaN, an empty row, a full row, a row of one sample."""
+    import torch
+
+    from veneur_tpu_torch.ops import tdigest as td
+
+    f32 = torch.float32
+    g = _gen(seed, device)
+    means, w = candidates(s, 2 * C, seed, device, edges=False)
+    means, w = td.compress_rows(means, w, COMPRESSION, C)
+    pool = torch.tensor(SCALAR_POOL, dtype=f32, device=device)
+    scal = pool[torch.randint(0, len(SCALAR_POOL), (12, s), generator=g,
+                              device=device)]
+    fields = [means, w] + [t.contiguous() for t in scal.unbind(0)]
+    v = torch.randn((s, b), generator=g, device=device) * 20 + 50
+    wt = torch.tensor([1.0, 0.5, 2.0, 4.0], device=device)[torch.randint(
+        0, 4, (s, b), generator=g, device=device)]
+    counts = torch.randint(0, b + 1, (s,), generator=g, device=device)
+    if edges:
+        k = min(16, s)
+
+        def pick(*vals):
+            t = torch.tensor(vals, dtype=f32, device=device)
+            return t[torch.randint(0, len(vals), (b,), generator=g,
+                                   device=device)]
+
+        tiny = torch.finfo(f32).tiny
+        rows = {0: (pick(0.0, -0.0), None),
+                1: (pick(1e-40, -3e-41, 2e-45), None),
+                2: (None, pick(1e-40, 5e-39)),
+                3: (pick(float("inf"), float("-inf"), 3.0), None),
+                4: (pick(float("nan"), -float("nan"), 1.0), None),
+                5: (pick(1e38, -3e38), pick(1.0)),
+                6: (pick(1e-20, -3e-20), pick(1e-19)),
+                7: (None, pick(0.0, -1.0, float("nan"), 1.0)),
+                8: (pick(tiny, -tiny, 1.5 * tiny), None)}
+        for r in range(k):
+            vv, ww = rows.get(r, (None, None))
+            if vv is not None:
+                v[r] = vv
+            if ww is not None:
+                wt[r] = ww
+        counts[9 % s] = 0
+        counts[10 % s] = b
+        counts[11 % s] = 1
+    valid = torch.arange(b, device=device)[None, :] < counts[:, None]
+    v = torch.where(valid, v, 0.0).contiguous()
+    wt = torch.where(valid, wt, 0.0).contiguous()
+    return fields, v, wt, counts.to(torch.int32).cpu().numpy()
+
+
+def flat_plane(v, w, counts, unit: bool):
+    """A staged plane's compaction as the worker uploads it: the filled
+    slots row-major, padded to a power of two (at least 1,024), the
+    weights None with ``unit``."""
+    import torch
+
+    mask = torch.arange(v.shape[1], device=v.device)[None, :] \
+        < torch.from_numpy(counts).to(v.device)[:, None]
+    n = int(mask.sum())
+    n_pad = max(1024, 1 << max(n - 1, 0).bit_length())
+    fv = torch.zeros(n_pad, dtype=v.dtype, device=v.device)
+    fv[:n] = v[mask]
+    fw = None
+    if not unit:
+        fw = torch.zeros(n_pad, dtype=v.dtype, device=v.device)
+        fw[:n] = w[mask]
+    return fv, fw
+
+
+def stage_of(tw, form: str, v, w, counts, rows=None):
+    """The plane as the fold takes it: ``form`` dense (its first ``rows``
+    rows: a mirror shorter than the pool), flat_unit (every weight 1.0,
+    ``w`` unread) or flat_weighted."""
+    if form == "dense":
+        r = v.shape[0] if rows is None else rows
+        return tw.DenseStage(v[:r].contiguous(), w[:r].contiguous())
+    fv, fw = flat_plane(v, w, counts, form == "flat_unit")
+    return tw.FlatStage(fv, fw, counts, v.shape[1])
+
+
+def check_fold_staged(tw, cases=FOLD_CASES) -> dict:
+    """K3 (core/worker.fold_staged) against its plain chain
+    (``_fold_staged_plain``: the planes rebuilt, then the staged fold's
+    torch ops and K2a) on the same card inputs, all 14 fields: every
+    case dense, flat with unit weights and flat weighted, a dense plane
+    a third shorter than the pool, and at the first case the pool split
+    in FOLD_SHARDS row blocks (each its own flat segment and counts)."""
+    import torch
+
+    worst = 0.0
+    calls, before = 0, tw.fold_staged.launches
+    for s, b in cases:
+        fields, v, w, counts = fold_inputs(s, b, s + b, DEVICE)
+        stages = [(f, stage_of(tw, f, v, w, counts)) for f in FOLD_FORMS]
+        stages.append(("dense_short", stage_of(tw, "dense", v, w, counts,
+                                               rows=s - s // 3)))
+        for form, stage in stages:
+            got = tw.fold_staged(fields, stage)
+            calls += 1
+            ref = tw._fold_staged_plain(fields, stage)
+            for i, (a, r) in enumerate(zip(got, ref)):
+                worst = max(worst, _equal(a, r, f"fold_staged [{s}, {b}] "
+                                                f"{form} field {i}"))
+        if (s, b) == cases[0]:
+            ref = tw._fold_staged_plain(fields, stages[2][1])
+            cut = [d * (s // FOLD_SHARDS) for d in range(FOLD_SHARDS)] + [s]
+            parts = []
+            for d in range(FOLD_SHARDS):
+                sl = slice(cut[d], cut[d + 1])
+                st = stage_of(tw, "flat_weighted", v[sl], w[sl],
+                              counts[sl].copy())
+                parts.append(tw.fold_staged([f[sl].contiguous()
+                                             for f in fields], st))
+                calls += 1
+            for i, r in enumerate(ref):
+                got = torch.cat([p[i] for p in parts])
+                worst = max(worst, _equal(got, r, f"fold_staged [{s}, {b}] "
+                                                  f"{FOLD_SHARDS} shards "
+                                                  f"field {i}"))
+        log(f"[tdigest] K3 [{s:,}, C {C}, B {b}]: bitwise equal to the "
+            f"plain chain (dense, flat unit, flat weighted, a short "
+            f"mirror{', a 4-shard split' if (s, b) == cases[0] else ''}; "
+            f"16 edge rows)")
+        del fields, v, w, stages
+    launched = tw.fold_staged.launches - before
+    if DEVICE == "cuda" and launched != calls:
+        raise AssertionError(f"fold_staged launched K3 {launched} times in "
+                             f"{calls} calls on the card")
+    return {"cases": [list(c) for c in cases], "bitwise": True,
+            "max_abs_err": worst, "launches": launched}
+
+
+def fold_bound(s: int, b: int, form: str, samples: int) -> float:
+    """Bytes over 3.35 TB/s: the pool's rows and 12 scalars read and
+    written, the staged plane read once (dense: [S, B] values and
+    weights; flat: the samples, their weights unless unit, the offsets)."""
+    staged = (s * b * 8 if form == "dense"
+              else samples * (4 if form == "flat_unit" else 8) + s * 4)
+    return (2 * (s * C * 8 + 12 * s * 4) + staged) / HBM_BYTES_PER_S * 1e3
+
+
+def staged_fold_fn(wmod, fields, form: str, v, w, counts):
+    """One staged fold over ``form`` as the checkout of ``wmod`` runs it
+    on the card: its ``fold_staged`` where it has one (K3, the offsets'
+    upload included), else its chain: the counts' upload,
+    ``_expand_flat_planes`` for a flat plane, ``_histo_fold_staged``."""
+    import torch
+
+    if hasattr(wmod, "fold_staged"):
+        stage = stage_of(wmod, form, v, w, counts)
+        return lambda: wmod.fold_staged(fields, stage)
+    if form == "dense":
+        return lambda: wmod._histo_fold_staged(*fields, v, w)
+    unit = form == "flat_unit"
+    fv, fw = flat_plane(v, w, counts, unit)
+
+    def chain():
+        cj = torch.from_numpy(counts).to(v.device)
+        sv, sw = wmod._expand_flat_planes(fv, fv if unit else fw, cj,
+                                          v.shape[1], unit)
+        return wmod._histo_fold_staged(*fields, sv, sw)
+
+    return chain
+
+
+def time_fold_staged(tw, reps: int = REPS) -> list:
+    """K3's medians at FOLD_TIMED in each form, its plain chain's, the
+    bound (bytes)."""
+    spin = 2_000_000
+    s, b = FOLD_TIMED
+    fields, v, w, counts = fold_inputs(s, b, 17, DEVICE, edges=False)
+    samples = int(counts.sum())
+    out = []
+    for form in FOLD_FORMS:
+        stage = stage_of(tw, form, v, w, counts)
+        saved = tw.fold_staged.launches
+        ms = pe.cuda_ms(lambda: tw.fold_staged(fields, stage), reps, spin)
+        tw.fold_staged.launches = saved  # timing launches are not the path's
+        plain = pe.cuda_ms(lambda: tw._fold_staged_plain(fields, stage),
+                           max(5, reps // 4), spin)
+        bnd = fold_bound(s, b, form, samples)
+        out.append({"rows": s, "depth": b, "form": form, "samples": samples,
+                    "ms": ms, "plain_ms": plain, "bound_ms": bnd,
+                    "bound_by": "bytes", "share": bnd / ms})
+        log(f"[tdigest] K3 [{s:,}, C {C}, B {b}] {form}: {ms:.4f} ms "
+            f"(bound {bnd:.4f} ms, {100 * bnd / ms:.1f}%), plain chain "
+            f"{plain:.4f} ms")
+    # K2a alone over the candidates K3 builds in shared memory: what the
+    # load and the row stats add to its row routine
+    import torch
+
+    from veneur_tpu_torch.ops import exactnum as exn
+    from veneur_tpu_torch.ops import tdigest_kernel as tk
+
+    cm = torch.cat([fields[0], v], dim=1).contiguous()
+    cw = torch.cat([fields[1], w], dim=1).contiguous()
+    table = exn._table(COMPRESSION, torch.device(DEVICE))
+    out[0]["k2a_same_rows_ms"] = pe.cuda_ms(
+        lambda: tk.compress(cm, cw, C, table), reps, spin)
+    log(f"[tdigest] K2a alone over the same [{s:,}, {C + b}] candidates: "
+        f"{out[0]['k2a_same_rows_ms']:.4f} ms")
+    return out
+
+
+def profile_fold(wmod, form: str = "flat_unit", s: int = FOLD_TIMED[0],
+                 b: int = FOLD_TIMED[1]) -> dict:
+    """The kernels one staged fold of ``wmod``'s checkout launches at
+    [s, C, b] (``staged_fold_fn``), from a torch.profiler trace: their
+    names, counts and device microseconds, and those not of tdigest.cu."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fields, v, w, counts = fold_inputs(s, b, 19, DEVICE, edges=False)
+    fn = staged_fold_fn(wmod, fields, form, v, w, counts)
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    names, us = {}, {}
+    for ev in prof.events():
+        if ev.device_type != torch.autograd.DeviceType.CUDA \
+                or ev.name.startswith(("Memcpy", "Memset")):
+            continue
+        m = re.search(r"(td_\w+)", ev.name)
+        short = m.group(1) if m else ev.name[:60]
+        names[short] = names.get(short, 0) + 1
+        t = getattr(ev, "device_time", None)
+        us[short] = us.get(short, 0.0) + float(
+            t if t is not None else ev.cuda_time)
+    foreign = sorted(nm for nm in names if not nm.startswith("td_"))
+    out = {"rows": s, "depth": b, "form": form,
+           "kernels": sum(names.values()), "names": names, "device_us": us,
+           "foreign": foreign}
+    log(f"[tdigest] a staged fold ({form}) at [{s:,}, C {C}, B {b}]: "
+        f"{out['kernels']} kernel launches in a trace, {len(foreign)} "
+        f"kinds not of tdigest.cu; device us: " + ", ".join(
+            f"{nm} {x:.1f}" for nm, x in sorted(us.items(),
+                                                key=lambda kv: -kv[1])[:8]))
+    return out
+
+
 def compress_bound(s: int, m: int) -> float:
     return (s * m * 8 + s * C * 8) / HBM_BYTES_PER_S * 1e3
 
@@ -486,6 +758,8 @@ def main() -> int:
     ap.add_argument("--json", help="also write the results to this file")
     ap.add_argument("--quick", action="store_true",
                     help="one shape of each kernel and the edges, no times")
+    ap.add_argument("--fold", action="store_true",
+                    help="K3 alone: one check, its trace and its times")
     args = ap.parse_args()
     import torch
 
@@ -494,6 +768,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
+    from veneur_tpu_torch.core import worker as tw
     from veneur_tpu_torch.ops import tdigest as td
     from veneur_tpu_torch.ops import tdigest_kernel as tk
 
@@ -501,18 +776,27 @@ def main() -> int:
     log(f"[tdigest] card: {card}")
     tk.load()
     res = {"card": card, "build": build_log(tk)}
-    if args.quick:
+    if args.fold:
+        res["fold_staged"] = check_fold_staged(tw, [(4_099, 64)])
+        res["fold_trace"] = profile_fold(tw)
+        res["times"] = {"fold_staged": time_fold_staged(tw)}
+    elif args.quick:
         res["compress"] = check_compress(td, [(4_099, 192), (1_024, 1_152)])
         res["add_batch"] = check_add(td, [(64, 256)])
         res["signed_zeros"] = check_signed_zeros(td)
+        res["fold_staged"] = check_fold_staged(tw, [(4_099, 64)])
     else:
         res["compress"] = check_compress(td)
         res["add_batch"] = check_add(td)
         res["signed_zeros"] = check_signed_zeros(td)
         res["chain"] = profile_chain(td)
         res["times"] = time_kernels(td, tk)
+        res["fold_staged"] = check_fold_staged(tw)
+        res["fold_trace"] = profile_fold(tw)
+        res["times"]["fold_staged"] = time_fold_staged(tw)
     res["launches"] = {"compress_rows": td.compress_rows.launches,
-                       "add_batch": td.add_batch.launches}
+                       "add_batch": td.add_batch.launches,
+                       "fold_staged": tw.fold_staged.launches}
     if args.json:
         Path(args.json).parent.mkdir(parents=True, exist_ok=True)
         Path(args.json).write_text(json.dumps(res, indent=1))

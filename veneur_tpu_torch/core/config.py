@@ -283,7 +283,7 @@ class Config:
     tpu_batch_size: int = 16384
     # raw-sample staging slots per histogram row: ingest stores samples
     # into a host [rows, depth] plane and the digest compress runs once
-    # per interval (worker._histo_fold_staged); rows that fill their
+    # per interval (worker.fold_staged); rows that fill their
     # staging mid-interval spill through the direct device fold
     tpu_stage_depth: int = 64
     # always-hot flush (ops/microfold.py): stream the staging plane to a

@@ -11,23 +11,26 @@ and ingests samples in batches: histogram/timer samples stage host-side
 in a [S, B] plane (``_device_histo_step``), rows whose plane is full
 spill through a gather → add_batch → scatter fold (``_fold_batch_direct``),
 and one staged fold per interval folds the plane into the pool at
-extraction (``_histo_fold_staged``). Set samples hash on the host into
+extraction (``fold_staged``: on the card one launch of the K3 kernel,
+on the CPU its plain chain ``_expand_flat_planes`` →
+``_histo_fold_staged``). Set samples hash on the host into
 (register, rank) and go to the set store: the staged store (sparse host
 tier, dense device tier; ops/staged_sets.py) by default, or one dense
 device pool (``set_store="dense"``). Counters, gauges, status checks and
-the unique-timeseries HLL stay host-side. On the card the flush extract,
-the set inserts and the set estimates run hand-written CUDA kernels
-(ops/extract_kernel.py, ops/hll.py).
+the unique-timeseries HLL stay host-side. On the card the t-digest
+folds, the flush extract, the set inserts and the set estimates run
+hand-written CUDA kernels (ops/tdigest_kernel.py, ops/extract_kernel.py,
+ops/hll.py).
 
 With ``attach_native()`` the C++ ingest pipeline (veneur_tpu_torch/
 native.py, built from native/) parses datagrams, assigns rows and stages
 raw histogram samples in its own [S, B] plane: ``ingest_datagram`` feeds
 it, ``drain_native`` moves its batches (hot-row spill, set updates,
 counters, gauges) into the pools and adopts its new series into the
-directory, and at flush the plane is compacted on the host, uploaded
-flat and rebuilt on the device (``_expand_flat_planes``) before the
-staged fold. The Python-side paths share the native directory through
-its upsert.
+directory, and at flush the plane is compacted on the host and uploaded
+flat with its rows' offsets, which the staged fold reads in place (the
+plain chain rebuilds the dense plane first, ``_expand_flat_planes``).
+The Python-side paths share the native directory through its upsert.
 
 With ``micro_fold`` on, a scheduler calls ``micro_fold_once`` during the
 interval: the staged samples drained since the last call stream as COO
@@ -134,6 +137,7 @@ from veneur_tpu_torch.ops import microfold as mf
 from veneur_tpu_torch.ops import reader_stack as rstack
 from veneur_tpu_torch.ops import series_shard as ss
 from veneur_tpu_torch.ops import tdigest as td
+from veneur_tpu_torch.ops import tdigest_kernel
 from veneur_tpu_torch.ops.staged_sets import StagedSetStore
 from veneur_tpu_torch.utils.hashing import (fmix64, hll_hash, metric_digest,
                                            metro_hash64)
@@ -208,14 +212,28 @@ def _unguarded(op: str, fn, *args, retryable: bool = False, **kwargs):
 
 def _comp_add(s, c, x):
     """Neumaier compensated add: (sum, compensation) += x, in f32. The
-    true value is s + c, resolved at flush extraction."""
-    t = s + x
+    true value is s + c, resolved at flush extraction. Every input and
+    every intermediate result has its denormals flushed, as the
+    reference's jitted steps run it on the CPU (XLA reads a denormal
+    input as zero and flushes a denormal result)."""
+    z = exn.flush_denormals
+    s, c, x = z(s), z(c), z(x)
+    t = z(s + x)
     # larger-magnitude operand is the residual's base; an overflow (t
     # infinite) drops the residual so the sum saturates like a bare add
-    resid = torch.where(torch.abs(s) >= torch.abs(x), (s - t) + x,
-                        (x - t) + s)
+    resid = torch.where(torch.abs(s) >= torch.abs(x), z(z(s - t) + x),
+                        z(z(x - t) + s))
     resid = torch.where(torch.isfinite(t), resid, 0.0)
-    return t, c + resid
+    return t, z(c + resid)
+
+
+def _comp_adds(*triples):
+    """``_comp_add`` of several (sum, compensation, addend) triples of one
+    shape, stacked into one program (a quarter of the kernel launches of
+    four calls); [(sum, compensation), ...] in their order."""
+    s, c, x = (torch.stack(v) for v in zip(*triples))
+    t, cc = _comp_add(s, c, x)
+    return list(zip(t.unbind(0), cc.unbind(0)))
 
 
 def _histo_ingest_rows(
@@ -238,11 +256,12 @@ def _histo_ingest_rows(
     n_means, n_w, n_min, n_max, _, stats = td.add_batch(
         g_means, g_w, g_min, g_max, g_recip, lids, values, wts,
         compression=compression)
-    n_recip, n_recip_c = _comp_add(g_recip, drecip_c[active], stats.recip)
-    n_lsum, n_lsum_c = _comp_add(lsum[active], lsum_c[active], stats.sum)
-    n_lw, n_lw_c = _comp_add(lweight[active], lweight_c[active],
-                             stats.weight)
-    n_lr, n_lr_c = _comp_add(lrecip[active], lrecip_c[active], stats.recip)
+    ((n_recip, n_recip_c), (n_lsum, n_lsum_c), (n_lw, n_lw_c),
+     (n_lr, n_lr_c)) = _comp_adds(
+        (g_recip, drecip_c[active], stats.recip),
+        (lsum[active], lsum_c[active], stats.sum),
+        (lweight[active], lweight_c[active], stats.weight),
+        (lrecip[active], lrecip_c[active], stats.recip))
     return (active, n_means, n_w, n_min, n_max, n_recip, n_recip_c,
             stats.min, stats.max, n_lsum, n_lsum_c, n_lw, n_lw_c, n_lr,
             n_lr_c)
@@ -287,20 +306,6 @@ def _histo_ingest_step(*args, compression: float = td.DEFAULT_COMPRESSION):
     return fields
 
 
-def _comp_add_ftz(s, c, x):
-    """``_comp_add`` with every input and every intermediate result's
-    denormals flushed, as the reference's jitted import step runs it on
-    the CPU (XLA reads a denormal input as zero and flushes a denormal
-    result)."""
-    z = exn.flush_denormals
-    s, c, x = z(s), z(c), z(x)
-    t = z(s + x)
-    resid = torch.where(torch.abs(s) >= torch.abs(x), z(z(s - t) + x),
-                        z(z(x - t) + s))
-    resid = torch.where(torch.isfinite(t), resid, 0.0)
-    return t, z(c + resid)
-
-
 def _histo_import_rows(means, weights, dmin, dmax, drecip, drecip_c,
                        rows, imp_means, imp_w, imp_min, imp_max, imp_recip,
                        compression: float = td.DEFAULT_COMPRESSION):
@@ -315,8 +320,7 @@ def _histo_import_rows(means, weights, dmin, dmax, drecip, drecip_c,
         torch.cat([weights[rows], imp_w], dim=-1), compression, c)
     n_min = z(exn.minimum(dmin[rows], imp_min))
     n_max = z(exn.maximum(dmax[rows], imp_max))
-    n_recip, n_recip_c = _comp_add_ftz(drecip[rows], drecip_c[rows],
-                                       imp_recip)
+    n_recip, n_recip_c = _comp_add(drecip[rows], drecip_c[rows], imp_recip)
     return rows, n_means, n_w, n_min, n_max, n_recip, n_recip_c
 
 
@@ -410,29 +414,125 @@ def _histo_fold_staged(
     """Fold the staged raw-sample plane [S, B] into the digest pool: one
     compress over [S, C+B] per interval plus masked [S, B] tree sums for
     the scalar stats. Empty slots carry weight 0. Returns the 14 updated
-    tensors (new tensors; the inputs may be dropped)."""
+    tensors (new tensors; the inputs may be dropped). The plain version
+    of K3's fold (``fold_staged`` launches the kernel).
+
+    Denormals as the reference's jitted fold meets them on the CPU: a
+    denormal sample or weight reads as zero (so a denormal weight is not
+    live), and every product, quotient, tree-sum level, min and max
+    comes out flushed. The compress reads the raw plane and flushes it
+    itself."""
+    z = exn.flush_denormals
     c = means.shape[1]
-    live = swts > 0
-    s_w = exn.tsum(swts)
-    s_sum = exn.tsum(torch.where(live, svals * swts, 0.0))
-    s_recip = exn.tsum(torch.where(live, swts / svals, 0.0))
-    s_min = exn.amin(torch.where(live, svals, _INF), dim=-1)
-    s_max = exn.amax(torch.where(live, svals, -_INF), dim=-1)
+    v, w = z(svals), z(swts)
+    live = w > 0
+    s_w = exn.tsum(w, flush=True)
+    s_sum = exn.tsum(torch.where(live, z(v * w), 0.0), flush=True)
+    s_recip = exn.tsum(torch.where(live, z(w / v), 0.0), flush=True)
+    s_min = exn.amin(torch.where(live, v, _INF), dim=-1)
+    s_max = exn.amax(torch.where(live, v, -_INF), dim=-1)
 
     cat_means = torch.cat([means, svals], dim=-1)
     cat_w = torch.cat([weights, swts], dim=-1)
     means, weights = td._compress_rows(cat_means, cat_w, compression, c)
 
-    dmin = exn.minimum(dmin, s_min)
-    dmax = exn.maximum(dmax, s_max)
-    drecip, drecip_c = _comp_add(drecip, drecip_c, s_recip)
-    lmin = exn.minimum(lmin, s_min)
-    lmax = exn.maximum(lmax, s_max)
-    lsum, lsum_c = _comp_add(lsum, lsum_c, s_sum)
-    lweight, lweight_c = _comp_add(lweight, lweight_c, s_w)
-    lrecip, lrecip_c = _comp_add(lrecip, lrecip_c, s_recip)
+    dmin = z(exn.minimum(dmin, s_min))
+    dmax = z(exn.maximum(dmax, s_max))
+    lmin = z(exn.minimum(lmin, s_min))
+    lmax = z(exn.maximum(lmax, s_max))
+    ((drecip, drecip_c), (lsum, lsum_c), (lweight, lweight_c),
+     (lrecip, lrecip_c)) = _comp_adds(
+        (drecip, drecip_c, s_recip), (lsum, lsum_c, s_sum),
+        (lweight, lweight_c, s_w), (lrecip, lrecip_c, s_recip))
     return (means, weights, dmin, dmax, drecip, drecip_c,
             lmin, lmax, lsum, lsum_c, lweight, lweight_c, lrecip, lrecip_c)
+
+
+class FlatStage(NamedTuple):
+    """A compacted staged plane for the staged fold: the filled slots
+    row-major on the fold's device (``vals``; ``wts``, or None when every
+    weight is 1.0) and the per-row counts on the host (int [S], each at
+    most ``depth``), as ``_compact_plane`` makes them."""
+
+    vals: torch.Tensor
+    wts: Optional[torch.Tensor]
+    counts: np.ndarray
+    depth: int
+
+
+class DenseStage(NamedTuple):
+    """A dense staged plane [R, B] on the fold's device, R at most the
+    pool's rows; rows past R are empty (a mirror the directory outgrew)."""
+
+    vals: torch.Tensor
+    wts: torch.Tensor
+
+
+def fold_staged(fields, stage, compression: float = td.DEFAULT_COMPRESSION):
+    """Fold a staged plane (``FlatStage`` or ``DenseStage``) into the 14
+    pool fields; returns the 14 new fields, the inputs untouched. On a
+    CUDA pool K3 (ops/tdigest_kernel.fold_staged: one launch while C + B
+    fits a warp's row), a flat plane's per-row offsets computed here on
+    the host (int64 cumsum of the counts) and uploaded in place of the
+    counts; on a CPU pool the plain chain, ``_expand_flat_planes`` (the
+    counts as the reference takes them) or a zero pad of a short dense
+    plane, then ``_histo_fold_staged``. ``fold_staged.launches`` counts
+    the kernel's launches, nothing else."""
+    means = fields[0]
+    dev = means.device
+    s = means.shape[0]
+    flat = isinstance(stage, FlatStage)
+    depth = stage.depth if flat else stage.vals.shape[1]
+    if flat and len(stage.counts) != s:
+        raise ValueError(f"{len(stage.counts)} staged counts for {s} rows")
+    if not flat and (stage.vals.shape[0] > s
+                     or stage.wts.shape != stage.vals.shape):
+        raise ValueError("a dense staged plane has at most the pool's rows "
+                         "and one weight a value")
+    if dev.type == "cpu":
+        return _fold_staged_plain(fields, stage, compression)
+    table = exn._table(compression, dev)
+    if flat:
+        counts = np.asarray(stage.counts, np.int64)
+        total = int(counts.sum())
+        if total > stage.vals.shape[0] or total >= 1 << 31:
+            raise ValueError(f"{total} staged samples in a flat plane of "
+                             f"{stage.vals.shape[0]}")
+        offsets = np.zeros(s, np.int32)
+        np.cumsum(counts[:-1], out=offsets[1:], dtype=np.int64)
+        out = tdigest_kernel.fold_staged(
+            fields, stage.vals, stage.wts, _to_device(offsets, dev), total,
+            depth, table)
+    else:
+        out = tdigest_kernel.fold_staged(
+            fields, stage.vals, stage.wts, None, stage.vals.shape[0], depth,
+            table)
+    if s:
+        fold_staged.launches += 1
+    return out
+
+
+fold_staged.launches = 0
+
+
+def _fold_staged_plain(fields, stage, compression: float =
+                       td.DEFAULT_COMPRESSION):
+    """``fold_staged``'s plain chain on the plane's device: the dense
+    [S, B] planes rebuilt from a flat plane (``_expand_flat_planes``,
+    the counts uploaded as the reference takes them) or a short dense
+    plane zero-padded, then ``_histo_fold_staged``."""
+    s = fields[0].shape[0]
+    if isinstance(stage, FlatStage):
+        unit = stage.wts is None
+        counts = _to_device(np.asarray(stage.counts, np.int32),
+                            stage.vals.device)
+        sv, sw = _expand_flat_planes(
+            stage.vals, stage.vals if unit else stage.wts, counts,
+            stage.depth, unit)
+    else:
+        sv = mf.mirror_dense(stage.vals, s)
+        sw = mf.mirror_dense(stage.wts, s)
+    return _histo_fold_staged(*fields, sv, sw, compression=compression)
 
 
 # the reference's XLA extract and pack, as plain tensor ops; the worker
@@ -2683,11 +2783,11 @@ class DeviceWorker:
         and the per-row counts: O(samples) bytes where the dense plane is
         O(S·B)), released, and re-staged as those host copies, so a fault
         in the fold leaves it replayable; a compacted plane uploads flat
-        and is rebuilt on the device by ``_expand_flat_planes``, a dense
-        Python plane uploads as it is. The upload and the fold are one
-        ``call("staged", ...)``. On the device path the uploads book into
-        the ledger before the call, as the JAX worker books them; the CPU
-        failover books none."""
+        (on the card its per-row offsets in place of the counts, the same
+        bytes), a dense Python plane as it is; ``fold_staged`` folds
+        either. The upload and the fold are one ``call("staged", ...)``.
+        On the device path the uploads book into the ledger before the
+        call, as the JAX worker books them; the CPU failover books none."""
         plane: StagedPlane = pending[0]
         if plane.free is not None:
             # the native plane grows on its own pow2 schedule and may
@@ -2747,31 +2847,26 @@ class DeviceWorker:
         def fold_flat(fl):
             if sh is not None:
                 fvj = sh.place(fv)
-                fwj = fvj if unit else sh.place(fw)  # ignored if unit
-                svj, swj = sh.expand_flat(fvj, fwj, sh.place(counts), depth,
-                                          unit)
-                return sh.fold_staged(fl, svj, swj)
+                fwj = (None,) * sh.shards if unit else sh.place(fw)
+                blocks = counts.reshape(sh.shards, -1)
+                return sh.fold_staged(fl, [
+                    FlatStage(fvj[d], fwj[d], blocks[d], depth)
+                    for d in range(sh.shards)])
             dev = fl[0].device
-            fvj = _to_device(fv, dev)
-            cj = _to_device(counts, dev)
-            fwj = fvj if unit else _to_device(fw, dev)  # ignored if unit
-            svj, swj = _expand_flat_planes(fvj, fwj, cj, depth, unit)
-            return _histo_fold_staged(*fl, svj, swj,
-                                      compression=self.compression)
+            stage = FlatStage(_to_device(fv, dev),
+                              None if unit else _to_device(fw, dev), counts,
+                              depth)
+            return fold_staged(fl, stage, compression=self.compression)
 
         def fold_dense(fl):
             if sh is not None:
-                return sh.fold_staged(fl, sh.place(sv), sh.place(sw))
+                svj, swj = sh.place(sv), sh.place(sw)
+                return sh.fold_staged(fl, [DenseStage(svj[d], swj[d])
+                                           for d in range(sh.shards)])
             dev = fl[0].device
-            svj = _to_device(plane.vals[:s_eff], dev)
-            swj = _to_device(plane.wts[:s_eff], dev)
-            if svj.shape[0] < s_eff:
-                pad = torch.zeros((s_eff - svj.shape[0], svj.shape[1]),
-                                  dtype=torch.float32, device=dev)
-                svj = torch.cat([svj, pad])
-                swj = torch.cat([swj, pad])
-            return _histo_fold_staged(*fl, svj, swj,
-                                      compression=self.compression)
+            stage = DenseStage(_to_device(plane.vals[:s_eff], dev),
+                               _to_device(plane.wts[:s_eff], dev))
+            return fold_staged(fl, stage, compression=self.compression)
 
         fields = call("staged", fold_flat if plane.counts is not None
                       else fold_dense, fields)
@@ -2870,15 +2965,18 @@ class DeviceWorker:
     def _fold_mirror(self, fields: tuple, dstage: mf.MirrorState,
                      s_eff: int) -> tuple:
         """The staged fold over the micro-fold mirror: the plane is
-        already on the device, and mirror_dense is bitwise the plane the
-        batch path would upload (sharded, per shard)."""
+        already on the device, its first s_eff rows (fewer where the
+        directory outgrew the mirror: the rows past it are empty) bitwise
+        the plane the batch path would upload (sharded, per shard)."""
         if _is_sharded(fields):
             sh = self._shard
-            return sh.fold_staged(fields, sh.mirror_dense(dstage.vals, s_eff),
-                                  sh.mirror_dense(dstage.wts, s_eff))
-        return _histo_fold_staged(*fields, mf.mirror_dense(dstage.vals, s_eff),
-                                  mf.mirror_dense(dstage.wts, s_eff),
-                                  compression=self.compression)
+            ecap = s_eff // sh.shards
+            return sh.fold_staged(fields, [
+                DenseStage(v[:ecap], w[:ecap])
+                for v, w in zip(dstage.vals, dstage.wts)])
+        return fold_staged(fields, DenseStage(dstage.vals[:s_eff],
+                                              dstage.wts[:s_eff]),
+                           compression=self.compression)
 
     def extract_snapshot(self, swapped: SwappedEpoch,
                          quantiles: np.ndarray,

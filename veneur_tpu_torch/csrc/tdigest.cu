@@ -1,6 +1,8 @@
 // t-digest fold kernels for Hopper (sm_90a): K2a, the per-row compression
-// of candidate centroid rows [S, M] -> [S, C], and K2b, the spill fold of
-// a raw-sample batch into digest rows (add_batch), its sort included.
+// of candidate centroid rows [S, M] -> [S, C], K2b, the spill fold of a
+// raw-sample batch into digest rows (add_batch), its sort included, and
+// K3, the staged fold of a staged plane into the pool (K2a's row routine
+// behind the plane's load and the row stats).
 //
 // K2a replaces veneur_tpu/ops/tdigest.py _compress_rows (:142-197), K2b
 // replaces add_batch (:224-353); both are jitted XLA programs there, not
@@ -81,6 +83,36 @@
 // rows read and written and the scalars: launches, not bytes, at these
 // sizes. No step syncs with the host, and nothing but these kernels runs.
 //
+// K3, the staged fold (td_fold_staged_launch), replaces the reference's
+// _expand_flat_planes (veneur_tpu/core/worker.py:216-240) and
+// _histo_fold_staged (:245-290), jitted XLA programs; core/worker.py of
+// the port keeps their plain versions. Per row of the pool, by one warp:
+//   1. the candidates in shared memory: the row's C means and weights in
+//      slots [0, C), its B staged slots in [C, C + B), from a compacted
+//      flat plane (each row's first sample from offsets the host computed
+//      from the counts; with unit weights each 1.0) or a dense [R, B]
+//      plane (rows at or past R empty: a mirror the directory outgrew);
+//      a slot past the row's count holds 0.0 and weight 0.0. No [S, B]
+//      plane and no [S, C + B] concatenation is written to device memory.
+//      td_fold_warps (C + B <= 256) keeps K2a's cp.async double buffer:
+//      the next row loads while this one is folded;
+//   2. the row's stats from those slots (stage_stats): the sums of w, of
+//      v * w and of w / v over the live slots as exactnum.tsum's halving
+//      trees, the min and max as int64 order keys;
+//   3. K2a's row routine over the C + B candidates ([0, C) a sorted run:
+//      its shortcut checks as for any row);
+//   4. the C means and weights, and the 12 scalars: XLA-order min and max
+//      merges and four flushed Neumaier adds (core/worker._comp_add).
+// Past 256 candidates td_stage_rows does 1, 2 and 4's scalars, writing
+// the [S, C + B] candidates, and K2a's block or slab kernel compresses
+// them. Bound: bytes, the [S, C] rows read and written, 12 scalars a row
+// read and written, the staged plane read once (dense S * B * 8; flat
+// its samples, 4 or 8 bytes each, and S * 4 of offsets): 0.104 ms at
+// [131,072, 128, 64] dense on 3.35 TB/s. Like K2a it is bound by the
+// instructions it issues, not by bytes: the design keeps the stats to 3
+// shuffle trees of 5 steps a 32-slot tile and one key reduction, in
+// front of K2a's routine.
+//
 // Where the bits would differ unless the kernels do as the plain version
 // does:
 //   * Sort order. The plain version sorts by an integer order key
@@ -107,6 +139,28 @@
 //     max do not).
 //   * NaN in clamp_min and searchsorted: clamp_min keeps a NaN; a NaN
 //     quantile lands past the table (torch's upper-bound loop).
+//   * K3's tree sums at a depth B that is not a power of two: tsum pads
+//     to the next power p with +0.0 and pairs (2i, 2i + 1) at every
+//     level. A tile's shuffle tree (lane i adds lane i + d) leaves at
+//     lane 0 exactly the node over the tile's 32 slots, the pads among
+//     them added as +0.0; below p = 32 it runs log2 p steps only (a
+//     further step would add a +0.0 the reference never adds); the
+//     tiles' nodes combine in a binary counter in the same pairs.
+//   * The +0.0 pad and the sign of zero: a dead slot contributes +0.0,
+//     as the reference's where(live, ..., 0.0); -0.0 + +0.0 is +0.0
+//     wherever the reference adds them, and only there.
+//   * w / v at v = +-0 (+-inf: live, summed) and at NaN (NaN): IEEE
+//     division, the value read flushed first, the quotient flushed.
+//   * A denormal weight is not live: XLA reads w > 0 of a denormal as
+//     false, so every sample and weight is flushed on its read (the
+//     compress reads the raw slots and flushes them itself).
+//   * The flat plane's clamped gather: the reference clamps each index
+//     to the flat array's last sample and masks the slots past the
+//     row's count; the kernel reads only slots below the count, which lie
+//     before the offsets' total, never past the flat array's end nor
+//     into its padding to a power of two.
+//   * The min and max of the slots: over int64 keys (exactnum's), so the
+//     NaN XLA's reduction keeps is kept, whatever order the lanes meet.
 //
 // The kernels are written in SIMT sections (TD_SIMT { ... }: what each
 // thread does) between collectives (TD_SHFL, TD_BALLOT, TD_SYNC), so the
@@ -2030,6 +2084,317 @@ __global__ void TD_BOUNDS(WIDE ? 16 * 32 : kWarps * 32, WIDE ? 1 : 4)
   }
 }
 
+// ---------------------------------------------------------------------------
+// K3: the staged fold (td_fold_warps; td_stage_rows past 256 candidates)
+
+struct FoldArgs {
+  const float* means; const float* weights;  // the pool's rows [s, c]
+  const float* in[12];  // dmin, dmax, drecip(_c), lmin, lmax, lsum(_c),
+                        // lweight(_c), lrecip(_c), each [s]
+  const float* sv;      // staged values: flat [>= total], or dense [r, b]
+  const float* sw;      // their weights; null: every weight 1.0 (flat)
+  const int* off;       // flat: each row's first sample [s]; null: dense
+  long long total;      // flat: the samples; dense: the plane's rows r
+  long long s; int c; int b;
+  const float* tbl; int tlen;
+  float* out_m; float* out_w;  // [s, c]
+  float* out_sc;               // the 12 new scalars [12, s]
+  float* cand_m; float* cand_w;  // td_stage_rows: the candidates [s, c + b]
+};
+
+// where row r's staged samples start and how many of its b slots hold one
+// (flat: its count, at most b; dense: all b below the plane's rows, none
+// past them)
+__device__ __forceinline__ void stage_row(const FoldArgs& a, long long r,
+                                          long long& base, int& n) {
+  if (a.off) {
+    const long long o = a.off[r];
+    const long long e = r + 1 < a.s ? (long long)a.off[r + 1] : a.total;
+    base = o;
+    n = e - o < a.b ? (int)(e - o) : a.b;
+  } else {
+    base = r * a.b;
+    n = r < a.total ? a.b : 0;
+  }
+}
+
+// slot j's raw value and weight: the sample's, or 0.0 and 0.0 past the
+// row's count (the plain version's masked gather)
+__device__ __forceinline__ void stage_slot(const FoldArgs& a, long long base,
+                                           int n, int j, float& v,
+                                           float& w) {
+  v = 0.0f;
+  w = 0.0f;
+  if (j < n) {
+    v = a.sv[base + j];
+    w = a.sw ? a.sw[base + j] : 1.0f;
+  }
+}
+
+// exactnum's int64 order keys of min and max (every NaN past every
+// number, in the order that picks XLA's NaN), and back
+constexpr long long kNanShift = 1ll << 33;
+__device__ __forceinline__ long long bits_key(float x) {
+  const int i = (int)__float_as_uint(x);
+  return (long long)(i ^ ((i >> 31) & 0x7fffffff));
+}
+__device__ __forceinline__ float from_bits_key(long long k) {
+  const int i = (int)k;
+  return __uint_as_float((uint32_t)(i ^ ((i >> 31) & 0x7fffffff)));
+}
+__device__ __forceinline__ long long min_key(float x) {
+  const long long k = bits_key(x);
+  return x != x ? -kNanShift - k : k;
+}
+__device__ __forceinline__ long long max_key(float x) {
+  const long long k = bits_key(x);
+  return x != x ? kNanShift - k : k;
+}
+__device__ __forceinline__ float from_min_key(long long k) {
+  return from_bits_key(k < -(1ll << 32) ? -kNanShift - k : k);
+}
+__device__ __forceinline__ float from_max_key(long long k) {
+  return from_bits_key(k > (1ll << 32) ? kNanShift - k : k);
+}
+
+// core/worker._comp_add: the Neumaier add, every input and result flushed
+__device__ __forceinline__ void comp_add(float s, float c, float x,
+                                         float* t_out, float* c_out) {
+  s = flush(s);
+  c = flush(c);
+  x = flush(x);
+  const float t = flush(s + x);
+  float r = fabsf(s) >= fabsf(x) ? flush(flush(s - t) + x)
+                                 : flush(flush(x - t) + s);
+  if ((__float_as_uint(t) & 0x7f800000u) == 0x7f800000u) r = 0.0f;
+  *t_out = t;
+  *c_out = flush(c + r);
+}
+
+// K3's row stats and the 12 new scalars of row r, by one warp: the
+// staged slots j < b through ld(j, v, w) (raw bits), flushed; the sums
+// of w, of v * w and of w / v over the live slots (w > 0) as
+// exactnum.tsum's adjacent-pair halving trees over b padded with +0.0 to
+// the power of two p: a tile of 32 slots a shuffle tree (lane i adds lane
+// i + d, d = 1 .. 16, so lane 0 holds the tile's node), the tiles' nodes
+// a binary counter of pending left nodes in stk [3][32] (lane 0's);
+// every level flushed. The min and max: int64 order keys, exact in any
+// order. The row's 12 scalars are read from in (shared memory, loaded
+// with the row) or, in null, from the pool; lanes 0-3 each run one of
+// the four flushed Neumaier adds and lanes 4-7 one XLA-order min or max
+// merge, side by side
+template <class LD>
+__device__ __forceinline__ void stage_stats(const FoldArgs& a, LD ld,
+                                            long long r, float* stk,
+                                            const float* in) {
+  const int b = a.b;
+  const int p = pow2_at_least(b);
+  const int tiles = p > 32 ? p / 32 : 1;
+  const int width = p > 32 ? 32 : p;
+  const float inf = f_inf();
+  TD_VAR(float, xw);
+  TD_VAR(float, xs);
+  TD_VAR(float, xr);
+  TD_VAR(float, ow);
+  TD_VAR(float, os);
+  TD_VAR(float, orc);
+  TD_VAR(long long, kn);
+  TD_VAR(long long, kx);
+  TD_VAR(uint64_t, ok);
+  TD_SIMT {
+    TD_R(kn) = min_key(inf);
+    TD_R(kx) = max_key(-inf);
+  }
+  for (int t = 0; t < tiles; ++t) {
+    TD_SIMT {
+      const int j = t * 32 + TD_LANE;
+      float fw = 0.0f, fs = 0.0f, fr = 0.0f;
+      if (j < b) {
+        float v, w;
+        ld(j, v, w);
+        v = flush(v);
+        w = flush(w);
+        fw = w;
+        if (w > 0.0f) {
+          fs = flush(v * w);
+          fr = flush(w / v);
+          const long long kmn = min_key(v), kmx = max_key(v);
+          if (kmn < TD_R(kn)) TD_R(kn) = kmn;
+          if (kmx > TD_R(kx)) TD_R(kx) = kmx;
+        }
+      }
+      TD_R(xw) = fw;
+      TD_R(xs) = fs;
+      TD_R(xr) = fr;
+    }
+    for (int d = 1; d < width; d <<= 1) {
+      TD_SHFL(float, TD_R(ow), TD_R(xw), TD_LANE + d);
+      TD_SHFL(float, TD_R(os), TD_R(xs), TD_LANE + d);
+      TD_SHFL(float, TD_R(orc), TD_R(xr), TD_LANE + d);
+      TD_SIMT {
+        TD_R(xw) = flush(TD_R(xw) + TD_R(ow));
+        TD_R(xs) = flush(TD_R(xs) + TD_R(os));
+        TD_R(xr) = flush(TD_R(xr) + TD_R(orc));
+      }
+    }
+    TD_SIMT {
+      if (TD_LANE == 0) {
+        float cw = TD_R(xw), cs = TD_R(xs), cr = TD_R(xr);
+        int l = 0;
+        for (; (t >> l) & 1; ++l) {
+          cw = flush(stk[l] + cw);
+          cs = flush(stk[32 + l] + cs);
+          cr = flush(stk[64 + l] + cr);
+        }
+        stk[l] = cw;
+        stk[32 + l] = cs;
+        stk[64 + l] = cr;
+      }
+    }
+  }
+  for (int d = 16; d > 0; d >>= 1) {
+    TD_SHFL(uint64_t, TD_R(ok), (uint64_t)TD_R(kn), TD_LANE ^ d);
+    TD_SIMT {
+      if ((long long)TD_R(ok) < TD_R(kn)) TD_R(kn) = (long long)TD_R(ok);
+    }
+    TD_SHFL(uint64_t, TD_R(ok), (uint64_t)TD_R(kx), TD_LANE ^ d);
+    TD_SIMT {
+      if ((long long)TD_R(ok) > TD_R(kx)) TD_R(kx) = (long long)TD_R(ok);
+    }
+  }
+  TD_SYNCWARP();  // lane 0's counter, read by lanes 0-3
+  TD_SIMT {
+    int lv = 0;
+    while ((1 << lv) < tiles) ++lv;
+    const int j = TD_LANE;
+    if (j < 8) {
+      auto at = [&](int k) { return in ? in[k] : a.in[k][r]; };
+      float* o = a.out_sc + r;
+      const long long s = a.s;
+      if (j < 4) {
+        // drecip, lsum, lweight, lrecip: inputs 2, 6, 8, 10 (and their
+        // compensations), addends s_recip, s_sum, s_w, s_recip
+        const int k = j ? 4 + 2 * j : 2;
+        const float x = stk[(j == 1 ? 32 : j == 2 ? 0 : 64) + lv];
+        comp_add(at(k), at(k + 1), x, o + k * s, o + (k + 1) * s);
+      } else {
+        // dmin, dmax, lmin, lmax: inputs 0, 1, 4, 5
+        const int k = (j - 4) + (j >= 6 ? 2 : 0);
+        o[k * s] = (j & 1) ? flush(xla_max(at(k), from_max_key(TD_R(kx))))
+                           : flush(xla_min(at(k), from_min_key(TD_R(kn))));
+      }
+    }
+  }
+  TD_SYNCWARP();
+}
+
+// a warp's stage_stats counter [3][32], then td_fold_warps' two row
+// buffers' 12 scalars (16 floats each)
+constexpr int kStkBytes = (3 * 32 + 2 * 16) * 4;
+
+// C + B <= 256: a warp a row, rpw consecutive rows a warp, the next row's
+// candidates (the pool row's C means and weights, then its B staged
+// slots) loaded (cp.async) while this one's stats are taken and it is
+// compressed
+__global__ void TD_BOUNDS(kWarps * 32, 3) td_fold_warps(FoldArgs a, int rpw) {
+  TD_DYNAMIC_SMEM(smem);
+  float* tb = reinterpret_cast<float*>(smem);
+  TD_GROUP(0, (int)blockDim.x);
+  TD_SIMT {
+    for (int i = TD_TID; i < a.tlen; i += (int)blockDim.x) tb[i] = a.tbl[i];
+  }
+  TD_SYNC();
+  const int nw = (int)blockDim.x / 32;
+  const int c = a.c, m = a.c + a.b;
+  const size_t rb = row_smem_bytes(m, false, 1);
+  TD_FOR_GROUPS(w, 32) {
+    unsigned char* base =
+        smem + align16(4ull * a.tlen) + (size_t)w * (2 * rb + kStkBytes);
+    float* stk = reinterpret_cast<float*>(base + 2 * rb);
+    const long long first = ((long long)blockIdx.x * nw + w) * rpw;
+    const long long last = first + rpw < a.s ? first + rpw : a.s;
+    for (long long row = first; row < last; ++row) {
+      // row + 1 loads into the other buffer while row is folded
+      for (long long ld = row == first ? row : row + 1;
+           ld <= row + 1 && ld < last; ++ld) {
+        const RowSmem d = carve_row(base + ((ld - first) & 1) * rb, m,
+                                    false, 1);
+        long long sb;
+        int n;
+        stage_row(a, ld, sb, n);
+        float* sc = stk + 96 + ((ld - first) & 1) * 16;
+        TD_SIMT {
+          if (TD_LANE < 12) cp_async4(sc + TD_LANE, a.in[TD_LANE] + ld);
+          for (int i = TD_LANE; i < c; i += 32) {
+            cp_async4(d.cm + d.at(i), a.means + ld * c + i);
+            cp_async4(d.cw + d.at(i), a.weights + ld * c + i);
+          }
+          for (int j = TD_LANE; j < a.b; j += 32) {
+            const int at = d.at(c + j);
+            if (j < n) {
+              cp_async4(d.cm + at, a.sv + sb + j);
+              if (a.sw) cp_async4(d.cw + at, a.sw + sb + j);
+              else d.cw[at] = 1.0f;
+            } else {
+              d.cm[at] = 0.0f;
+              d.cw[at] = 0.0f;
+            }
+          }
+          cp_async_commit();
+        }
+      }
+      TD_SIMT {
+        if (row + 1 < last) cp_async_wait<1>();
+        else cp_async_wait<0>();
+      }
+      TD_SYNCWARP();
+      const RowSmem cur = carve_row(base + ((row - first) & 1) * rb, m,
+                                    false, 1);
+      stage_stats(a,
+                  [&](int j, float& v, float& wt) {
+                    v = cur.cm[cur.at(c + j)];
+                    wt = cur.cw[cur.at(c + j)];
+                  },
+                  row, stk, stk + 96 + ((row - first) & 1) * 16);
+      row_compress<false>(cur, m, c, tb, a.tlen, 1, w * 32,
+                          a.out_m + row * c, a.out_w + row * c);
+    }
+  }
+}
+
+// C + B > 256: a warp a row writes its candidates [c + b] (the pool
+// row's, then the staged slots) and its 12 new scalars; K2a's block or
+// slab kernel compresses the candidates after it
+__global__ void TD_BOUNDS(kWarps * 32, 4) td_stage_rows(FoldArgs a) {
+  TD_DYNAMIC_SMEM(smem);
+  TD_GROUP(0, (int)blockDim.x);
+  const int nw = (int)blockDim.x / 32;
+  const int c = a.c;
+  const long long m = a.c + a.b;
+  TD_FOR_GROUPS(w, 32) {
+    const long long row = (long long)blockIdx.x * nw + w;
+    if (row < a.s) {
+      float* stk = reinterpret_cast<float*>(smem + (size_t)w * kStkBytes);
+      long long sb;
+      int n;
+      stage_row(a, row, sb, n);
+      TD_SIMT {
+        for (int i = TD_LANE; i < c; i += 32) {
+          a.cand_m[row * m + i] = a.means[row * c + i];
+          a.cand_w[row * m + i] = a.weights[row * c + i];
+        }
+      }
+      stage_stats(a,
+                  [&](int j, float& v, float& wt) {
+                    stage_slot(a, sb, n, j, v, wt);
+                    a.cand_m[row * m + c + j] = v;
+                    a.cand_w[row * m + c + j] = wt;
+                  },
+                  row, stk, nullptr);
+    }
+  }
+}
+
 int set_smem(const void* kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return 0;
 #ifdef TD_EMULATE
@@ -2231,6 +2596,53 @@ int td_add_batch_launch(const float* means, const float* weights,
     const size_t smem = tb + add_group_bytes(c, true, gw);
     if ((e = set_smem((const void*)td_add_rows<true>, smem))) return e;
     TD_LAUNCH(td_add_rows<true>, (unsigned)k, 32 * gw, smem, st, a);
+  }
+  return (int)cudaGetLastError();
+}
+
+// K3: the staged fold's widest one-warp row (C + B past it takes
+// td_stage_rows, then td_compress_launch over its candidates)
+int td_fold_span() { return kSpan; }
+
+int td_fold_staged_launch(const float* means, const float* weights,
+                          const float* const* in, long long s, int c, int b,
+                          const float* sv, const float* sw, const int* off,
+                          long long total, const float* tbl, int tlen,
+                          float* out_m, float* out_w, float* out_sc,
+                          float* cand_m, float* cand_w, void* stream) {
+  cudaStream_t st = (cudaStream_t)stream;
+  FoldArgs a;
+  a.means = means;
+  a.weights = weights;
+  for (int k = 0; k < 12; ++k) a.in[k] = in[k];
+  a.sv = sv;
+  a.sw = sw;
+  a.off = off;
+  a.total = total;
+  a.s = s;
+  a.c = c;
+  a.b = b;
+  a.tbl = tbl;
+  a.tlen = tlen;
+  a.out_m = out_m;
+  a.out_w = out_w;
+  a.out_sc = out_sc;
+  a.cand_m = cand_m;
+  a.cand_w = cand_w;
+  const int m = c + b;
+  int e;
+  if (m <= kSpan) {
+    const size_t smem = align16(4ull * tlen) +
+                        (size_t)kWarps * (2 * row_smem_bytes(m, false, 1) +
+                                          kStkBytes);
+    if ((e = set_smem((const void*)td_fold_warps, smem))) return e;
+    const int rpw = s >= 32768 ? kRowsPerWarp : 1;
+    const long long per = (long long)kWarps * rpw;
+    TD_LAUNCH(td_fold_warps, (unsigned)((s + per - 1) / per), kWarps * 32,
+              smem, st, a, rpw);
+  } else {
+    TD_LAUNCH(td_stage_rows, (unsigned)((s + kWarps - 1) / kWarps),
+              kWarps * 32, (size_t)kWarps * kStkBytes, st, a);
   }
   return (int)cudaGetLastError();
 }

@@ -581,7 +581,7 @@ def build_sharded_staged_fold(mesh: Mesh, compression: float = 100.0):
 
     Returns fn(fields14..., svals, swts) -> 14 sharded fields, each a
     tuple of the H*D row blocks in device order."""
-    from veneur_tpu_torch.core.worker import _histo_fold_staged
+    from veneur_tpu_torch.core.worker import DenseStage, fold_staged
 
     devs = list(mesh.devices.flat)
 
@@ -597,8 +597,9 @@ def build_sharded_staged_fold(mesh: Mesh, compression: float = 100.0):
             s = t.shape[0] // n
             blocks.append([t[i * s:(i + 1) * s].to(devs[i], copy=True)
                            for i in range(n)])
-        outs = [_histo_fold_staged(*(b[i] for b in blocks),
-                                   compression=compression)
+        outs = [fold_staged([b[i] for b in blocks[:14]],
+                            DenseStage(blocks[14][i], blocks[15][i]),
+                            compression=compression)
                 for i in range(n)]
         return tuple(tuple(o[k] for o in outs) for k in range(14))
 

@@ -259,18 +259,31 @@ def pmax0(x: torch.Tensor) -> torch.Tensor:
     return acc
 
 
+def _touched(dst: torch.Tensor, index: torch.Tensor) -> torch.Tensor:
+    """``dst`` with its denormals flushed where ``index`` scatters into
+    it: XLA's scatter combiner reads both operands as an arithmetic op
+    does (a denormal as the zero of its sign) and writes its result so,
+    while the slots it never touches keep their bits."""
+    hit = torch.zeros(dst.shape, dtype=torch.bool, device=dst.device)
+    hit.index_fill_(0, index, True)
+    return torch.where(hit, flush_denormals(dst), dst)
+
+
 def scatter_amin_(dst: torch.Tensor, index: torch.Tensor,
                   src: torch.Tensor) -> torch.Tensor:
     """``dst.at[index].min(src)`` in place, as XLA on the CPU scatters it:
-    an ``amin`` scatter of the keys, then one write of ``dst``."""
-    k = _min_key(dst)
-    k.scatter_reduce_(0, index, _min_key(src), reduce="amin")
+    an ``amin`` scatter of the keys of the flushed operands, then one
+    write of ``dst``."""
+    k = _min_key(_touched(dst, index))
+    k.scatter_reduce_(0, index, _min_key(flush_denormals(src)),
+                      reduce="amin")
     return dst.copy_(_from_min_key(k))
 
 
 def scatter_amax_(dst: torch.Tensor, index: torch.Tensor,
                   src: torch.Tensor) -> torch.Tensor:
     """``dst.at[index].max(src)`` in place (see ``scatter_amin_``)."""
-    k = _max_key(dst)
-    k.scatter_reduce_(0, index, _max_key(src), reduce="amax")
+    k = _max_key(_touched(dst, index))
+    k.scatter_reduce_(0, index, _max_key(flush_denormals(src)),
+                      reduce="amax")
     return dst.copy_(_from_max_key(k))

@@ -9,8 +9,10 @@ fold starts from it instead of an upload.
 Bit-identity by construction: slots are ABSOLUTE positions in the host
 staging plane, so after the final drain the mirror holds exactly the
 dense [S, B] plane the batch path uploads (values and weights at filled
-slots, zeros elsewhere), and the flush runs the same ``_histo_fold_staged``
-over ``mirror_dense(mirror, s_eff)``.
+slots, zeros elsewhere), and the flush runs the same staged fold
+(core/worker.fold_staged) over the mirror's first s_eff rows, rows past
+the mirror empty (``mirror_dense`` is that plane, as the plain chain
+pads it).
 
 Uploads go out in fixed MICRO_CHUNK-entry chunks of 16 bytes an entry
 (row, slot, and the f32 bits of value and weight, one int32[chunk, 4]

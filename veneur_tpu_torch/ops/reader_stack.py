@@ -15,7 +15,7 @@ DeviceWorker._fold_one_plane), local rows translate through the
 reconciliation map built at series sync, and a stable sort by canonical
 row groups every series' samples in context order. The result — flat
 values (+ weights) and per-row counts — feeds the EXACT legacy device
-program (_expand_flat_planes → _histo_fold_staged), which is what makes
+program (core/worker.fold_staged over the flat plane), which is what makes
 reader-sharded == legacy bit-identical: same slot order, same values,
 same fold.
 

@@ -60,7 +60,6 @@ import torch
 from veneur_tpu_torch.distributed.mesh import make_series_mesh
 from veneur_tpu_torch.ops import extract_kernel as ek
 from veneur_tpu_torch.ops import hll as hll_ops
-from veneur_tpu_torch.ops import microfold as mf
 from veneur_tpu_torch.ops import scalars
 from veneur_tpu_torch.ops import tdigest as td
 
@@ -216,13 +215,16 @@ class SeriesSharding:
 
     # -- t-digest programs ----------------------------------------------------
 
-    def fold_staged(self, fields, svals, swts) -> tuple:
-        """The staged fold (per-row independent) on every shard."""
-        from veneur_tpu_torch.core.worker import _histo_fold_staged
+    def fold_staged(self, fields, stages) -> tuple:
+        """The staged fold (per-row independent) on every shard: shard d
+        folds ``stages[d]`` (core/worker.FlatStage or DenseStage: its
+        own flat segment and physical counts block, or its dense block)
+        through core/worker.fold_staged."""
+        from veneur_tpu_torch.core.worker import fold_staged
 
         return _transpose([
-            _histo_fold_staged(*_part(fields, d), svals[d], swts[d],
-                               compression=self.compression)
+            fold_staged(_part(fields, d), stages[d],
+                        compression=self.compression)
             for d in range(self.shards)])
 
     def flush_extract(self, fields, qs) -> tuple:
@@ -296,19 +298,6 @@ class SeriesSharding:
         return tuple(torch.cat([p[k] for p in parts])
                      for k in range(len(parts[0])))
 
-    # -- staged-plane upload --------------------------------------------------
-
-    def expand_flat(self, flat_v, flat_w, counts, depth: int,
-                    unit: bool) -> tuple:
-        """``_expand_flat_planes`` on every shard: shard d rebuilds its
-        [cap, depth] dense planes from its own flat segment and its
-        physical counts block. Returns (svals, swts) sharded."""
-        from veneur_tpu_torch.core.worker import _expand_flat_planes
-
-        return _transpose([
-            _expand_flat_planes(flat_v[d], flat_w[d], counts[d], depth, unit)
-            for d in range(self.shards)])
-
     # -- slicing / growth -------------------------------------------------
 
     def slice_field(self, parts, s_eff: int) -> tuple:
@@ -339,15 +328,6 @@ class SeriesSharding:
 
         return tuple(_grow_1d(p, new_rows // self.shards, fill)
                      for p in parts)
-
-    # -- micro-fold mirror ------------------------------------------------
-
-    def mirror_dense(self, parts, s_eff: int) -> tuple:
-        """Align a sharded mirror plane to the fold's [s_eff, depth]
-        layout: per shard, slice or zero-pad the local block to
-        s_eff // D rows."""
-        ecap = s_eff // self.shards
-        return tuple(mf.mirror_dense(p, ecap) for p in parts)
 
     # -- HLL programs -------------------------------------------------------
 

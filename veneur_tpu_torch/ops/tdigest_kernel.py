@@ -9,6 +9,14 @@ would differ unless they do as the plain version does):
   in registers), a block a row up to 4,096 candidates, a global slab a
   row past that. It replaces ``_compress_rows`` of
   veneur_tpu/ops/tdigest.py (a jitted XLA program).
+* K3 ``fold_staged`` — the staged fold: each row's pool centroids and
+  staged samples (a compacted flat plane, or a dense [rows, B] one) loaded
+  beside each other, the row's sample stats and its 12 new scalars, then
+  K2a's row routine over the [C + B] candidates, in one warp a row for
+  C + B <= 256 (``td_fold_warps``); wider rows take ``td_stage_rows``
+  (the candidates and the scalars) and then K2a. It replaces
+  ``_expand_flat_planes`` and ``_histo_fold_staged`` of
+  veneur_tpu/core/worker.py (jitted XLA programs).
 * K2b ``add_batch`` — the spill fold of a raw-sample batch into digest
   rows [K, C], from the unsorted batch: the sort by (row, value) (tiles
   in a block, then merge passes), the prefix scans, the per-row stats,
@@ -18,8 +26,9 @@ would differ unless they do as the plain version does):
 The library is built with nvcc at first use (ops/nvcc.py, with the flush
 extract's flags: ``-ftz=true``, no FMA contraction) and loaded with
 ctypes. The launchers here take CUDA tensors only and check what the
-kernels take; ops/tdigest.py's ``compress_rows`` and ``add_batch`` are the
-wrappers the port calls, with their plain versions and launch counts.
+kernels take; ops/tdigest.py's ``compress_rows`` and ``add_batch`` and
+core/worker.py's ``fold_staged`` are the wrappers the port calls, with
+their plain versions and launch counts.
 """
 
 from __future__ import annotations
@@ -35,7 +44,8 @@ _SRC = nvcc.CSRC / "tdigest.cu"
 # the widest digest row K2b takes (its [2C] candidates in shared memory)
 MAX_ADD_CAPACITY = 2048
 _KERNELS = (r"(td_(?:compress_warps|compress_wide|compress_scratch|sort_tile|"
-            r"sort_merge|scan_tile|scan_step|add_rows)(?:ILb[01]E)?)")
+            r"sort_merge|scan_tile|scan_step|add_rows|fold_warps|stage_rows)"
+            r"(?:ILb[01]E)?)")
 
 _lib = None
 _lib_lock = threading.Lock()
@@ -83,6 +93,11 @@ def bind(lib):
         [vp] * 5 + [ci, ci] + [vp, ci] + [vp, vp] + [ci] + [vp, ci] + [vp]
         + [vp] * 10 + [vp])
     lib.td_add_batch_launch.restype = ci
+    lib.td_fold_span.argtypes = []
+    lib.td_fold_span.restype = ci
+    lib.td_fold_staged_launch.argtypes = (
+        [vp, vp, vp, ll, ci, ci, vp, vp, vp, ll, vp, ci] + [vp] * 5 + [vp])
+    lib.td_fold_staged_launch.restype = ci
     return lib
 
 
@@ -195,6 +210,57 @@ def run_add_batch(lib, means, weights, dmin, dmax, drecip, rows, values,
         scratch.data_ptr(), out_m.data_ptr(), out_w.data_ptr(),
         *(scal[i].data_ptr() for i in range(8)), stream)
     nvcc.check(rc, "td_add_batch launch failed")
+    return (out_m, out_w, *scal.unbind(0))
+
+
+def fold_staged(fields, values, weights, offsets, total: int, depth: int,
+                table) -> tuple[torch.Tensor, ...]:
+    """Launch K3 over the 14 pool fields (means and weights [S, C], 12
+    scalars [S]) and the staged samples: flat (``offsets`` int32 [S],
+    each row's first sample; ``total`` the samples; ``weights`` None when
+    every weight is 1.0) or dense (``offsets`` None; values and weights
+    [total, depth], rows past ``total`` empty). Returns the 14 new
+    fields (core/worker.fold_staged checks the shapes)."""
+    dev = _check_cuda(*fields, values, table,
+                      *(t for t in (weights, offsets) if t is not None))
+    lib = load()
+    with torch.cuda.device(dev):
+        return run_fold_staged(lib, fields, values, weights, offsets, total,
+                               depth, table, _stream(dev))
+
+
+def run_fold_staged(lib, fields, values, weights, offsets, total: int,
+                    depth: int, table, stream) -> tuple[torch.Tensor, ...]:
+    """K3 through ``lib``'s launcher on ``stream``, outputs (and, past
+    one warp's row, the [S, C + B] candidates K2a compresses) on the
+    fields' device."""
+    means, w = fields[0], fields[1]
+    dev = means.device
+    s, c = means.shape
+    f32 = torch.float32
+    out_m = torch.empty((s, c), dtype=f32, device=dev)
+    out_w = torch.empty((s, c), dtype=f32, device=dev)
+    scal = torch.empty((12, s), dtype=f32, device=dev)
+    if s == 0:
+        return (out_m, out_w, *scal.unbind(0))
+    if s >= 1 << 31:
+        raise ValueError("the staged fold takes fewer than 2^31 rows")
+    m = c + depth
+    cand = ()
+    if m > lib.td_fold_span():
+        cand = (torch.empty((s, m), dtype=f32, device=dev),
+                torch.empty((s, m), dtype=f32, device=dev))
+    ins = (ctypes.c_void_p * 12)(*(t.data_ptr() for t in fields[2:]))
+    rc = lib.td_fold_staged_launch(
+        means.data_ptr(), w.data_ptr(), ins, s, c, depth, values.data_ptr(),
+        None if weights is None else weights.data_ptr(),
+        None if offsets is None else offsets.data_ptr(), total,
+        table.data_ptr(), table.numel(), out_m.data_ptr(), out_w.data_ptr(),
+        scal.data_ptr(), *([t.data_ptr() for t in cand] or [None, None]),
+        stream)
+    nvcc.check(rc, "td_fold_staged launch failed")
+    if cand:
+        out_m, out_w = run_compress(lib, cand[0], cand[1], c, table, stream)
     return (out_m, out_w, *scal.unbind(0))
 
 
