@@ -4107,8 +4107,11 @@ LIFECYCLE_GRAMS = 300
 def phase_governed(tw, ek, parse, qs, plan, python_snap) -> dict:
     """14a: phase 4's interval on a worker whose governor runs a 1 ms
     chunk target: the extraction launches K1 once per pow2 row chunk,
-    and the snapshot is bitwise phase 4's one-shot snapshot."""
+    and the snapshot is bitwise phase 4's one-shot snapshot. Its staged
+    fold is phase 4's, so K3's rows by path (the rank path's share of
+    phase 4's rows) are tallied here, off phase 4's timed interval."""
     from veneur_tpu_torch.health import FlushDeadlineGovernor
+    from veneur_tpu_torch.ops import tdigest_kernel as tk
 
     gov = FlushDeadlineGovernor(chunk_target_ms=GOV_CHUNK_MS,
                                 interval_s=10.0)
@@ -4116,9 +4119,12 @@ def phase_governed(tw, ek, parse, qs, plan, python_snap) -> dict:
     w.governor = gov
     gov.begin_flush()
     before = ek.flush_extract.launches
-    snap, t = run_interval(w, plan, parse, qs)
+    with tk.counting_paths(DEVICE) as paths:
+        snap, t = run_interval(w, plan, parse, qs)
     launched = ek.flush_extract.launches - before
     gov.end_flush()
+    k3_paths = dict(zip(tk.PATHS, paths.cpu().tolist()))
+    log(f"[governed] K3's rows by path in phase 4's interval: {k3_paths}")
     check_guard_clean(w, snap, "phase 14a")
     compare_snapshots(snap, python_snap,
                       "phase 14a, governed against phase 4's one-shot")
@@ -4142,7 +4148,7 @@ def phase_governed(tw, ek, parse, qs, plan, python_snap) -> dict:
            "chunk_mean_s": rep["chunk_mean_s"], "rows": s_eff,
            "k1_launches": launched, "h2d_bytes": h2d, "d2h_bytes": d2h,
            "flush_s": t["flush_s"], "extract_s": t.get("extract_s"),
-           "fold_s": t.get("fold_s")}
+           "fold_s": t.get("fold_s"), "k3_paths": k3_paths}
     log(f"[governed] phase 4's interval with flush_chunk_target_ms "
         f"{GOV_CHUNK_MS}: {rep['chunks']} chunks over {s_eff} rows "
         f"(rows {rows}), K1 launched {launched} times, snapshot bitwise "
@@ -5117,11 +5123,14 @@ def phase_sinks_server(ek) -> dict:
 # growth trials bracket the cliff, each trial and bisection step takes
 # about 8 s and each confirmation attempt 22 s (up to three, backing off
 # 10% each), so 3 bisection steps and a retry took 115 s; one step leaves
-# the found rate further from the cliff, where a confirmation holds
+# the found rate further from the cliff, where a confirmation holds.
+# Growth 2.0 (a trial fewer than 1.6 over 200,000-1,600,000 lines/s) and
+# 5 confirmation intervals keep the whole script inside its limit on a
+# slower host
 LG_RATE = 100_000
 LG_INTERVALS = 3
-LG_SEARCH = dict(start_rate=200_000.0, growth=1.6, trial_intervals=3,
-                 bisect_steps=1, confirm_intervals=10)
+LG_SEARCH = dict(start_rate=200_000.0, growth=2.0, trial_intervals=3,
+                 bisect_steps=1, confirm_intervals=5)
 LG_SSF_FRAC = 0.1
 LG_BREAKDOWN = ("tick_block_ms_mean", "ingest_stall_ms_mean",
                 "flush_ms_mean", "drain_ms_mean", "generate_ms_mean",
@@ -5171,12 +5180,20 @@ def phase_loadgen(ek, hll) -> tuple:
         out["warmup_s"] = time.perf_counter() - t0
         # 17a: the floor rate
         reset_launches(ek, hll)
-        with gc_pauses() as pauses:
-            trial = run_trial(harness, LG_RATE, LG_INTERVALS)
+        # the native contexts' lock record (the reader's waits, Python's
+        # holds) beside the collector's pauses: where a stall would show
+        harness.server.set_lock_stats(True)
+        try:
+            with gc_pauses() as pauses:
+                trial = run_trial(harness, LG_RATE, LG_INTERVALS)
+            locks = lock_record(harness.server)
+        finally:
+            harness.server.set_lock_stats(False)
         launches["a"] = read_launches(ek, hll)
         out["a"] = {k: v for k, v in trial.items() if k != "intervals"}
         out["a"]["intervals"] = trial["intervals"]
         out["a"]["gc_pauses"] = pauses
+        out["a"]["native_locks"] = locks
         if not trial["passed"]:
             raise AssertionError(
                 f"phase 17a: {LG_RATE} lines/s not held: loss "
@@ -5186,7 +5203,7 @@ def phase_loadgen(ek, hll) -> tuple:
                     f"sent {i['sent_lines']} accepted {i['accepted_lines']}"
                     f" shed {i['shed_lines']} {i['duration_s']} s flush "
                     f"{i['flush_ms']} ms" for i in trial["intervals"])
-                + f"; GC pauses {pauses}")
+                + f"; GC pauses {pauses}; native locks {locks}")
         check_trial_books(harness, trial, "phase 17a")
         for name in ("flush_extract", "hll_insert", "hll_estimate"):
             if launches["a"][name] < 1:
@@ -5195,7 +5212,8 @@ def phase_loadgen(ek, hll) -> tuple:
             f"intervals: accepted {trial['accepted_lines_per_s']}/s, loss "
             f"{trial['loss_frac']}, cadence {trial['cadence_frac']}, "
             + ", ".join(f"{k} {trial[k]}" for k in LG_BREAKDOWN)
-            + f"; GC pauses {pauses}; launches {launches['a']}")
+            + f"; GC pauses {pauses}; native locks {locks}; launches "
+            f"{launches['a']}")
         out["a_s"] = time.perf_counter() - t0
         # 17b: the sustained-rate search on the same harness
         t1 = time.perf_counter()
@@ -5254,6 +5272,24 @@ def phase_loadgen(ek, hll) -> tuple:
         + ", ".join(f"{k} {v:.4f}" for k, v in phases.items())
         + f"; books {books}; launches {launches['c']}")
     return out, launches
+
+
+def lock_record(server) -> list:
+    """Each native context's commit-mutex record since
+    ``set_lock_stats(True)``: acquisitions, contended ones, the wait and
+    hold totals and the longest of the latest 4,096 of each, in ms."""
+    out = []
+    for w in server.workers:
+        for ctx in w._all_ctxs():
+            st = ctx.lock_stats()
+            out.append({
+                "acquisitions": st["acquisitions"],
+                "contended": st["contended"],
+                "wait_ms": st["wait_ns_total"] / 1e6,
+                "wait_max_ms": max(st["wait_ns_samples"] or [0]) / 1e6,
+                "hold_ms": st["hold_ns_total"] / 1e6,
+                "hold_max_ms": max(st["hold_ns_samples"] or [0]) / 1e6})
+    return out
 
 
 @contextlib.contextmanager
@@ -5508,6 +5544,13 @@ def main() -> int:
         raise AssertionError(f"a staged fold on the card launched "
                              f"{td_fold_trace['names']}, not K3 alone")
     td_times["fold_staged"] = probe_td.time_fold_staged(tw)
+    # K3's rank path: its edge rows against the CPU, the rows of
+    # phase 4's shape by path, and td_fold_warps' registers and spill
+    td_checks["tdigest_rank_cases"] = probe_td.check_rank_cases(tw, tk)
+    td_times["fold_paths"] = probe_td.fold_paths(tw, tk)
+    td_times["fold_ptxas"] = td_build.get("td_fold_warps", {})
+    log("[tdigest] ptxas td_fold_warps: " + ", ".join(
+        f"{k} {v}" for k, v in td_times["fold_ptxas"].items()))
     wall["tdigest_fold_staged_s"] = time.perf_counter() - t0
     log(f"[tdigest] K3's checks, trace and times added "
         f"{wall['tdigest_fold_staged_s']:.1f} s")
@@ -5775,6 +5818,9 @@ def main() -> int:
         "also_replaces": "veneur_tpu/core/worker.py:245 (the staged fold "
                          "around _compress_rows)",
         "at_forms": td_times["fold_staged"], "trace": td_fold_trace,
+        "row_paths": {"phase4": phases["governed"]["k3_paths"],
+                      "phase3c": td_times["fold_paths"],
+                      "rank_cases": td_checks["tdigest_rank_cases"]["paths"]},
         "build": {k: v for k, v in td_build.items()
                   if k.startswith(("td_fold", "td_stage"))}})
     wall["total_s"] = time.perf_counter() - t_start

@@ -44,7 +44,9 @@ staged fold (core/worker.fold_staged), against the CPU's plain chain:
 dense and flat planes, unit and weighted, a short mirror, ragged S,
 depths 64, 40 and 1, the edge rows of probe_td.fold_inputs, rows of
 denormals (F7), the wide form past 256 candidates (K2a's block kernel
-and its slab), a 4-shard split, and with torch's ops patched to raise.
+and its slab), a 4-shard split, with torch's ops patched to raise, and
+the rank path's edge rows (probe_td.rank_case) with the card's tally of
+each row's path.
 
 Every test here is marked ``cuda`` and skips without a card. On a card
 machine (no JAX needed) run them with
@@ -1786,6 +1788,37 @@ def test_fold_staged_runs_no_torch_op(card, monkeypatch):
     ref = _fold_cpu(fields, stage)
     for a, r in zip(got, ref):
         assert _bitwise(a, r)
+
+
+@pytest.mark.parametrize("b", probe_td.RANK_DEPTHS)
+@pytest.mark.parametrize("kind", probe_td.RANK_KINDS)
+def test_fold_staged_rank_path_card_equals_cpu(card, kind, b):
+    """K3's rank path on the card against the CPU's plain chain, on
+    probe_td.rank_case's edge rows (samples equal in order key to a
+    centroid, +0.0 against -0.0, runs of equal samples, NaN and +-inf
+    samples beside zero-weight slots, denormal samples and weights,
+    empty, one-centroid and full rows, and rows whose pool part is
+    unsorted: the network), dense, flat unit and flat weighted; all 14
+    fields bitwise, and the card's tally of its rows' paths
+    (tdigest_kernel.counting_paths) equal to probe_td.row_paths'."""
+    from veneur_tpu_torch.ops import tdigest_kernel as tk
+
+    fields_np, v, w, counts = probe_td.rank_case(kind, b)
+    fields = [torch.from_numpy(a).to(card) for a in fields_np]
+    for form in ("dense", "flat_unit", "flat_weighted"):
+        wd = w
+        if form == "flat_unit":
+            wd = (np.arange(b)[None, :] < counts[:, None]).astype(np.float32)
+        stage = probe_td.stage_of(tw, form, torch.from_numpy(v).to(card),
+                                  torch.from_numpy(wd).to(card), counts)
+        with tk.counting_paths(card) as paths:
+            got = tw.fold_staged(fields, stage)
+        want = np.bincount(probe_td.row_paths(fields_np[0], fields_np[1],
+                                              v, wd), minlength=len(tk.PATHS))
+        assert paths.cpu().tolist() == want.tolist(), (form, kind, b)
+        ref = _fold_cpu(fields, stage)
+        for a, r in zip(got, ref):
+            assert _bitwise(a, r), (form, kind, b)
 
 
 def test_fold_staged_denormal_rows_card_equals_cpu(card):

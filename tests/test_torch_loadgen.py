@@ -447,8 +447,12 @@ def test_harness_trial_loses_nothing(monkeypatch):
 
     monkeypatch.setattr(native_mod, "LoadgenSender", Recorded)
     spec = WorkloadSpec(num_keys=500, ring_lines=5_000)
-    h = tcontroller.LoadHarness(_harness_config(Config), spec,
-                                device="cpu")
+    # no sample derived from the server's own flush spans (each a 1 in
+    # 100 ssf.names_unique set sample by default): the tally holds only
+    # the lines sent
+    h = tcontroller.LoadHarness(
+        _harness_config(Config, ssf_span_uniqueness_rate=0.0), spec,
+        device="cpu")
     try:
         before = h.server.ingress_stats()["samples_processed"]
         trial = tcontroller.run_trial(h, 20_000, 2)

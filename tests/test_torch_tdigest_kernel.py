@@ -29,18 +29,24 @@ from __future__ import annotations
 import ctypes
 import shutil
 import subprocess
+import sys
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from veneur_tpu.core import worker as jw
 from veneur_tpu.ops import tdigest as jtd
 from veneur_tpu_torch.core import worker as tw
 from veneur_tpu_torch.ops import exactnum as exn
 from veneur_tpu_torch.ops import nvcc
 from veneur_tpu_torch.ops import tdigest as ttd
 from veneur_tpu_torch.ops import tdigest_kernel as tk
+
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "tools"))
+import port_probe_tdigest as probe_td  # noqa: E402
 
 C = 128
 TINY = np.finfo(np.float32).tiny
@@ -573,8 +579,9 @@ def _flat(v, w, counts, unit: bool):
     return fv, fw
 
 
-def _emulated_fold(emulated, fields, stage):
-    """K3 under emulation, through the launcher wrapper of the card's."""
+def _emulated_fold(emulated, fields, stage, paths=None):
+    """K3 under emulation, through the launcher wrapper of the card's;
+    ``paths`` (int32 [4]) tallies the one-warp rows by path."""
     s = fields[0].shape[0]
     if isinstance(stage, tw.FlatStage):
         c64 = stage.counts.astype(np.int64)
@@ -582,10 +589,10 @@ def _emulated_fold(emulated, fields, stage):
         np.cumsum(c64[:-1], out=off[1:], dtype=np.int64)
         return tk.run_fold_staged(
             emulated, fields, stage.vals, stage.wts, torch.from_numpy(off),
-            int(c64.sum()), stage.depth, _table(), None)
+            int(c64.sum()), stage.depth, _table(), None, paths)
     return tk.run_fold_staged(emulated, fields, stage.vals, stage.wts, None,
                               stage.vals.shape[0], stage.vals.shape[1],
-                              _table(), None)
+                              _table(), None, paths)
 
 
 FOLD_NAMES = ("means", "weights", "dmin", "dmax", "drecip", "drecip_c",
@@ -663,3 +670,60 @@ def test_emulated_fold_staged_many_rows(emulated):
     got = _emulated_fold(emulated, fields, stage)
     for name, a, g in zip(FOLD_NAMES, plain, got):
         _assert_bitwise(a, g, f"{name}")
+
+
+def _rank_stage(form: str, v, w, counts):
+    """The plane of a rank case as ``form`` takes it, and the dense
+    weights the kernel reads (a flat unit plane's 1.0 below the count)."""
+    b = v.shape[1]
+    if form == "dense":
+        return tw.DenseStage(torch.from_numpy(v), torch.from_numpy(w)), w
+    unit = form == "flat_unit"
+    if unit:
+        w = (np.arange(b)[None, :] < counts[:, None]).astype(F7)
+    fv, fw = _flat(v, w, counts, unit)
+    return tw.FlatStage(torch.from_numpy(fv),
+                        None if unit else torch.from_numpy(fw), counts,
+                        b), w
+
+
+@pytest.mark.parametrize("b", probe_td.RANK_DEPTHS)
+@pytest.mark.parametrize("kind", probe_td.RANK_KINDS)
+def test_emulated_fold_rank_path_bitwise_plain(emulated, kind, b):
+    """K3's rank path (the pool row sorted, the staged tail placed by
+    rank on 32-bit keys) on probe_td.rank_case's edge rows: samples equal
+    in order key to a centroid (+0.0 against -0.0), runs of equal
+    samples, NaN and +-inf samples (a +inf sample beside zero-weight
+    slots), denormal samples and weights, empty rows and rows of one
+    live centroid, full rows; and rows whose pool part is unsorted (the
+    whole network). Each of the dense, flat unit and flat weighted
+    planes: the JAX package's fold, the port's plain chain and the
+    emulated kernel bitwise in all 14 fields, and the kernel's tally of
+    its rows' paths equal to the host's prediction (probe_td.row_paths).
+    The case's path: B = 1 the sorted runs (a tail of one is sorted),
+    "unsorted" the network, B = 128 the tail sort (past the rank path's
+    64), every other case the rank path."""
+    fields_np, v, w, counts = probe_td.rank_case(kind, b)
+    fields = [torch.from_numpy(a) for a in fields_np]
+    for form in ("dense", "flat_unit", "flat_weighted"):
+        stage, wd = _rank_stage(form, v, w, counts)
+        want = np.bincount(probe_td.row_paths(fields_np[0], fields_np[1],
+                                              v, wd), minlength=len(tk.PATHS))
+        if kind == "unsorted":
+            assert want[3] == len(counts)
+        elif b == 1:
+            assert want[0] == len(counts)
+        elif b <= probe_td.RANK_MAX:
+            assert want[1] > len(counts) // 2 and want[2] == want[3] == 0
+        else:
+            assert want[2] > len(counts) // 2 and want[3] == 0
+        ref = jw._histo_fold_staged(*(jnp.asarray(a) for a in fields_np),
+                                    jnp.asarray(v), jnp.asarray(wd))
+        plain = tw.fold_staged(fields, stage)
+        paths = torch.zeros(len(tk.PATHS), dtype=torch.int32)
+        got = _emulated_fold(emulated, fields, stage, paths)
+        assert paths.tolist() == want.tolist(), (form, paths.tolist())
+        for name, r, a, g in zip(FOLD_NAMES, ref, plain, got):
+            _assert_bitwise(np.asarray(r), a, f"{kind} {form} B {b} {name} "
+                                              f"(JAX)")
+            _assert_bitwise(a, g, f"{kind} {form} B {b} {name}")

@@ -25,7 +25,9 @@ other, at the shapes chip_smoke.py's phases give them:
 
 * the kernels alone at every shape port_probe_tdigest times (chip_smoke
   phase 3c): K2a (``compress_rows``) at [131,072, 192], [65,536, 256],
-  [32,768, 256] and [8,192, 1,152], and K2b as each checkout's
+  [32,768, 256] and [8,192, 1,152], on random rows behind a sorted
+  digest row (``candidates``) and on digest rows as the main path builds
+  them (``digest_candidates``), and K2b as each checkout's
   ``add_batch`` from the unsorted batch (its sort included: torch.sort
   before the kernels in a checkout that sorts so, inside them in one
   that does not) at (64, 256), (1,024, 65,536) and (16,384, 262,144);
@@ -67,7 +69,7 @@ sys.path.insert(0, str(ROOT))
 import port_probe_extract as pe  # noqa: E402
 import port_probe_tdigest as ptd  # noqa: E402
 
-REPS = 11
+REPS = 21
 C = 128
 STAGED_ROWS = 131_072
 SPILL_CASES = ((1_024, 16_384), (64, 256))
@@ -128,6 +130,9 @@ def kernel_cases(device) -> dict:
     for s, m in ptd.COMPRESS_TIMED:
         means, w = ptd.candidates(s, m, 7 + s + m, device)
         out[f"k2a_{s}x{m}"] = ("compress_rows", (means, w, 100.0, C))
+        means, w = ptd.digest_candidates(s, m, 3 + s + m, device)
+        out[f"k2a_{s}x{m}_digest_rows"] = ("compress_rows",
+                                           (means, w, 100.0, C))
     for k, n in ptd.ADD_CASES:
         rows, vals, wts = ptd.sample_batch(k, n, 11 + k + n, device)
         out[f"k2b_{k}x{n}"] = ("add_batch",

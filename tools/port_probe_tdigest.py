@@ -64,7 +64,10 @@ Inputs are made on the card from a seed (torch.Generator). No single
 PyTorch call computes either function (library_ms null). ``--quick``
 checks one shape of each, the edges and the signed zeros and times
 nothing; ``--fold`` checks, traces and times K3 alone (with K2a alone
-over the same candidates beside it). Imports torch and the port only; exits 2 without CUDA.
+over the same candidates beside it), holds its rank path's edge rows
+(``rank_case``) to the CPU with the card's tally of each row's path,
+and reports the paths of [131,072, C = 128, B = 64]'s rows. Imports
+torch and the port only; exits 2 without CUDA.
 """
 
 from __future__ import annotations
@@ -521,6 +524,144 @@ def stage_of(tw, form: str, v, w, counts, rows=None):
     return tw.FlatStage(fv, fw, counts, v.shape[1])
 
 
+# K3's rank path (the pool row sorted, the staged tail placed by rank):
+# edge rows by kind, at these depths; each row's path predicted on the
+# host (``row_paths``) as td_fold_warps' row routine chooses it
+RANK_KINDS = ("ties", "specials", "denormals", "sparse", "full", "unsorted")
+# the widest tail the rank path places (wider tails are sorted), read
+# from the kernel's source: csrc/tdigest.cu kRankMax
+RANK_MAX = int(re.search(
+    r"constexpr int kRankMax = (\d+);",
+    (ROOT / "veneur_tpu_torch" / "csrc" / "tdigest.cu").read_text())[1])
+RANK_DEPTHS = (1, 33, 40, 64, 128)
+
+
+def _flush_np(x):
+    """exactnum.flush_denormals in numpy: a denormal becomes its zero."""
+    import numpy as np
+
+    u = x.view(np.uint32)
+    return np.where((u & 0x7F800000) == 0,
+                    (u & 0x80000000).view(np.float32), x).astype(np.float32)
+
+
+def order_key_np(x):
+    """The kernels' 32-bit order key (ops/tdigest._order_key as uint32):
+    ascending, -0.0 == +0.0, every NaN above +inf."""
+    import numpy as np
+
+    u = x.view(np.uint32).astype(np.uint64)
+    k = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    k = np.where((u & 0x7FFFFFFF) == 0, 0x80000000, k)
+    return np.where(np.isnan(x), 0xFFFFFFFF, k).astype(np.uint32)
+
+
+def row_paths(means, weights, v, w):
+    """Each row's path in td_fold_warps (tdigest_kernel.PATHS index) for
+    the pool rows (numpy [S, C]) and the dense staged slots [S, B] as
+    the kernel reads them (a flat plane's unit weights 1.0 below the
+    count): the candidates' keys (zero-weight slots +inf); every run of
+    C sorted -> "runs"; the pool part sorted and a tail of at most
+    RANK_MAX -> "rank", of at most 128 -> "tail"; else "network"."""
+    import numpy as np
+
+    c = means.shape[1]
+    cw = _flush_np(np.concatenate([weights, w], axis=1))
+    cm = np.where(cw > 0, _flush_np(np.concatenate([means, v], axis=1)),
+                  np.float32(np.inf)).astype(np.float32)
+    k = order_key_np(cm).astype(np.int64)
+    down = k[:, 1:] < k[:, :-1]          # position i + 1 below i
+    at = np.arange(1, k.shape[1])
+    pow2 = c & (c - 1) == 0 and 2 * c <= 256
+    start = (at % c == 0) if pow2 else (at == c)
+    good = ~(down & ~start[None, :]).any(axis=1)
+    head = ~down[:, :c - 1].any(axis=1)
+    tn = k.shape[1] - c
+    return np.where(good, 0, np.where(head & (tn <= RANK_MAX), 1, np.where(
+        head & (tn <= 128), 2, 3)))
+
+
+def rank_case(kind: str, b: int, s: int = 24, seed: int = 0):
+    """The 14 pool fields (numpy) and a dense staged plane [s, b] with
+    its counts, for the rank path's edge rows of ``kind``:
+
+    * ties: centroids and samples from one grid with +0.0 and -0.0, so
+      samples equal (in order key) to centroids and runs of equal
+      samples; 0 to C live centroids;
+    * specials: NaN, -NaN, +-inf samples, zero weights among the counted
+      slots (a +inf sample beside zero-weight slots), rows with a live
+      +inf centroid before the padding or a NaN one after it;
+    * denormals: f32 denormal samples and weights among normal ones;
+    * sparse: empty rows and rows of one live centroid;
+    * full: every centroid live;
+    * unsorted: as ties, with two centroids swapped (the whole network).
+    """
+    import numpy as np
+
+    f32 = np.float32
+    rng = np.random.default_rng(1_000 * RANK_KINDS.index(kind) + b + seed)
+    grid = np.array([-2.0, -1.0, -0.0, 0.0, 0.5, 1.0, 2.0, 3.0], f32)
+    means = np.full((s, C), np.inf, f32)
+    wts = np.zeros((s, C), f32)
+    if kind == "sparse":
+        live = np.where(np.arange(s) % 2 == 0, 0, 1)
+    elif kind == "full":
+        live = np.full(s, C)
+    elif kind == "unsorted":
+        live = rng.integers(2, C + 1, s)
+    else:
+        live = rng.integers(0, C + 1, s)
+    for r in range(s):
+        k = int(live[r])
+        if kind in ("ties", "unsorted"):
+            row = rng.choice(grid, k)
+        else:
+            row = rng.normal(1.0, 2.0, k).astype(f32)
+        row = row[np.argsort(order_key_np(row), kind="stable")]
+        means[r, :k] = row
+        wts[r, :k] = rng.choice(np.array([1.0, 2.0], f32), k)
+        if kind == "specials" and 0 < k < C - 1:
+            # a live +inf centroid before the padding, or a NaN one after
+            # it (where a compression puts NaN means)
+            at = C - 1 if r % 2 else k
+            means[r, at] = np.nan if r % 2 else np.inf
+            wts[r, at] = 1.0
+        if kind == "unsorted":
+            a = int(rng.integers(0, k - 1))
+            means[r, a], means[r, k - 1] = means[r, k - 1], means[r, a]
+            if means[r, a] == means[r, k - 1]:
+                means[r, a] = means[r, k - 1] + 1.0
+    # the 12 scalars from SCALAR_POOL; min and max (0, 1, 4, 5) never
+    # denormal, as a pool never holds them (where XLA's fold at depth 1
+    # would pass one through a row with no live sample)
+    scal = np.array(SCALAR_POOL, f32)
+    normal = scal[(scal == 0) | (np.abs(scal) >= np.finfo(f32).tiny)
+                  | np.isnan(scal)]
+    fields = [means, wts] + [rng.choice(normal if k in (0, 1, 4, 5)
+                                        else scal, s).astype(f32)
+                             for k in range(12)]
+    counts = rng.integers(0, b + 1, s).astype(np.int32)
+    counts[0] = b
+    if kind in ("ties", "unsorted", "sparse"):
+        v = rng.choice(grid, (s, b))
+    else:
+        v = rng.normal(1.0, 2.0, (s, b)).astype(f32)
+    w = rng.choice(np.array([1.0, 0.5, 2.0], f32), (s, b))
+    if kind == "specials":
+        v = np.where(rng.random((s, b)) < 0.4, rng.choice(np.array(
+            [np.nan, -np.nan, np.inf, -np.inf], f32), (s, b)), v)
+        w = np.where(rng.random((s, b)) < 0.2, f32(0.0), w)
+    if kind == "denormals":
+        v = np.where(rng.random((s, b)) < 0.5, (rng.integers(
+            -2**20, 2**20, (s, b)) * f32(1e-45)).astype(f32), v)
+        w = np.where(rng.random((s, b)) < 0.3, (rng.integers(
+            1, 2**20, (s, b)) * f32(1e-45)).astype(f32), w)
+    valid = np.arange(b)[None, :] < counts[:, None]
+    v = np.where(valid, v, f32(0.0)).astype(f32)
+    w = np.where(valid, w, f32(0.0)).astype(f32)
+    return fields, v, w, counts
+
+
 def check_fold_staged(tw, cases=FOLD_CASES) -> dict:
     """K3 (core/worker.fold_staged) against its plain chain
     (``_fold_staged_plain``: the planes rebuilt, then the staged fold's
@@ -571,6 +712,63 @@ def check_fold_staged(tw, cases=FOLD_CASES) -> dict:
                              f"{calls} calls on the card")
     return {"cases": [list(c) for c in cases], "bitwise": True,
             "max_abs_err": worst, "launches": launched}
+
+
+def check_rank_cases(tw, tk) -> dict:
+    """K3's rank path on the card against the CPU's plain chain at every
+    RANK_KINDS x RANK_DEPTHS case (``rank_case``), dense, flat unit and
+    flat weighted, all 14 fields bitwise, and the card's tally of its
+    rows' paths equal to ``row_paths``' prediction; the tallies summed."""
+    import numpy as np
+    import torch
+
+    total = np.zeros(len(tk.PATHS), np.int64)
+    for kind in RANK_KINDS:
+        for b in RANK_DEPTHS:
+            f_np, v, w, counts = rank_case(kind, b)
+            fields = [torch.from_numpy(a).to(DEVICE) for a in f_np]
+            cpu = [torch.from_numpy(a) for a in f_np]
+            for form in FOLD_FORMS:
+                wd = w
+                if form == "flat_unit":
+                    wd = (np.arange(b)[None, :]
+                          < counts[:, None]).astype(np.float32)
+                st = stage_of(tw, form, torch.from_numpy(v).to(DEVICE),
+                              torch.from_numpy(wd).to(DEVICE), counts)
+                with tk.counting_paths(DEVICE) as paths:
+                    got = tw.fold_staged(fields, st)
+                ref = tw.fold_staged(cpu, stage_of(
+                    tw, form, torch.from_numpy(v), torch.from_numpy(wd),
+                    counts))
+                for i, (a, r) in enumerate(zip(got, ref)):
+                    _equal(a.cpu(), r, f"rank case {kind} B {b} {form} "
+                                       f"field {i}")
+                want = np.bincount(row_paths(f_np[0], f_np[1], v, wd),
+                                   minlength=len(tk.PATHS))
+                tally = paths.cpu().numpy()
+                if tally.tolist() != want.tolist():
+                    raise AssertionError(f"rank case {kind} B {b} {form}: "
+                                         f"paths {tally} not {want}")
+                total += tally
+    out = dict(zip(tk.PATHS, (int(x) for x in total)))
+    log(f"[tdigest] K3's rank-path cases ({len(RANK_KINDS)} kinds x "
+        f"depths {RANK_DEPTHS}, 3 forms): bitwise equal to the CPU, rows "
+        f"by path {out}")
+    return {"bitwise": True, "paths": out}
+
+
+def fold_paths(tw, tk, s: int = FOLD_TIMED[0], b: int = FOLD_TIMED[1]
+               ) -> dict:
+    """The rows of one K3 fold at [s, C, b] (``fold_inputs``, no edge
+    rows) by path, each form: td_fold_warps' tally."""
+    fields, v, w, counts = fold_inputs(s, b, 17, DEVICE, edges=False)
+    out = {}
+    for form in FOLD_FORMS:
+        with tk.counting_paths(DEVICE) as paths:
+            tw.fold_staged(fields, stage_of(tw, form, v, w, counts))
+        out[form] = dict(zip(tk.PATHS, paths.cpu().tolist()))
+    log(f"[tdigest] K3 at [{s:,}, C {C}, B {b}]: rows by path {out}")
+    return out
 
 
 def fold_bound(s: int, b: int, form: str, samples: int) -> float:
@@ -778,6 +976,8 @@ def main() -> int:
     res = {"card": card, "build": build_log(tk)}
     if args.fold:
         res["fold_staged"] = check_fold_staged(tw, [(4_099, 64)])
+        res["rank_cases"] = check_rank_cases(tw, tk)
+        res["fold_paths"] = fold_paths(tw, tk)
         res["fold_trace"] = profile_fold(tw)
         res["times"] = {"fold_staged": time_fold_staged(tw)}
     elif args.quick:

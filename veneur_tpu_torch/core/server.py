@@ -141,7 +141,7 @@ from veneur_tpu_torch.core.metrics import HistogramAggregates
 from veneur_tpu_torch.core.pipeline import FlushJob, FlushPipeline
 from veneur_tpu_torch.core.spans import MetricExtractionSink, SpanWorker
 from veneur_tpu_torch.core.worker import DeviceWorker, FlushSnapshot
-from veneur_tpu_torch.device import resolve
+from veneur_tpu_torch.device import resolve, serial_host_thread
 from veneur_tpu_torch.health import FlushDeadlineGovernor
 from veneur_tpu_torch.health.policy import (delivery_should_signal_behind,
                                             watchdog_should_defer)
@@ -159,6 +159,30 @@ from veneur_tpu_torch.trace.opentracing import Tracer
 from veneur_tpu_torch.utils.proc import current_rss_bytes
 
 log = logging.getLogger("veneur_tpu_torch.server")
+
+# servers of this process between their start and their shutdown: the
+# heap stays frozen (gc.freeze) while any of them lives
+_heap_freezes = 0
+_heap_freezes_lock = threading.Lock()
+
+
+def _freeze_heap() -> None:
+    """Move what the process holds into the collector's permanent
+    generation, and count one more server that keeps it there."""
+    global _heap_freezes
+    with _heap_freezes_lock:
+        _heap_freezes += 1
+        gc.freeze()
+
+
+def _thaw_heap() -> None:
+    """One server fewer keeps the heap frozen; the last one unfreezes
+    it."""
+    global _heap_freezes
+    with _heap_freezes_lock:
+        _heap_freezes -= 1
+        if _heap_freezes == 0:
+            gc.unfreeze()
 
 # ssf.error_total tag sets, verbatim from the reference
 # (server.go:1052-1072, 1238-1246)
@@ -267,6 +291,8 @@ class Server:
                  shard_devices=None) -> None:
         self.config = cfg
         self.device = resolve(device)
+        # this server holds one of the process's heap freezes (start)
+        self._heap_frozen = False
         self.interval = cfg.interval_seconds()
         self.percentiles = list(cfg.percentiles)
         self.aggregates = HistogramAggregates.from_names(cfg.aggregates)
@@ -946,7 +972,7 @@ class Server:
                 packets, self._native_ssf_indicator,
                 self._native_ssf_objective,
                 self.config.ssf_span_uniqueness_rate)
-            worker.processed += ok
+            worker._processed_py += ok
             if (worker._native.pending_histo >= worker.batch_size
                     or worker._native.pending_set >= worker.batch_size):
                 worker.drain_native()
@@ -1175,7 +1201,16 @@ class Server:
         exits the process with code 1, so supervision restarts it.
         Exceptions after shutdown began are routine (sockets closed under
         readers) and are only logged. ``compute`` marks a thread that
-        runs device work; shutdown joins those."""
+        runs device work; shutdown joins those. On a CPU device a compute
+        thread runs its torch ops on one intra-op thread
+        (device.serial_host_thread)."""
+        if compute and self.device.type == "cpu":
+            work = target
+
+            def target():
+                serial_host_thread(self.device)
+                work()
+
         t = threading.Thread(
             target=crash.guard(target, self.config.sentry_dsn, name,
                                suppress=self._shutdown.is_set),
@@ -1599,6 +1634,13 @@ class Server:
         if self.flush_pipeline is not None:
             # the stage threads exist before the first tick enqueues
             self.flush_pipeline.start()
+        # what the process holds now (the server's structures and all it
+        # built before) stays out of the collector's passes until the
+        # last server started in the process shuts down: a full pass over
+        # a large heap took seconds, and one landing in a flush missed
+        # the interval (F8)
+        _freeze_heap()
+        self._heap_frozen = True
         self._spawn(self._flush_loop, "flush-ticker", compute=True)
         if self.config.micro_fold:
             self._spawn(self._micro_fold_loop, "micro-fold", compute=True)
@@ -2629,6 +2671,9 @@ class Server:
                 t.join(timeout=max(0.1, deadline - time.time()))
         self.compute_threads_joined = all(
             t is me or not t.is_alive() for t in self._compute_threads)
+        if self._heap_frozen:
+            self._heap_frozen = False
+            _thaw_heap()
         for t in self._threads:
             if t is not me:
                 t.join(timeout=5.0)

@@ -932,7 +932,9 @@ class DeviceWorker:
         self._native_errs_seen = 0
         self._native_proc_seen = 0
         self._native_drop_seen = 0
-        self.processed = 0
+        # Python-path samples this epoch (``processed`` adds the native
+        # contexts' own counts)
+        self._processed_py = 0
         self.processed_total = 0
         # native parse errors drained so far (reset per process)
         self.parse_errors = 0
@@ -1056,17 +1058,6 @@ class DeviceWorker:
         for i, ctx in enumerate(self._reader_ctxs):
             n += int(ctx.processed) - self._reader_proc_seen[i]
         return n
-
-    @processed.setter
-    def processed(self, v: int) -> None:
-        # keeps `processed += k` exact: the native delta the getter adds
-        # is taken back out
-        nd = 0
-        if self._native is not None:
-            nd = int(self._native.processed) - self._native_proc_seen
-        for i, ctx in enumerate(self._reader_ctxs):
-            nd += int(ctx.processed) - self._reader_proc_seen[i]
-        self._processed_py = v - nd
 
     def _reset_epoch(self) -> None:
         if self._native_epoch_closed:
@@ -1241,7 +1232,7 @@ class DeviceWorker:
     def process_metric(self, m: UDPMetric) -> None:
         """Route one parsed sample into the right pool
         (reference Worker.ProcessMetric, worker.go:344-394)."""
-        self.processed += 1
+        self._processed_py += 1
         mtype = m.key.type
         scope_class = classify(mtype, m.scope)
         tenant = ""
@@ -1490,7 +1481,7 @@ class DeviceWorker:
         rc = self._native.ingest_ssf(packet, indicator_name, objective_name,
                                      uniqueness_rate)
         if rc == 1:
-            self.processed += 1
+            self._processed_py += 1
             if (self._native.pending_histo >= self.batch_size
                     or self._native.pending_set >= self.batch_size):
                 self.drain_native()
@@ -1589,11 +1580,8 @@ class DeviceWorker:
         if self._native is None:
             return
         for i, ctx in enumerate(self._all_ctxs()):
-            ctx.lock()
-            try:
+            with ctx.hold():
                 self._sync_native_series(ctx, i)
-            finally:
-                ctx.unlock()
 
     def native_series_pending(self) -> bool:
         """Lock-free probe for undrained new-series records in any
@@ -1612,11 +1600,8 @@ class DeviceWorker:
         # mode: the shared-nothing shape extends to the drain); its rows
         # then translate to canonical rows (identity in legacy mode)
         for i, ctx in enumerate(self._all_ctxs()):
-            ctx.lock()
-            try:
+            with ctx.hold():
                 raw = self._drain_native_raw_ctx(ctx, i)
-            finally:
-                ctx.unlock()
             self._apply_native_raw(self._map_raw_rows(i, raw))
 
     def _map_raw_rows(self, ctx_i: int, raw):
@@ -2568,10 +2553,13 @@ class DeviceWorker:
         so nothing lands twice or not at all; fed at extraction), and the
         plane it mirrors is kept on the host as the fault replay."""
         shards = self._native is not None and bool(self._reader_ctxs)
-        # reader-shard mode counts each context's commits inside its own
-        # fence below: owned readers commit without the worker lock, so a
-        # read here would miss lines landing before each fence
-        self.processed_total += (self._processed_py if shards
+        # a native context's commits are counted inside its lock hold
+        # below, with the drain and the reset: its C++ reader commits
+        # without the worker lock, so a read here would miss the lines
+        # committed between it and the lock, drained into this epoch and
+        # then zeroed by the reset (F8)
+        self.processed_total += (self._processed_py
+                                 if self._native is not None
                                  else self.processed)
         native_stage = None
         spill_histo = None
@@ -2587,8 +2575,7 @@ class DeviceWorker:
             for i, ctx in enumerate(self._all_ctxs()):
                 seen = (self._native_proc_seen if i == 0
                         else self._reader_proc_seen[i - 1])
-                ctx.lock()
-                try:
+                with ctx.hold():
                     raw = self._drain_native_raw_ctx(ctx, i,
                                                      detach_stage=True)
                     delta = int(ctx.processed) - seen
@@ -2603,8 +2590,6 @@ class DeviceWorker:
                         self._reader_errs_seen[i - 1] = 0
                         self._reader_proc_seen[i - 1] = 0
                         self._reader_drop_seen[i - 1] = 0
-                finally:
-                    ctx.unlock()
                 raws.append(raw)
             self._native_epoch_closed = True
             # off the locks: each context's rows to canonical rows, applied
@@ -2638,10 +2623,10 @@ class DeviceWorker:
                 self._ensure_histo(self.directory.num_histo_rows)
         elif self._native is not None:
             # drain, detach the staging plane and close the native epoch
-            # under one lock hold: a routed commit could otherwise land
-            # between the last drain and the reset and die with the epoch
-            self._native.lock()
-            try:
+            # under one lock hold (the collector paused: native.hold): a
+            # routed commit could otherwise land between the last drain and
+            # the reset and die with the epoch
+            with self._native.hold():
                 if self._micro_active():
                     # the residual delta in the same critical section as
                     # the detach (host copies only; the device feeds run
@@ -2663,13 +2648,13 @@ class DeviceWorker:
                 # server parses them into the new epoch
                 self.pending_other_lines = raw[5]
                 self.pending_ssf_fallback = raw[6]
+                self.processed_total += (int(self._native.processed)
+                                         - self._native_proc_seen)
                 self._native.reset()
                 self._native_errs_seen = 0
                 self._native_proc_seen = 0
                 self._native_drop_seen = 0
                 self._native_epoch_closed = True
-            finally:
-                self._native.unlock()
             spill_histo = self._shed_spill_budget(
                 self._apply_native_raw(raw, defer_histo_spill=True))
             if native_stage is not None and self._mesh_pool is not None:
@@ -2766,7 +2751,6 @@ class DeviceWorker:
         # the per-tenant lifetime fold, under the caller's ingest lock and
         # before the reset zeroes the epoch's tallies
         self.tenant_tallies.accumulate_into(self.tenant_tallies_total)
-        self.processed = 0
         self.imported = 0
         self._reset_epoch()
         return swapped

@@ -100,7 +100,12 @@
 //      v * w and of w / v over the live slots as exactnum.tsum's halving
 //      trees, the min and max as int64 order keys;
 //   3. K2a's row routine over the C + B candidates ([0, C) a sorted run:
-//      its shortcut checks as for any row);
+//      its shortcut checks as for any row), where a sorted row places a
+//      tail of at most kRankMax = 64 slots by rank (no sort: each
+//      candidate's position in the stable sort from 32-bit order-key
+//      counts and an upper-bound search of the row; 1.8490 -> 1.7638 ms
+//      dense at [131,072, 128, 64] on an H100); the rows by path
+//      into ``paths`` where a caller asks;
 //   4. the C means and weights, and the 12 scalars: XLA-order min and max
 //      merges and four flushed Neumaier adds (core/worker._comp_add).
 // Past 256 candidates td_stage_rows does 1, 2 and 4's scalars, writing
@@ -174,6 +179,8 @@
 
 #ifndef TD_EMULATE
 #include <cuda_runtime.h>
+#else
+#include <string.h>
 #endif
 #include <stdint.h>
 
@@ -236,6 +243,11 @@ inline int atomicMin(int* p, int v) {
   if (v < o) *p = v;
   return o;
 }
+inline int atomicAdd(int* p, int v) {
+  const int o = *p;
+  *p = o + v;
+  return o;
+}
 #else
 #define TD_SIMT
 #define TD_TID ((int)threadIdx.x)
@@ -270,6 +282,15 @@ constexpr int kMaxGroupKeys = 16 * kSpan;  // a block's widest row
 constexpr int kWarps = 8;         // warps a block of one-warp groups
 constexpr int kRowsPerWarp = 4;   // K2a's rows a warp, from 32,768 rows
 constexpr int kTail = 128;        // keys a warp sorts 4 a lane (a tail)
+// the widest tail the rank path places (wider tails up to kTail take the
+// tail sort: counting costs more than the sort past 64)
+constexpr int kRankMax = 64;
+// warp_rank takes a lane's keys 32 at a time, and the tail's keys and the
+// 256 positions' sources share the 8 kTail bytes of the tail sort's area
+static_assert(kRankMax > 0 && kRankMax % 32 == 0 && kRankMax <= kTail,
+              "kRankMax: a positive multiple of 32, at most kTail");
+static_assert(4 * kRankMax + 256 <= 8 * kTail,
+              "the rank path's keys and sources fit the tail's area");
 constexpr int kChunk = 128;       // segments.CHUNK
 constexpr int kScanTile = 1024;   // K2b's in-block scan tile (and its halo)
 constexpr int kSortTile = 2048;   // K2b's samples sorted in a block
@@ -332,6 +353,26 @@ template <int PENDING>
 __device__ __forceinline__ void cp_async_wait() {
 #ifndef TD_EMULATE
   asm volatile("cp.async.wait_group %0;\n" ::"n"(PENDING) : "memory");
+#endif
+}
+
+// N = 2 or 4 consecutive 32-bit words from shared memory, one load
+template <int N>
+__device__ __forceinline__ void lds_words(const void* p, uint32_t (&o)[N]) {
+#ifdef TD_EMULATE
+  memcpy(o, p, 4 * N);
+#else
+  if constexpr (N == 4) {
+    const uint4 v = *reinterpret_cast<const uint4*>(p);
+    o[0] = v.x;
+    o[1] = v.y;
+    o[2] = v.z;
+    o[3] = v.w;
+  } else {
+    const uint2 v = *reinterpret_cast<const uint2*>(p);
+    o[0] = v.x;
+    o[1] = v.y;
+  }
 #endif
 }
 
@@ -648,6 +689,8 @@ struct RowSmem {
   uint64_t* wk;   // WIDE: each warp's last key [32]
   uint32_t* wu;   // WIDE: per-warp flags, maxima and counts [160]
   uint64_t* tk;   // one warp: the sorted tail's keys [kTail]
+  uint32_t* rk;   // the rank path (over tk): the tail's keys [kRankMax]
+  unsigned char* rp;  // then each position's source [256]
   float* scal;
   int nt;         // the group's threads
   // where slot i lives in cm, cw and the exchange area: transposed, so
@@ -691,6 +734,8 @@ __device__ __forceinline__ RowSmem carve_row(unsigned char* base, int n,
   r.wk = nullptr;
   r.wu = nullptr;
   r.tk = reinterpret_cast<uint64_t*>(base);
+  r.rk = reinterpret_cast<uint32_t*>(base);
+  r.rp = base + 4 * kRankMax;
   base += 8 * kTail;
   if (wide) {
     r.sh = reinterpret_cast<uint64_t*>(base);
@@ -703,12 +748,134 @@ __device__ __forceinline__ RowSmem carve_row(unsigned char* base, int n,
   return r;
 }
 
+// the positions of tn <= kRankMax 32-bit keys tk[0, tn) in their
+// stable sort: each key's count of the keys below it and of the equal
+// ones before it, taken by the group's first warp over broadcast reads of
+// tk, 4 keys a read (the warp pads tk[tn, 32 nb) with ~0u first, which no
+// key counts; nb = ceil(tn / 32)). Lane l takes keys l + 32 e, e < nb:
+// k holds them, rk their positions. For key j of lane l, the keys of a
+// block of 32 before j's count where <= k, those of a block after it
+// where < k, those of its own block where < k or equal and at a lane
+// below l: no index is compared but there
+constexpr int kRankB = kRankMax / 32;
+__device__ __forceinline__ void warp_rank(uint32_t* tk, int tn, int g0,
+                                          TD_APARAM(uint32_t, k, kRankB),
+                                          TD_APARAM(int, rk, kRankB)) {
+  const int nb = (tn + 31) >> 5;
+  TD_SIMT {
+    if (TD_TID - g0 < 32) {
+#pragma unroll
+      for (int e = 0; e < kRankB; ++e) {
+        const int j = TD_LANE + 32 * e;
+        if (e < nb && j >= tn) tk[j] = ~0u;
+      }
+    }
+  }
+  TD_SYNCWARP();
+  TD_SIMT {
+    if (TD_TID - g0 < 32) {
+      const int lane = TD_LANE;
+#pragma unroll
+      for (int e = 0; e < kRankB; ++e) {
+        if (e >= nb) break;
+        const uint32_t key = tk[lane + 32 * e];
+        int cnt = 0;
+        for (int jb = 0; jb < nb; ++jb) {
+          const uint32_t* blk = tk + 32 * jb;
+          if (jb < e) {
+#pragma unroll
+            for (int q = 0; q < 32; q += 4) {
+              uint32_t kp[4];
+              lds_words<4>(blk + q, kp);
+#pragma unroll
+              for (int t = 0; t < 4; ++t) cnt += kp[t] <= key;
+            }
+          } else if (jb > e) {
+#pragma unroll
+            for (int q = 0; q < 32; q += 4) {
+              uint32_t kp[4];
+              lds_words<4>(blk + q, kp);
+#pragma unroll
+              for (int t = 0; t < 4; ++t) cnt += kp[t] < key;
+            }
+          } else {
+#pragma unroll
+            for (int q = 0; q < 32; q += 4) {
+              uint32_t kp[4];
+              lds_words<4>(blk + q, kp);
+#pragma unroll
+              for (int t = 0; t < 4; ++t)
+                cnt += kp[t] < key || (kp[t] == key && q + t < lane);
+            }
+          }
+        }
+        TD_R(k)[e] = key;
+        TD_R(rk)[e] = cnt;
+      }
+    }
+  }
+}
+
+// the rank path's placement (row_compress, one warp): [0, c) sorted, the
+// tail [c, n) of tn <= kRankMax slots; each of the 256 positions'
+// source into s.rp, a tail index or 0xff (the row's next slot)
+__device__ __forceinline__ void rank_place(const RowSmem& s, int n, int c,
+                                           int g0) {
+  const int tn = n - c;
+  TD_SIMT {
+#pragma unroll
+    for (int e = 0; e < kRankB; ++e) {
+      const int j = TD_LANE + 32 * e;
+      if (j < tn) s.rk[j] = order_key(s.cm[s.at(c + j)]);
+    }
+  }
+  TD_ARR(uint32_t, tkey, kRankB);
+  TD_ARR(int, pos, kRankB);
+  warp_rank(s.rk, tn, g0, tkey, pos);
+  // each position's source: a tail index, or 0xff (the row's next)
+  TD_SIMT {
+    uint32_t* sw = reinterpret_cast<uint32_t*>(s.rp);
+    sw[TD_LANE] = ~0u;
+    sw[TD_LANE + 32] = ~0u;
+#pragma unroll
+    for (int e = 0; e < kRankB; ++e) {
+      if (TD_LANE + 32 * e < tn) {
+        int lo = 0, hi = c;
+        while (lo < hi) {
+          const int mid = (lo + hi) >> 1;
+          if (order_key(s.cm[s.at(mid)]) <= TD_R(tkey)[e]) lo = mid + 1;
+          else hi = mid;
+        }
+        TD_R(pos)[e] += lo;
+      }
+    }
+  }
+  TD_SYNCWARP();
+  TD_SIMT {
+#pragma unroll
+    for (int e = 0; e < kRankB; ++e) {
+      const int j = TD_LANE + 32 * e;
+      if (j < tn) s.rp[TD_R(pos)[e]] = (unsigned char)j;
+    }
+  }
+  TD_SYNCWARP();
+}
+
+// which ordering a row took (row_compress's result; K3 tallies them)
+constexpr int kPathRuns = 0;  // sorted runs: the network from their merges
+constexpr int kPathRank = 1;  // a sorted row and a tail placed by rank
+constexpr int kPathTail = 2;  // a sorted row and a wider tail sorted alone
+constexpr int kPathNet = 3;   // the whole network
+
 // the compression of one row of n candidates (raw means in s.cm, raw
 // weights in s.cw) into c slots at out_m / out_w, by a group of g warps
 // whose first thread is g0 (the group has synchronised after writing the
-// candidates; tbl is the k1 table, in shared memory)
-template <bool WIDE>
-__device__ __forceinline__ void row_compress(const RowSmem& s, int n, int c,
+// candidates; tbl is the k1 table, in shared memory); the path its first
+// sort took (kPath*). RANK: a sorted row's tail of up to kRankMax
+// slots is placed by rank (K3); else it is sorted (K2a and K2b: the rank
+// path's code alone, never run, cost them 3-6% at their shapes)
+template <bool WIDE, bool RANK = false>
+__device__ __forceinline__ int row_compress(const RowSmem& s, int n, int c,
                                              const float* tbl, int tlen,
                                              int g, int g0, float* out_m,
                                              float* out_w) {
@@ -746,12 +913,21 @@ __device__ __forceinline__ void row_compress(const RowSmem& s, int n, int c,
   // side by side (c a power of two), or [0, c) and [c, n). Then the
   // network starts where such runs stand (the odd ones placed reversed):
   // at the merges of 2c keys, or the last merge alone. A one-warp row
-  // whose digest row [0, c) is sorted beside an unsorted tail of at most
-  // kTail samples (the staged fold's) sorts the tail alone, 4 keys a
-  // lane, and places it reversed for the last merge. Else the network
-  // runs whole
+  // whose digest row [0, c) is sorted beside an unsorted tail: with RANK
+  // and at most kRankMax samples (the staged fold's) the rank path,
+  // where no key is sorted and each candidate's position in the stable
+  // sort is computed on 32-bit order keys, ties the row's first, then in
+  // slot order:
+  //   tail slot c + j at #{row i : k_i <= k_j} + #{tail j' : k_j' < k_j,
+  //     or k_j' == k_j and j' < j} (an upper-bound search of the row's
+  //     keys, warp_rank),
+  //   the row's slots at the positions left, in order (row slot i at
+  //     i + #{tail j : k_j < k_i}, read off a byte a position);
+  // else, at most kTail samples, the tail sorted alone, 4 keys a lane,
+  // and placed reversed for the last merge. Else the network runs whole
   const int p = kSpan * g;
   const bool pow2 = (c & (c - 1)) == 0 && 2 * c <= p;
+  int path = kPathNet;
   TD_VAR(uint64_t, pk);
   TD_VAR(int, good);
   TD_VAR(int, head);
@@ -777,6 +953,7 @@ __device__ __forceinline__ void row_compress(const RowSmem& s, int n, int c,
     TD_R(head) = hd;
   }
   if (group_all<WIDE>(good, s.wu, g, g0)) {
+    path = kPathRuns;
     TD_SIMT {
       const int gt = TD_TID - g0;
 #pragma unroll
@@ -796,7 +973,53 @@ __device__ __forceinline__ void row_compress(const RowSmem& s, int n, int c,
       }
     }
     group_sort<uint64_t, WIDE>(key, g, g0, s.sh, pow2 ? 2 * c : p);
+  } else if (RANK && !WIDE && n - c <= kRankMax &&
+             group_all<WIDE>(head, s.wu, g, g0)) {
+    path = kPathRank;
+    rank_place(s, n, c, g0);
+    const unsigned char* src = s.rp;
+    // the tail keys at this lane's kE positions, and before them (a scan)
+    TD_VAR(int, own);
+    TD_VAR(int, inc);
+    TD_VAR(int, prv);
+    TD_SIMT {
+      uint32_t b[2];
+      lds_words<2>(src + TD_LANE * kE, b);
+      const int o = (int)(((b[0] & 0xffu) != 0xffu) +
+                          (((b[0] >> 8) & 0xffu) != 0xffu) +
+                          (((b[0] >> 16) & 0xffu) != 0xffu) +
+                          ((b[0] >> 24) != 0xffu) +
+                          ((b[1] & 0xffu) != 0xffu) +
+                          (((b[1] >> 8) & 0xffu) != 0xffu) +
+                          (((b[1] >> 16) & 0xffu) != 0xffu) +
+                          ((b[1] >> 24) != 0xffu));
+      TD_R(own) = o;
+      TD_R(inc) = o;
+    }
+    for (int d = 1; d < 32; d <<= 1) {
+      TD_SHFL(int, TD_R(prv), TD_R(inc), TD_LANE - d);
+      TD_SIMT {
+        if (TD_LANE >= d) TD_R(inc) += TD_R(prv);
+      }
+    }
+    TD_SIMT {
+      uint32_t b[2];
+      lds_words<2>(src + TD_LANE * kE, b);
+      int r = TD_R(inc) - TD_R(own);
+#pragma unroll
+      for (int e = 0; e < kE; ++e) {
+        const uint32_t x = (b[e >> 2] >> (8 * (e & 3))) & 0xffu;
+        const int at = TD_LANE * kE + e;
+        // the only part of the key step 2 reads: the position's slot
+        TD_R(key)[e] = x != 0xffu ? (uint64_t)(c + (int)x)
+                                  : (uint64_t)(at - r);
+        r += x != 0xffu;
+      }
+    }
   } else if (!WIDE && n - c <= kTail && group_all<WIDE>(head, s.wu, g, g0)) {
+    // a tail past kRankMax: sorted alone, 4 keys a lane, placed
+    // reversed for the last merge
+    path = kPathTail;
     TD_ARR(uint64_t, tail, kTail / 32);
     TD_SIMT {
 #pragma unroll
@@ -1179,6 +1402,7 @@ __device__ __forceinline__ void row_compress(const RowSmem& s, int n, int c,
     }
   }
   group_sync<WIDE>();
+  return path;
 }
 
 // ---------------------------------------------------------------------------
@@ -2100,6 +2324,7 @@ struct FoldArgs {
   float* out_m; float* out_w;  // [s, c]
   float* out_sc;               // the 12 new scalars [12, s]
   float* cand_m; float* cand_w;  // td_stage_rows: the candidates [s, c + b]
+  int* paths;  // or null: td_fold_warps' rows by the path row_compress took
 };
 
 // where row r's staged samples start and how many of its b slots hold one
@@ -2296,7 +2521,11 @@ constexpr int kStkBytes = (3 * 32 + 2 * 16) * 4;
 // candidates (the pool row's C means and weights, then its B staged
 // slots) loaded (cp.async) while this one's stats are taken and it is
 // compressed
-__global__ void TD_BOUNDS(kWarps * 32, 3) td_fold_warps(FoldArgs a, int rpw) {
+// (4 blocks an SM, 64 registers, spill 208 B where 3 spill 144: 2% faster,
+// not taken while it spills)
+constexpr int kFoldBlocks = 3;
+__global__ void TD_BOUNDS(kWarps * 32, kFoldBlocks)
+    td_fold_warps(FoldArgs a, int rpw) {
   TD_DYNAMIC_SMEM(smem);
   float* tb = reinterpret_cast<float*>(smem);
   TD_GROUP(0, (int)blockDim.x);
@@ -2356,8 +2585,14 @@ __global__ void TD_BOUNDS(kWarps * 32, 3) td_fold_warps(FoldArgs a, int rpw) {
                     wt = cur.cw[cur.at(c + j)];
                   },
                   row, stk, stk + 96 + ((row - first) & 1) * 16);
-      row_compress<false>(cur, m, c, tb, a.tlen, 1, w * 32,
-                          a.out_m + row * c, a.out_w + row * c);
+      const int path = row_compress<false, true>(
+          cur, m, c, tb, a.tlen, 1, w * 32, a.out_m + row * c,
+          a.out_w + row * c);
+      if (a.paths) {
+        TD_SIMT {
+          if (TD_LANE == 0) atomicAdd(a.paths + path, 1);
+        }
+      }
     }
   }
 }
@@ -2609,7 +2844,8 @@ int td_fold_staged_launch(const float* means, const float* weights,
                           const float* sv, const float* sw, const int* off,
                           long long total, const float* tbl, int tlen,
                           float* out_m, float* out_w, float* out_sc,
-                          float* cand_m, float* cand_w, void* stream) {
+                          float* cand_m, float* cand_w, int* paths,
+                          void* stream) {
   cudaStream_t st = (cudaStream_t)stream;
   FoldArgs a;
   a.means = means;
@@ -2629,6 +2865,7 @@ int td_fold_staged_launch(const float* means, const float* weights,
   a.out_sc = out_sc;
   a.cand_m = cand_m;
   a.cand_w = cand_w;
+  a.paths = paths;
   const int m = c + b;
   int e;
   if (m <= kSpan) {

@@ -37,7 +37,9 @@ compiler's message: nothing here falls back to the Python parser.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import gc
 import hashlib
 import logging
 import os
@@ -328,6 +330,35 @@ def _ptr(arr: np.ndarray):
     return arr.ctypes.data_as(ctypes.c_void_p)
 
 
+_gc_holds = 0
+_gc_holds_lock = threading.Lock()
+_gc_was_enabled = False
+
+
+@contextlib.contextmanager
+def collector_paused():
+    """No automatic cyclic collection while any thread is inside: one
+    that started inside a native context's lock hold would keep the lock,
+    and the C++ reader waiting on it, for its whole pass; its datagrams
+    pile up in the socket's buffer (F8). The collector runs again when
+    the last thread leaves, as it was before the first came in: code
+    that turns it off while a hold is open has it turned on again then
+    (none of the port does)."""
+    global _gc_holds, _gc_was_enabled
+    with _gc_holds_lock:
+        if _gc_holds == 0:
+            _gc_was_enabled = gc.isenabled()
+            gc.disable()
+        _gc_holds += 1
+    try:
+        yield
+    finally:
+        with _gc_holds_lock:
+            _gc_holds -= 1
+            if _gc_holds == 0 and _gc_was_enabled:
+                gc.enable()
+
+
 class NativeIngest:
     """One epoch-scoped native parser + directory context."""
 
@@ -368,6 +399,17 @@ class NativeIngest:
 
     def unlock(self) -> None:
         self._lib.vn_unlock(self._ctx)
+
+    @contextlib.contextmanager
+    def hold(self):
+        """``lock`` ... ``unlock`` around the block, with the collector
+        paused (``collector_paused``)."""
+        with collector_paused():
+            self.lock()
+            try:
+                yield
+            finally:
+                self.unlock()
 
     def ingest(self, datagram: bytes) -> int:
         return self._lib.vn_ingest(self._ctx, datagram, len(datagram))

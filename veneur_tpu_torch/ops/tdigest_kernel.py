@@ -13,8 +13,10 @@ would differ unless they do as the plain version does):
   staged samples (a compacted flat plane, or a dense [rows, B] one) loaded
   beside each other, the row's sample stats and its 12 new scalars, then
   K2a's row routine over the [C + B] candidates, in one warp a row for
-  C + B <= 256 (``td_fold_warps``); wider rows take ``td_stage_rows``
-  (the candidates and the scalars) and then K2a. It replaces
+  C + B <= 256 (``td_fold_warps``: a row whose pool part is sorted places
+  its staged samples by rank, on 32-bit keys); wider rows take
+  ``td_stage_rows`` (the candidates and the scalars) and then K2a. It
+  replaces
   ``_expand_flat_planes`` and ``_histo_fold_staged`` of
   veneur_tpu/core/worker.py (jitted XLA programs).
 * K2b ``add_batch`` — the spill fold of a raw-sample batch into digest
@@ -33,6 +35,7 @@ their plain versions and launch counts.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import threading
 
@@ -49,6 +52,12 @@ _KERNELS = (r"(td_(?:compress_warps|compress_wide|compress_scratch|sort_tile|"
 
 _lib = None
 _lib_lock = threading.Lock()
+# td_fold_warps' rows by the path the row routine's first sort took: the
+# sorted runs' merges, the rank path, a wider tail sorted alone, the whole
+# network (kPath* in the source); tallied on the card while
+# ``counting_paths`` holds a tensor
+PATHS = ("runs", "rank", "tail", "network")
+_paths = None
 
 
 def build():
@@ -96,7 +105,7 @@ def bind(lib):
     lib.td_fold_span.argtypes = []
     lib.td_fold_span.restype = ci
     lib.td_fold_staged_launch.argtypes = (
-        [vp, vp, vp, ll, ci, ci, vp, vp, vp, ll, vp, ci] + [vp] * 5 + [vp])
+        [vp, vp, vp, ll, ci, ci, vp, vp, vp, ll, vp, ci] + [vp] * 6 + [vp])
     lib.td_fold_staged_launch.restype = ci
     return lib
 
@@ -224,16 +233,33 @@ def fold_staged(fields, values, weights, offsets, total: int, depth: int,
     dev = _check_cuda(*fields, values, table,
                       *(t for t in (weights, offsets) if t is not None))
     lib = load()
+    paths = _paths if _paths is not None and _paths.device == dev else None
     with torch.cuda.device(dev):
         return run_fold_staged(lib, fields, values, weights, offsets, total,
-                               depth, table, _stream(dev))
+                               depth, table, _stream(dev), paths)
+
+
+@contextlib.contextmanager
+def counting_paths(device):
+    """Inside it, every K3 launch on ``device`` adds its one-warp rows
+    into the yielded int32 [4] tensor by path (``PATHS``); one atomic add
+    a row, off while no tally is held."""
+    global _paths
+    tally = torch.zeros(len(PATHS), dtype=torch.int32, device=device)
+    prev, _paths = _paths, tally
+    try:
+        yield tally
+    finally:
+        _paths = prev
 
 
 def run_fold_staged(lib, fields, values, weights, offsets, total: int,
-                    depth: int, table, stream) -> tuple[torch.Tensor, ...]:
+                    depth: int, table, stream, paths=None
+                    ) -> tuple[torch.Tensor, ...]:
     """K3 through ``lib``'s launcher on ``stream``, outputs (and, past
     one warp's row, the [S, C + B] candidates K2a compresses) on the
-    fields' device."""
+    fields' device; ``paths`` (int32 [4] there, or None) tallies the
+    one-warp rows by path."""
     means, w = fields[0], fields[1]
     dev = means.device
     s, c = means.shape
@@ -257,7 +283,7 @@ def run_fold_staged(lib, fields, values, weights, offsets, total: int,
         None if offsets is None else offsets.data_ptr(), total,
         table.data_ptr(), table.numel(), out_m.data_ptr(), out_w.data_ptr(),
         scal.data_ptr(), *([t.data_ptr() for t in cand] or [None, None]),
-        stream)
+        None if paths is None else paths.data_ptr(), stream)
     nvcc.check(rc, "td_fold_staged launch failed")
     if cand:
         out_m, out_w = run_compress(lib, cand[0], cand[1], c, table, stream)
