@@ -55,6 +55,22 @@ script exits non-zero:
    staged fold's torch.profiler trace (K3 alone, or the run fails); its
    median ms in each form, the plain chain's, the bound; the seconds it
    added.
+3d. the JAX system's tools, ported (tools/port_*.py): td.cdf on digest
+   rows (K2a's compress of [131,072, 192] digest candidates) at values
+   on, next to, between and past every row's min and max, bitwise the
+   CPU; the t-digest analysis's seven distributions at 100,000 samples
+   through one digest row (K2b), every estimate bitwise the CPU run's and
+   the worst q-error under 0.01; the differential fuzz's nine targets
+   other than query at a fixed seed, 2 s each, with 0 divergences and
+   device_fallback injecting all four fault kinds into a card worker
+   (its faulted ops fail over to the CPU; K1, K2b, K3, K4 and K5 launch,
+   ``launches_fuzz``), then query from its own seed: its quantile check
+   diverges on every seed in both packages (ROADMAP §3, F9), so its
+   divergence must be F9's, with the card's quantile_rows bitwise the
+   CPU's there. The replay CLI's part runs in phase 15b, over its archive
+   directory: ``--inspect``, ``--target`` into a card global (counters
+   and gauges bitwise the flushed ones), ``--dedup`` twice (merged
+   once). The phase's seconds are printed.
 4. one worker interval at the mixed configuration of BASELINE.md
    (100k series, bench.py's "mixed" mix): 80,000 histogram/timer series
    made through process_metric, 40 samples each staged through
@@ -324,10 +340,11 @@ script exits non-zero:
    12 (``launches_proxy``), in phase 11 (``launches_spans``) and in
    phase 13 (``launches_query``), in 14a (``launches_governed``), in
    14b (``launches_pipeline``), in phase 15 (``launches_sinks``), in
-   16a (``launches_series``), in 16b (``launches_mesh``) and in 17a,
-   17b and 17c (``launches_loadgen``), each counted from 0 just before
-   its run; the probe's variants beside it, with their build report and
-   launches (only the variant flush_extract launches has any).
+   16a (``launches_series``), in 16b (``launches_mesh``), in 3d's fuzz
+   (``launches_fuzz``) and in 17a, 17b and 17c (``launches_loadgen``),
+   each counted from 0 just before its run; the probe's variants beside
+   it, with their build report and launches (only the variant
+   flush_extract launches has any).
 19. the last line: {"ok": true, "device": {...}}.
 
 Without CUDA, or without the veneur_tpu_torch package beside it, the
@@ -365,6 +382,9 @@ probe = None  # tools/port_probe_extract.py, imported by main()
 probe_hll = None  # tools/port_probe_hll.py, imported by main()
 probe_td = None  # tools/port_probe_tdigest.py, imported by main()
 guard_faults = None  # tools/port_guard_faults.py, imported by main()
+# phase 3d's tools (tools/port_tdigest_analysis.py,
+# tools/port_fuzz_differential.py, tools/port_replay_archive.py)
+analysis_tool = fuzz_tool = replay_tool = None
 # micro-folds in phase 6: one every this many 16,384-sample staging
 # batches (Python path) or drains (native path)
 MICRO_EVERY, MICRO_EVERY_NATIVE = 16, 4
@@ -5051,10 +5071,17 @@ def phase_sinks_server(ek) -> dict:
 
     grams = server_datagrams(seed=9, spill=False)
     spans = sink_span_packets(SINK_SPANS)
-    with tempfile.TemporaryDirectory(prefix="vsmoke15b") as tmp, \
-            pinned_sink_clocks():
-        card = sinks_server_once(DEVICE, grams, spans, Path(tmp), ek)
-        cpu = sinks_server_once("cpu", grams, spans, Path(tmp) / "twin", ek)
+    with tempfile.TemporaryDirectory(prefix="vsmoke15b") as tmp:
+        with pinned_sink_clocks():
+            card = sinks_server_once(DEVICE, grams, spans, Path(tmp), ek)
+            cpu = sinks_server_once("cpu", grams, spans, Path(tmp) / "twin",
+                                    ek)
+        # phase 3d's replay CLI, over this phase's archive directory
+        t0 = time.perf_counter()
+        replay_cli = phase_replay_cli(Path(tmp) / "card" / "archive",
+                                      card["archive"],
+                                      sink_scalars(card["metrics"]))
+        replay_cli["seconds"] = time.perf_counter() - t0
     if card["launched"] < 1:
         raise AssertionError("phase 15b: the flush launched no K1")
     if "plugin_flush_s" not in card["phases"]:
@@ -5108,7 +5135,222 @@ def phase_sinks_server(ek) -> dict:
             "metrics": len(card["metrics"]), "flush_s": card["flush_s"],
             "phases": card["phases"], "launched": card["launched"],
             "replay_s": replay_s, "scalars": len(expected),
-            "deduped": imp.metrics_deduped}
+            "deduped": imp.metrics_deduped, "replay_cli": replay_cli}
+
+
+# -- phase 3d -----------------------------------------------------------------
+
+
+# 3d's cdf runs on digest rows compressed from phase 3c's K2a shape; the
+# analysis takes the tool's default sample count. The fuzz runs its nine
+# targets other than query for FUZZ_S seconds each from FUZZ_SEED: the
+# first seed whose device_fallback cases inject all four fault kinds and
+# reach K1 to K5 within 8 cases (a CPU run of the target counted them).
+# query runs from QUERY_SEED, the seed of 1 to 400 whose first quantile
+# divergence comes latest (50 clean cases: the HLL, CMS and quantile
+# programs run on the card first), until that divergence or QUERY_S: on
+# every seed its quantile check diverges on a row whose slot search
+# passes the last live centroid (ROADMAP §3, F9, in both packages).
+CDF_SHAPE = (131_072, 192)
+ANALYSIS_SAMPLES = 100_000
+FUZZ_SEED, FUZZ_S = 12, 2.0
+QUERY_SEED, QUERY_S = 104, 10.0
+
+
+def phase_cdf(td) -> dict:
+    """td.cdf on the card over digest rows (K2a's compress of phase 3c's
+    [131,072, 192] digest candidates, 16 edge rows in front) at values on,
+    next to, between and past each row's min and max: bitwise the CPU's,
+    every finite fraction in [0, 1]."""
+    import torch
+
+    from veneur_tpu_torch.ops import exactnum as exn
+
+    s, m = CDF_SHAPE
+    cm, cw = probe_td.digest_candidates(s, m, s + m, DEVICE)
+    cm[:16], cw[:16] = probe_td.edge_rows(m, DEVICE)
+    means, w = td.compress_rows(cm, cw, probe_td.COMPRESSION, probe_td.C)
+    del cm, cw
+    live = w > 0
+    inf = float("inf")
+    dmin = exn.amin(torch.where(live, means, inf), 1)
+    dmax = exn.amax(torch.where(live, means, -inf), 1)
+    u = torch.rand((s,), generator=probe_td._gen(s, DEVICE), device=DEVICE)
+    odd = torch.arange(s, device=DEVICE) % 2 == 1
+    down, up = torch.full_like(dmin, -inf), torch.full_like(dmin, inf)
+    # five value sets, each row meeting both sides of its min and max:
+    # the next float past a bound (half the rows each side), the bound
+    # itself (the same halves), the next float inside each bound, and a
+    # value between them
+    values = {"past": torch.where(odd, torch.nextafter(dmax, up),
+                                  torch.nextafter(dmin, down)),
+              "at": torch.where(odd, dmin, dmax),
+              "above_min": torch.nextafter(dmin, up),
+              "below_max": torch.nextafter(dmax, down),
+              "inside": dmin + u * (dmax - dmin)}
+    cpu = [t.cpu() for t in (means, w, dmin, dmax)]
+    out = {}
+    for name, v in values.items():
+        sync()
+        t0 = time.perf_counter()
+        got = td.cdf(means, w, dmin, dmax, v)
+        sync()
+        ms = (time.perf_counter() - t0) * 1e3
+        ref = td.cdf(*cpu, v.cpu())
+        same, _ = probe.bitwise_equal(got.cpu(), ref)
+        fin = got[torch.isfinite(got)]
+        if not same or bool(((fin < 0) | (fin > 1)).any()):
+            raise AssertionError(f"phase 3d: cdf at {name} is not bitwise "
+                                 "the CPU's, or a fraction leaves [0, 1]")
+        out[name] = {"ms": ms, "nan_rows": int(torch.isnan(got).sum())}
+    log(f"[tools] cdf on [{s:,}, {probe_td.C}] digest rows (K2a of "
+        f"[{s:,}, {m}]) at {len(values)} value sets across every row's "
+        f"min and max: bitwise the CPU's, fractions in [0, 1]")
+    return out
+
+
+def phase_analysis(td) -> dict:
+    """tools/port_tdigest_analysis.py's seven distributions at
+    ANALYSIS_SAMPLES samples through one digest row on the card (K2b) and
+    on the CPU: every estimate bitwise, the worst q-error under the
+    tool's bound."""
+    import tempfile
+
+    import numpy as np
+
+    out = {}
+    before = td.add_batch.launches
+    with tempfile.TemporaryDirectory(prefix="vsmoke3d") as tmp:
+        for name in sorted(analysis_tool.DISTRIBUTIONS):
+            draw = analysis_tool.DISTRIBUTIONS[name]
+            card = analysis_tool.analyze(name, draw, ANALYSIS_SAMPLES, 100.0,
+                                         f"{tmp}/card", device=DEVICE)
+            cpu = analysis_tool.analyze(name, draw, ANALYSIS_SAMPLES, 100.0,
+                                        f"{tmp}/cpu", device="cpu")
+            if not np.array_equal(card["estimated"].view(np.uint32),
+                                  cpu["estimated"].view(np.uint32)):
+                raise AssertionError(f"phase 3d: the {name} analysis's "
+                                     "estimates on the card differ from "
+                                     "the CPU's")
+            out[name] = {k: card[k] for k in ("max_q_err", "mean_q_err",
+                                              "centroids", "seconds")}
+            out[name]["cpu_seconds"] = cpu["seconds"]
+    launched = td.add_batch.launches - before
+    worst = max(r["max_q_err"] for r in out.values())
+    if worst >= analysis_tool.MAX_Q_ERR or (DEVICE == "cuda"
+                                             and launched < len(out)):
+        raise AssertionError(f"phase 3d: worst q-error {worst} (bound "
+                             f"{analysis_tool.MAX_Q_ERR}), K2b launched "
+                             f"{launched} times for {len(out)} digests")
+    log(f"[tools] t-digest analysis, {len(out)} distributions x "
+        f"{ANALYSIS_SAMPLES:,} samples through K2b: estimates bitwise the "
+        f"CPU's, worst q-error {worst:.5f}, card "
+        f"{sum(r['seconds'] for r in out.values()):.3f} s in all")
+    return {"distributions": out, "worst_q_err": worst,
+            "add_batch_launches": launched}
+
+
+def phase_fuzz() -> dict:
+    """tools/port_fuzz_differential.py on the card: its nine targets
+    other than query for FUZZ_S each from FUZZ_SEED, with 0 divergences
+    and device_fallback injecting every fault kind; then query from
+    QUERY_SEED, whose divergence must be the one of ROADMAP §3's F9 (the
+    quantile slot past the last live centroid) with the card's
+    quantile_rows bitwise the CPU's on that case."""
+    import torch
+
+    from veneur_tpu_torch.ops import query as qops
+
+    nine = [t for t in fuzz_tool.TARGETS if t != "query"]
+    res = fuzz_tool.run_round(nine, FUZZ_S, FUZZ_SEED, DEVICE)
+    if res["divergences"] or sorted(res["per_target"]) != sorted(nine):
+        raise AssertionError(f"phase 3d: the fuzz diverged: "
+                             f"{res['divergences']}")
+    injected = res["stats"]["device_fallback"]["injected"]
+    if min(injected.values()) < 1:
+        raise AssertionError(f"phase 3d: device_fallback injected {injected}"
+                             ", not every fault kind")
+    q = fuzz_tool.run_round(["query"], QUERY_S, QUERY_SEED, DEVICE)
+    case = q["stats"].get("query", {}).pop("case", None)
+    query = {"cases": q["per_target"].get("query"),
+             "seconds": q["seconds"]["query"]}
+    if q["divergences"]:
+        rows = torch.from_numpy(case["rows"])
+        cpu = qops.quantile_rows(*(torch.from_numpy(case[k]) for k in (
+            "means", "weights", "dmin", "dmax")), rows,
+            torch.from_numpy(case["qs"])).numpy()
+        same, _ = probe.bitwise_equal(torch.from_numpy(case["got"]),
+                                      torch.from_numpy(cpu))
+        if q["stats"]["query"]["failed_check"] != "quantile" or not same \
+                or not fuzz_tool.quantile_case_past_last_live(case):
+            raise AssertionError(f"phase 3d: query diverged on "
+                                 f"{q['stats']['query']} otherwise than "
+                                 "F9, or the card's quantile_rows differs "
+                                 "from the CPU's there")
+        query["cases"], query["f9"] = case["index"], True
+    log(f"[tools] fuzz on {DEVICE}, seed {FUZZ_SEED}, {FUZZ_S} s a target: "
+        + ", ".join(f"{k} {v:,}" for k, v in res["per_target"].items())
+        + f" cases clean; device_fallback injected {injected}; query from "
+        f"seed {QUERY_SEED}: {query['cases']} cases clean, then "
+        + ("F9's quantile case, the card bitwise the CPU there"
+           if q["divergences"] else "no divergence"))
+    return {"per_target": res["per_target"], "seconds": res["seconds"],
+            "injected": injected, "seed": FUZZ_SEED, "query": query,
+            "query_seed": QUERY_SEED}
+
+
+def phase_replay_cli(archive: Path, frames: list, expected: dict) -> dict:
+    """tools/port_replay_archive.py over 15b's archive directory:
+    ``--inspect``, then ``--target`` into a fresh port global on the card
+    over gRPC (its counters and gauges bitwise the flushed ones), then a
+    ``--dedup`` replay run twice into another (merged once)."""
+    import io
+
+    from veneur_tpu_torch.core.config import Config
+    from veneur_tpu_torch.core.server import Server
+    from veneur_tpu_torch.distributed.import_server import ImportServer
+
+    def cli(*args) -> dict:
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            rc = replay_tool.main(["--dir", str(archive), *args])
+        line = json.loads(buf.getvalue().strip().splitlines()[-1])
+        if rc != 0:
+            raise AssertionError(f"phase 3d: the replay CLI {args} exited "
+                                 f"{rc}: {line}")
+        return line
+
+    census = cli("--inspect")
+    if census["frames"] != len(frames) or census["frames_undecodable"] \
+            or census["skipped_inexact"] or not census["importable"]:
+        raise AssertionError(f"phase 3d: the replay CLI's census {census}")
+    out = {"inspect": census}
+    for mode, flags, runs in (("replay", (), 1), ("dedup", ("--dedup",), 2)):
+        glob = Server(Config(interval="10s"), device=DEVICE)
+        imp = ImportServer(glob)
+        try:
+            imp.start_grpc("127.0.0.1:0")
+            lines = [cli("--target", imp.address, *flags)
+                     for _ in range(runs)]
+            got = sink_scalars(glob.flush(now=SINKS_NOW))
+        finally:
+            imp.stop()
+            glob.shutdown()
+        if got != expected:
+            raise AssertionError(f"phase 3d: the CLI's {mode} into a card "
+                                 "global gave other counters and gauges "
+                                 "than the flush")
+        if flags and (imp.metrics_deduped != lines[1]["imported"]
+                     or lines[0]["imported"] != lines[1]["imported"]):
+            raise AssertionError(f"phase 3d: the CLI's dedup replay run "
+                                 f"twice merged {imp.metrics_deduped} of "
+                                 f"{lines[1]['imported']} twice")
+        out[mode] = {"stats": lines, "deduped": imp.metrics_deduped}
+    log(f"[tools] replay CLI over 15b's archive ({len(frames)} frames): "
+        f"--inspect {census['importable']} importable, --target into a "
+        f"global on {DEVICE}: {len(expected)} counters and gauges bitwise, "
+        f"--dedup twice merged once ({out['dedup']['deduped']} deduped)")
+    return out
 
 
 # -- main ---------------------------------------------------------------------
@@ -5432,7 +5674,11 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     sys.path.insert(0, str(ROOT / "tools"))
     global probe, probe_hll, probe_td, guard_faults
+    global analysis_tool, fuzz_tool, replay_tool
+    import port_fuzz_differential as fuzz_tool
     import port_guard_faults as guard_faults
+    import port_replay_archive as replay_tool
+    import port_tdigest_analysis as analysis_tool
     import port_probe_extract as probe
     import port_probe_hll as probe_hll
     import port_probe_tdigest as probe_td
@@ -5554,6 +5800,20 @@ def main() -> int:
     wall["tdigest_fold_staged_s"] = time.perf_counter() - t0
     log(f"[tdigest] K3's checks, trace and times added "
         f"{wall['tdigest_fold_staged_s']:.1f} s")
+    # 3d: td.cdf, the t-digest analysis and the fuzz on the card (the
+    # replay CLI's part runs in phase 15b, over its archive directory);
+    # the fuzz's launches counted from 0 just before it
+    t0 = time.perf_counter()
+    tools_rec = {"cdf": phase_cdf(td), "analysis": phase_analysis(td)}
+    reset_launches(ek, hll)
+    tools_rec["fuzz"] = phase_fuzz()
+    launches_fuzz = read_launches(ek, hll)
+    for name in ("flush_extract", "tdigest_add_batch", "tdigest_fold_staged",
+                 "hll_insert", "hll_estimate"):
+        if launches_fuzz[name] < 1:
+            raise AssertionError(f"{name} was not launched by the fuzz "
+                                 "(phase 3d)")
+    wall["tools_s"] = time.perf_counter() - t0
 
     # 4 + 5: the main path, launch counts reset just before
     aggs = HistogramAggregates.from_names(["min", "max", "count"])
@@ -5603,7 +5863,13 @@ def main() -> int:
     phases["sinks"] = {"batch": phase_sinks_batch(batch, batch_c)}
     del batch, batch_c
     phases["sinks"]["server"] = phase_sinks_server(ek)
-    wall["sinks_s"] = time.perf_counter() - t0
+    tools_rec["replay_cli"] = phases["sinks"]["server"].pop("replay_cli")
+    phases["tools"] = tools_rec
+    cli_s = tools_rec["replay_cli"]["seconds"]
+    wall["sinks_s"] = time.perf_counter() - t0 - cli_s
+    wall["tools_s"] += cli_s
+    log(f"[tools] phase 3d took {wall['tools_s']:.1f} s (the replay CLI's "
+        f"{cli_s:.1f} s of it in phase 15b)")
     launches_sinks = read_launches(ek, hll)
     if launches_sinks["flush_extract"] < 1:
         raise AssertionError("flush_extract was not launched on the sinks' "
@@ -5728,6 +5994,7 @@ def main() -> int:
                 "launches_sinks": launches_sinks[name],
                 "launches_series": launches_series[name],
                 "launches_mesh": launches_mesh[name],
+                "launches_fuzz": launches_fuzz[name],
                 "launches_loadgen": {part: got[name] for part, got
                                      in launches_loadgen.items()}}
 

@@ -46,7 +46,10 @@ depths 64, 40 and 1, the edge rows of probe_td.fold_inputs, rows of
 denormals (F7), the wide form past 256 candidates (K2a's block kernel
 and its slab), a 4-shard split, with torch's ops patched to raise, and
 the rank path's edge rows (probe_td.rank_case) with the card's tally of
-each row's path.
+each row's path; and the ported tools: td.cdf on digest rows at values
+around every row's bounds, the t-digest analysis's seven distributions
+(estimates bitwise the CPU's) and every fuzz target on the card (query's
+F9 divergence the CPU's, bit for bit).
 
 Every test here is marked ``cuda`` and skips without a card. On a card
 machine (no JAX needed) run them with
@@ -79,6 +82,8 @@ import port_guard_faults as guard_faults  # noqa: E402
 import port_probe_extract as probe  # noqa: E402
 import port_probe_hll as probe_hll  # noqa: E402
 import port_probe_tdigest as probe_td  # noqa: E402
+import port_fuzz_differential as fuzz_tool  # noqa: E402
+import port_tdigest_analysis as analysis_tool  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -202,8 +207,10 @@ def test_edge_rows(card, r, p):
 
 def test_kernel_refuses_what_it_cannot_take(card):
     fields = [f.to(card) for f in _pool(8, 1)]
+    # the kernel takes P >= 1 (flush_extract runs P = 0 at P = 1, F10)
     with pytest.raises(ValueError):
-        ek.flush_extract(*fields, torch.zeros(0, device=card))
+        ek._flush_extract_variant(ek.ROWS_PER_WARP, *fields,
+                                  torch.zeros(0, device=card))
     wide = [torch.zeros((8, 256), device=card)] * 2 + fields[2:]
     with pytest.raises(ValueError):
         ek.flush_extract(*wide, torch.tensor([0.5], device=card))
@@ -1846,3 +1853,102 @@ def test_fold_staged_denormal_rows_card_equals_cpu(card):
         ref = _fold_cpu(fields, stage)
         for a, r in zip(got, ref):
             assert _bitwise(a, r)
+
+
+def test_flush_extract_without_quantiles_card_equals_cpu(card):
+    """F10: a configuration without percentiles or the median extracts at
+    P = 0; the card launches K1 at P = 1 and drops that column, bitwise
+    the CPU's plain [S, 10]; a server on the card with the default
+    configuration flushes its timers as a CPU server does."""
+    fields = _pool(4_099, 13)
+    q0 = torch.zeros(0)
+    before = ek.flush_extract.launches
+    got = ek.flush_extract(*(f.to(card) for f in fields), q0.to(card))
+    assert ek.flush_extract.launches == before + 1
+    assert got.shape == (4_099, 10) and _bitwise(
+        got, ek.flush_extract(*fields, q0))
+
+    def serve(dev):
+        srv = Server(Config(interval="10s"), device=dev)
+        try:
+            for i in range(50):
+                srv.process_metric_packet(f"t{i % 7}:{i}.25|ms".encode())
+            return sorted((m.name, tuple(m.tags), m.type.name,
+                           float(m.value)) for m in srv.flush(now=1))
+        finally:
+            srv.shutdown()
+
+    got, ref = serve(card), serve("cpu")
+    assert got == ref and len(got) == 21
+
+
+# -- the ported tools (tools/port_tdigest_analysis.py,
+# tools/port_fuzz_differential.py) and td.cdf --------------------------------
+
+
+def test_cdf_card_equals_cpu(card):
+    """td.cdf on digest rows (K2a's compress of main-path candidates, 16
+    edge rows in front) at values on, next to, inside and past every
+    row's min and max: bitwise the CPU's."""
+    from veneur_tpu_torch.ops import exactnum as exn
+    from veneur_tpu_torch.ops import tdigest as ttd
+
+    s, m = 4_099, 192
+    cm, cw = probe_td.digest_candidates(s, m, 11, card)
+    cm[:16], cw[:16] = probe_td.edge_rows(m, card)
+    means, w = ttd.compress_rows(cm, cw, probe_td.COMPRESSION, C)
+    live = w > 0
+    inf = float("inf")
+    dmin = exn.amin(torch.where(live, means, inf), 1)
+    dmax = exn.amax(torch.where(live, means, -inf), 1)
+    u = torch.rand((s,), generator=probe_td._gen(5, card), device=card)
+    cpu = [t.cpu() for t in (means, w, dmin, dmax)]
+    for v in (dmin, dmax, torch.nextafter(dmin, dmin - 1),
+              torch.nextafter(dmax, dmax + 1), dmin + u * (dmax - dmin),
+              torch.where(u < 0.5, dmin - 1, dmax + 1)):
+        assert _bitwise(ttd.cdf(means, w, dmin, dmax, v),
+                        ttd.cdf(*cpu, v.cpu()))
+
+
+def test_analysis_card_equals_cpu(card, tmp_path):
+    for name, draw in sorted(analysis_tool.DISTRIBUTIONS.items()):
+        got = analysis_tool.analyze(name, draw, 20_000, 100.0,
+                                    str(tmp_path / "card"), device=card)
+        ref = analysis_tool.analyze(name, draw, 20_000, 100.0,
+                                    str(tmp_path / "cpu"), device="cpu")
+        assert np.array_equal(got["estimated"].view(np.uint32),
+                              ref["estimated"].view(np.uint32)), name
+        assert got["max_q_err"] < analysis_tool.MAX_Q_ERR
+
+
+@pytest.fixture(scope="module")
+def fuzz_card(card):
+    """The card, with the native libraries built before any target's
+    clock starts."""
+    from veneur_tpu_torch import native
+
+    native.load_library()
+    native.load_loadgen_library()
+    return card
+
+
+@pytest.mark.parametrize("name", [t for t in fuzz_tool.TARGETS
+                                  if t != "query"])
+def test_fuzz_target_on_card(fuzz_card, name):
+    res = fuzz_tool.run_round([name], 1.0, 12, fuzz_card)
+    assert not res["divergences"] and res["per_target"][name] > 0
+    if name == "device_fallback":
+        assert sum(res["stats"][name]["injected"].values()) > 0
+
+
+def test_fuzz_query_on_card_diverges_as_on_the_cpu(fuzz_card):
+    """The query target's quantile check diverges (F9, in both packages)
+    on the same case on the card as on the CPU, the card's result bitwise
+    the CPU's; its HLL (K5), CMS and top-k checks pass before it."""
+    got = fuzz_tool.run_round(["query"], 60.0, 104, fuzz_card)
+    ref = fuzz_tool.run_round(["query"], 60.0, 104, "cpu")
+    gc, rc = got["stats"]["query"]["case"], ref["stats"]["query"]["case"]
+    assert got["divergences"] and ref["divergences"]
+    assert gc["index"] == rc["index"] > 0
+    assert fuzz_tool.quantile_case_past_last_live(gc)
+    assert _bitwise(torch.from_numpy(gc["got"]), torch.from_numpy(rc["got"]))

@@ -169,6 +169,34 @@ def test_wrapper_refuses_bad_inputs():
         ek.flush_extract(*fields[:-1], fields[-1].to("meta"), qs)
 
 
+def test_no_quantiles_equal_jax_and_the_card_path_drops_its_stand_in(
+        monkeypatch):
+    """A configuration without percentiles or the median extracts at
+    P = 0: the plain version equals the JAX path's [S, 10]. On a CUDA
+    tensor the kernel takes P >= 1, so the dispatcher launches it at
+    P = 1 and drops that column (here the launch stands in the plain
+    version for meta-device inputs): its aggregates are the P = 0 ones,
+    bitwise."""
+    fields = _fields(64, 7)
+    q0 = np.zeros(0, np.float32)
+    _assert_bitwise(_jax_packed(fields, q0), _torch_packed(fields, q0),
+                    "P=0")
+    cpu = [torch.from_numpy(f) for f in fields]
+    seen = []
+
+    def launch(r, flds, qs):
+        seen.append((r, tuple(qs.shape), qs.device.type))
+        return ek.flush_extract_plain(*cpu, torch.zeros(qs.shape))
+
+    monkeypatch.setattr(ek, "_launch", launch)
+    monkeypatch.setattr(ek.flush_extract, "launches", 0)
+    got = ek.flush_extract(*(f.to("meta") for f in cpu),
+                           torch.zeros(0, device="meta"))
+    assert seen == [(ek.ROWS_PER_WARP, (1,), "meta")]
+    assert ek.flush_extract.launches == 1 and got.is_contiguous()
+    _assert_bitwise(got.numpy(), _torch_packed(fields, q0), "stand-in")
+
+
 def _edge_fields(s=400):
     return probe.edge_pool(s, seed=13)
 

@@ -241,13 +241,20 @@ def flush_extract(means, weights, dmin, dmax, drecip, drecip_c,
     """Packed flush extract f32[S, P+10] (column layout in the CUDA
     source). CPU tensors take the plain version; CUDA tensors launch the
     kernel (one launch: the narrow kernel at P <= 16, the wide one past
-    it), which takes C = 128 and any P >= 1, or raise."""
+    it), which takes C = 128 and any P >= 1, or raise. With no quantile
+    (a configuration without percentiles or the median) the kernel runs
+    at P = 1 and its quantile column is dropped: the aggregate columns do
+    not read the quantiles."""
     fields = (means, weights, dmin, dmax, drecip, drecip_c, lmin, lmax,
               lsum, lsum_c, lweight, lweight_c, lrecip, lrecip_c)
     if means.device.type == "cpu":
         _check(fields, qs)
         return flush_extract_plain(*fields, qs)
-    out = _launch(ROWS_PER_WARP, fields, qs)
+    if qs.ndim == 1 and qs.shape[0] == 0:
+        out = _launch(ROWS_PER_WARP, fields, qs.new_zeros((1,)))[:, 1:]
+        out = out.contiguous()
+    else:
+        out = _launch(ROWS_PER_WARP, fields, qs)
     flush_extract.launches += 1
     return out
 

@@ -463,6 +463,32 @@ def quantile(means, weights, dmin, dmax, qs) -> torch.Tensor:
     return torch.where(ok, out, float("nan"))
 
 
+def cdf(means, weights, dmin, dmax, values) -> torch.Tensor:
+    """Batched CDF: [S, C] digests × [S] f32 values → [S] fractions of
+    the weight below each value, each slot's weight spread uniformly
+    over its bounds. A value at or below the row's min gives 0.0, at or
+    above its max 1.0; an empty row gives NaN.
+
+    The JAX package sums with ``jnp.sum``, which has no fixed order; here
+    the sums are ``exactnum.tsum`` trees, so the card gives the CPU's
+    bits."""
+    z = exn.flush_denormals
+    means, weights, dmin, dmax, values = (z(a) for a in (
+        means, weights, dmin, dmax, values))
+    ub, count = _row_bounds(means, weights, dmax)
+    total = exn.tsum(weights, flush=True)
+    lb = torch.cat([dmin[:, None], ub[:, :-1]], dim=-1)
+    v = values[:, None]
+    inside = (v >= lb) & (v < ub)
+    part = z(z(weights * z(v - lb)) / torch.clamp_min(z(ub - lb), _TINY))
+    frac = torch.where(inside, part,
+                       torch.where(v >= ub, weights, torch.zeros_like(part)))
+    out = z(exn.tsum(frac, flush=True) / torch.clamp_min(total, _TINY))
+    out = torch.where(values <= dmin, 0.0, out)
+    out = torch.where(values >= dmax, 1.0, out)
+    return torch.where((total > 0) & (count > 0), out, float("nan"))
+
+
 def row_sum(means, weights) -> torch.Tensor:
     """Σ mean·weight per row, tree-summed."""
     z = exn.flush_denormals
