@@ -1,7 +1,8 @@
-"""What the port's soaks share (tools/port_soak_*.py): the blaster
-workload, RSS sampling and its split, tail draining, the device check,
-warming the device before a soak's clock starts, device memory, the
-fleet soaks' line batching and exact global accounting, and atomic
+"""What the port's soaks and measuring tools share (tools/port_soak_*.py,
+tools/port_bench_*.py): the blaster workload, RSS sampling and its split,
+tail draining, the device check, the card's line and the host's cores,
+warming the device before a clock starts, device memory and launches,
+the fleet soaks' line batching and exact global accounting, and atomic
 artifact writes. The port's copy of tools/_soak_common.py, with two
 departures: an artifact lands under chiprun_out/ (or VENEUR_ARTIFACT_DIR),
 never beside the JAX system's root *_SOAK.json files, and ``device_arg``
@@ -199,6 +200,29 @@ def require_device(device: str) -> str:
               "--device cpu to run on the CPU", file=sys.stderr)
         sys.exit(2)
     return device
+
+
+def host_cores() -> int:
+    """The cores this process may run on (``os.sched_getaffinity``)."""
+    try:
+        return len(os.sched_getaffinity(0))
+    except AttributeError:
+        return os.cpu_count() or 1
+
+
+def device_line(device: str) -> str:
+    """The card's name and power limit as nvidia-smi prints them, or
+    ``cpu``: the measuring tools' ``device`` key."""
+    return "cpu" if device == "cpu" else card_line()
+
+
+def sync(device) -> None:
+    """Wait for the device's queued work (a no-op on the CPU), so that a
+    timed region ends after the device work it started."""
+    import torch
+
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
 
 
 def warm_device(device: str, mark=None) -> dict:

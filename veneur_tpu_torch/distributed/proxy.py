@@ -31,6 +31,7 @@ from __future__ import annotations
 
 import json
 import logging
+import os
 import queue
 import random
 import socket
@@ -329,6 +330,31 @@ class _StreamAdmissionSink:
             done(True)
         else:
             done(_codec.STREAM_ACK_BUSY)
+
+
+def thread_cpu_ns(tid: int) -> Optional[int]:
+    """A thread of this process's on-CPU nanoseconds: /proc/self/task/
+    <tid>/schedstat's first field, or, on a kernel that keeps no
+    schedstats (the file missing, or reading 0 for a thread that ran),
+    the user and system clock ticks of its ``stat``; None once the
+    thread is gone."""
+    base = f"/proc/self/task/{tid}"
+    try:
+        with open(base + "/schedstat") as f:
+            ns = int(f.read().split()[0])
+        if ns > 0:
+            return ns
+    except (OSError, ValueError, IndexError):
+        pass
+    try:
+        with open(base + "/stat") as f:
+            # fields after the parenthesised name: utime and stime are
+            # the 14th and 15th of the line, the 12th and 13th here
+            rest = f.read().rsplit(")", 1)[1].split()
+        ticks = int(rest[11]) + int(rest[12])
+    except (OSError, ValueError, IndexError):
+        return None
+    return ticks * 1_000_000_000 // os.sysconf("SC_CLK_TCK")
 
 
 class ProxyServer:
@@ -711,22 +737,20 @@ class ProxyServer:
             self._cpu_tids.add(tid)
 
     def cpu_seconds(self) -> float:
-        """Cumulative CPU runtime of this proxy's worker threads, from
-        /proc/self/task/<tid>/schedstat (field 1: on-cpu nanoseconds).
-        A thread that exited keeps its last observed reading, so deltas
-        across a measurement window never go backwards. Returns 0.0
-        where /proc is unavailable (non-Linux) — callers treat that as
-        'no attribution', not as free work."""
+        """Cumulative CPU runtime of this proxy's worker threads
+        (``thread_cpu_ns``). A thread that exited keeps its last
+        observed reading, so deltas across a measurement window never go
+        backwards. Returns 0.0 where /proc is unavailable (non-Linux) —
+        callers treat that as 'no attribution', not as free work."""
         with self._cpu_lock:
             tids = list(self._cpu_tids)
         total_ns = 0
         for tid in tids:
-            try:
-                with open(f"/proc/self/task/{tid}/schedstat") as f:
-                    ns = int(f.read().split()[0])
-                self._cpu_last_ns[tid] = ns
-            except (OSError, ValueError, IndexError):
+            ns = thread_cpu_ns(tid)
+            if ns is None:
                 ns = self._cpu_last_ns.get(tid, 0)
+            else:
+                self._cpu_last_ns[tid] = ns
             total_ns += ns
         return total_ns / 1e9
 

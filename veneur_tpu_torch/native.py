@@ -149,7 +149,9 @@ def load_library() -> ctypes.CDLL:
         lib.vn_ingest_routed.argtypes = [c.POINTER(vp), ci, c.c_char_p, ci]
         for name in ("vn_pending_histo", "vn_pending_set",
                      "vn_pending_counter", "vn_pending_gauge",
-                     "vn_pending_new_series"):
+                     "vn_pending_new_series", "vn_num_histo_rows",
+                     "vn_num_set_rows", "vn_num_counter_rows",
+                     "vn_num_gauge_rows"):
             fn = getattr(lib, name)
             fn.restype = ci
             fn.argtypes = [vp]
@@ -184,6 +186,8 @@ def load_library() -> ctypes.CDLL:
         lib.vn_stage_free.argtypes = [vp]
         lib.vn_stage_pending.restype = ll
         lib.vn_stage_pending.argtypes = [vp]
+        lib.vn_stage_total.restype = ll
+        lib.vn_stage_total.argtypes = [vp]
         lib.vn_stage_drain_delta.restype = c.c_int64
         lib.vn_stage_drain_delta.argtypes = [vp, vp, vp, vp, vp, c.c_int64]
         lib.vn_stage_unit_wts.restype = ci
@@ -482,12 +486,26 @@ class NativeIngest:
         """Entries per pending SoA batch before samples shed."""
         self._lib.vn_set_spill_cap(self._ctx, int(cap))
 
+    def num_rows(self) -> tuple[int, int, int, int]:
+        """(histo, set, counter, gauge) row counts of this epoch's
+        directory."""
+        return (self._lib.vn_num_histo_rows(self._ctx),
+                self._lib.vn_num_set_rows(self._ctx),
+                self._lib.vn_num_counter_rows(self._ctx),
+                self._lib.vn_num_gauge_rows(self._ctx))
+
     # staging plane ----------------------------------------------------------
 
     def set_stage_depth(self, depth: int) -> None:
         """Enable the C++ raw-sample staging plane with B slots per
         histogram row (0 disables); detach_stage() pulls it at flush."""
         self._lib.vn_set_stage_depth(self._ctx, depth)
+
+    @property
+    def stage_total(self) -> int:
+        """Staged samples in the plane (telemetry, drain-threshold
+        checks)."""
+        return int(self._lib.vn_stage_total(self._ctx))
 
     @property
     def stage_pending(self) -> int:
@@ -828,6 +846,10 @@ class NativeRouter:
         """Contention record of one shard's mutex (NativeIngest's)."""
         return _lock_stats(self._lib, self._contexts[shard]._ctx)
 
+    def reset_lock_stats(self) -> None:
+        """Zero every shard's contention record."""
+        for c in self._contexts:
+            self._lib.vn_lock_stats_reset(c._ctx)
 
 
 def _lock_stats(lib, ctx) -> dict:
